@@ -10,10 +10,13 @@ setup(
         "image segmentation, with a YAML-config training harness"
     ),
     author="unet-zoo-tpu contributors",
-    packages=find_packages(include=["unet_zoo_tpu", "unet_zoo_tpu.*"]),
+    packages=find_packages(include=["unet_zoo_tpu", "unet_zoo_tpu.*",
+                                    "unet_zoo_tpu_torch", "unet_zoo_tpu_torch.*"]),
     # the native decode pipeline ships as source and builds lazily with
-    # the system g++ on first use (unet_zoo_tpu/native/__init__.py)
-    package_data={"unet_zoo_tpu.native": ["io_native.cpp"]},
+    # the system g++ on first use (unet_zoo_tpu/native/__init__.py); the
+    # port's CUDA kernels likewise build with nvcc on first launch
+    package_data={"unet_zoo_tpu.native": ["io_native.cpp"],
+                  "unet_zoo_tpu_torch.ops.kernels": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

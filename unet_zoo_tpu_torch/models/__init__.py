@@ -1,0 +1,170 @@
+"""Model registry: ``create_model`` / ``list_models`` / ``get_model_config``.
+
+Counterpart of ``unet_zoo_tpu/models/__init__.py``: the same names,
+``ModelSpec`` metadata and keyword precedence. ``list_models`` names only
+the members ported so far.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Mapping, Optional
+
+import torch
+from torch import nn
+
+from unet_zoo_tpu_torch.models.unet import UNet
+from unet_zoo_tpu_torch.nn import init_weights
+
+
+class ConfigDict(dict):
+    """Attribute-access dict; ``get_model_config`` returns these."""
+
+    def __getattr__(self, key):
+        try:
+            v = self[key]
+        except KeyError as e:
+            raise AttributeError(key) from e
+        return ConfigDict(v) if isinstance(v, dict) and not isinstance(v, ConfigDict) else v
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Declarative per-model metadata attached to a registry entry."""
+
+    name: str
+    build: Callable[..., nn.Module]
+    requires_image_size: bool = False
+    default_image_size: Optional[int] = None
+    # Per-output-key loss weights; absent keys get 1.0 for 'main' and
+    # `default_aux_weight` otherwise.
+    loss_weights: Mapping[str, float] = dataclasses.field(default_factory=dict)
+    default_aux_weight: float = 0.5
+    config_fn: Optional[Callable[..., Any]] = None
+
+    def loss_weight(self, key: str) -> float:
+        if key in self.loss_weights:
+            return self.loss_weights[key]
+        return 1.0 if key == "main" else self.default_aux_weight
+
+
+_REGISTRY: Dict[str, ModelSpec] = {}
+
+
+def register_model(name: str, **spec_kwargs):
+    """Decorator registering a build function under ``name``."""
+
+    def deco(build_fn: Callable[..., nn.Module]) -> Callable[..., nn.Module]:
+        _REGISTRY[name] = ModelSpec(name=name, build=build_fn, **spec_kwargs)
+        return build_fn
+
+    return deco
+
+
+def list_models() -> List[str]:
+    """All available model names, sorted."""
+    return sorted(_REGISTRY.keys())
+
+
+def get_model_config(model_name: str, **kwargs) -> Dict[str, Any]:
+    """Default config for models that carry one; empty otherwise."""
+    spec = _REGISTRY.get(model_name.lower())
+    if spec is not None and spec.config_fn is not None:
+        return ConfigDict(spec.config_fn(**kwargs))
+    return ConfigDict()
+
+
+@dataclasses.dataclass
+class ZooModel:
+    """Thin handle around a model's ``nn.Module`` and its registry entry.
+
+    ``module(x)`` takes NCHW images and returns ``{'main': logits, ...}``.
+    """
+
+    name: str
+    module: nn.Module
+    spec: ModelSpec
+    in_channels: int
+    num_classes: int
+    image_size: Optional[int]
+
+    def loss_weight(self, key: str) -> float:
+        return self.spec.loss_weight(key)
+
+
+def _resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; CUDA must exist when asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def create_model(model_name: str, pretrained: Optional[bool] = None,
+                 **kwargs) -> ZooModel:
+    """Instantiate a zoo model by name.
+
+    ``in_channels`` (3), ``num_classes`` (1), ``image_size`` and ``depth``
+    (5) as in the JAX registry; the remaining kwargs go to the model, user
+    values winning over defaults. Port-specific: ``dtype`` (compute type,
+    ``torch.float32`` or ``torch.bfloat16``), ``device`` (default
+    ``"cuda"``; raises when CUDA is absent, never falls back to the CPU),
+    ``seed`` (weights drawn from a ``torch.Generator`` on the CPU, so one
+    seed gives the same weights on every device) and ``use_kernels``, also
+    spelt ``use_pallas`` as in the YAML configs (``None``: kernels in eval on
+    CUDA; ``False``: plain modules). The module comes back in eval mode,
+    in ``channels_last`` memory, on ``device``.
+    """
+    key = model_name.lower()
+    if key not in _REGISTRY:
+        raise ValueError(f"Unknown model: '{model_name}'. Available models: {list_models()}")
+    spec = _REGISTRY[key]
+
+    in_channels = kwargs.pop("in_channels", 3)
+    num_classes = kwargs.pop("num_classes", 1)
+    image_size = kwargs.pop("image_size", None)
+    depth = kwargs.pop("depth", 5)
+    dtype = kwargs.pop("dtype", torch.float32)
+    device = _resolve_device(kwargs.pop("device", "cuda"))
+    seed = kwargs.pop("seed", 0)
+    if "use_pallas" in kwargs:
+        if "use_kernels" in kwargs:
+            raise ValueError("pass use_kernels or use_pallas, not both")
+        kwargs["use_kernels"] = kwargs.pop("use_pallas")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+
+    if spec.requires_image_size and image_size is None:
+        raise ValueError(f"Model '{model_name}' requires 'image_size' parameter in config.")
+    if image_size is None:
+        image_size = spec.default_image_size
+    if pretrained:
+        print(f"Warning: Pre-trained weights for {model_name} are not yet implemented.")
+
+    module = spec.build(in_channels=in_channels, num_classes=num_classes,
+                        image_size=image_size, depth=depth, dtype=dtype, **kwargs)
+    init_weights(module, torch.Generator().manual_seed(seed))
+    module = module.to(device=device, memory_format=torch.channels_last).eval()
+    return ZooModel(name=key, module=module, spec=spec, in_channels=in_channels,
+                    num_classes=num_classes, image_size=image_size)
+
+
+# --- registrations -----------------------------------------------------------
+
+
+@register_model("unet")
+def _build_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return UNet(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
+
+
+__all__ = [
+    "ModelSpec",
+    "ZooModel",
+    "create_model",
+    "get_model_config",
+    "list_models",
+    "register_model",
+]

@@ -1,0 +1,14 @@
+"""Building blocks of the port's models."""
+
+from unet_zoo_tpu_torch.nn.blocks import (
+    DoubleConv,
+    DownSample,
+    OutConv,
+    TransposedUp,
+    UpSampleUNet,
+    conv_norm_act,
+    init_weights,
+)
+
+__all__ = ["DoubleConv", "DownSample", "OutConv", "TransposedUp", "UpSampleUNet",
+           "conv_norm_act", "init_weights"]

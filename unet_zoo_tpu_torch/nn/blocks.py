@@ -1,0 +1,221 @@
+"""Encoder/decoder blocks of the classic UNet (NCHW, channels_last memory).
+
+Counterparts of ``unet_zoo_tpu/nn/blocks.py``. Module and attribute names
+follow the original PyTorch zoo (``conv_op.{0,1,3,4}``, ``up``, ``conv``),
+so ``state_dict`` keys match what ``unet_zoo_tpu.utils.convert`` reads.
+
+Parameters are stored in float32 and cast to the block's compute ``dtype``
+at use, as Flax does with ``param_dtype=float32, dtype=...``: rounding the
+stored parameters to bfloat16 (``utils.serving.cast_params_for_inference``)
+changes their values, not the compute type. BatchNorm always normalises in
+float32 and returns the compute type.
+
+Train-mode BatchNorm is ``F.batch_norm``, which updates ``running_var``
+with the unbiased batch variance; Flax uses the biased one. Only eval runs
+on this slice's path; the training port has to settle that divergence.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match
+from unet_zoo_tpu_torch.ops.kernels.fused_up import (
+    fold_conv_bn,
+    fused_up_concat_conv,
+    pack_conv3x3_kernel,
+    pack_convt_kernel,
+)
+
+
+def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x, conv.weight.to(dtype), bias, conv.stride, conv.padding)
+
+
+def conv_norm_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``).
+
+    A function over the two modules rather than a module of its own, so
+    that ``DoubleConv`` keeps the original zoo's flat ``conv_op`` indices.
+    """
+    x = _conv(x, conv, dtype)
+    # float32 statistics and affine on a ``dtype`` input: normalises in
+    # float32 and returns ``dtype``
+    x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight.float(),
+                     bn.bias.float(), bn.training, bn.momentum, bn.eps)
+    return torch.relu(x)
+
+
+class DoubleConv(nn.Module):
+    """(conv3x3 -> BN -> ReLU) x 2."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv_op = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 3, padding=1),
+            nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1),
+            nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
+            nn.ReLU(inplace=True),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        op = self.conv_op
+        x = conv_norm_act(x, op[0], op[1], self.dtype)
+        return conv_norm_act(x, op[3], op[4], self.dtype)
+
+
+class DownSample(nn.Module):
+    """UNet encoder stage: DoubleConv then 2x2 max pool; returns (skip, pooled)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = DoubleConv(in_channels, out_channels, dtype)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        down = self.conv(x)
+        return down, max_pool2d(down, 2)
+
+
+class TransposedUp(nn.ConvTranspose2d):
+    """ConvTranspose2d(k=2, s=2) computing in ``dtype``."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size=2, stride=2)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(self.dtype),
+                                  self.bias.to(self.dtype), stride=2)
+
+
+class KernelWeights(NamedTuple):
+    """Folded and packed weights of one decoder stage's kernel path."""
+
+    wt: torch.Tensor   # [Cin, 4*Cu], compute dtype
+    bt: torch.Tensor   # [Cu], float32
+    wc: torch.Tensor   # [9*(Cu+Cs), Co], compute dtype
+    sc1: torch.Tensor  # [Co], float32
+    bi1: torch.Tensor
+    w2: torch.Tensor   # [Co, Co, 3, 3], conv2 with its BN scale folded in
+    b2: torch.Tensor   # [Co], conv2's folded bias; both compute dtype
+
+
+class UpSampleUNet(nn.Module):
+    """ConvTranspose(2,2) -> pad to skip -> concat[x, skip] -> DoubleConv.
+
+    In eval, with the kernel on and ``skip`` exactly twice ``x`` in H and
+    W, the stage runs K1 (``fused_up_concat_conv``: ConvT, bias, concat,
+    conv1, BN, ReLU) and then conv2 as ``F.conv2d`` with its BN folded,
+    then ReLU. Other shapes take the module path, whose ``pad_to_match``
+    handles them; the kernel has no padding step.
+
+    ``use_kernels``: ``None`` runs the kernel in eval for bfloat16 CUDA
+    activations (the kernel's type); ``True`` runs it in eval whatever the
+    device (on the CPU that is its plain version); ``False`` never.
+
+    The JAX package applies conv2's folded BN as a float32 scale and bias
+    after the conv; here the scale goes into conv2's weights and the bias
+    into its bias, so conv2 and its BN are one cuDNN call and the ReLU one
+    in-place pass (the float32 epilogue cost four passes over the stage's
+    largest tensor).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32,
+                 use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.up = TransposedUp(in_channels, in_channels // 2, dtype)
+        self.conv = DoubleConv(in_channels, out_channels, dtype)
+        self._frozen: Optional[KernelWeights] = None
+
+    def kernel_path(self, x: torch.Tensor, skip: torch.Tensor) -> bool:
+        if self.use_kernels is False or self.training:
+            return False
+        if skip.shape[-2] != 2 * x.shape[-2] or skip.shape[-1] != 2 * x.shape[-1]:
+            return False
+        if self.use_kernels is None:
+            return x.is_cuda and x.dtype == torch.bfloat16
+        return True
+
+    @torch.no_grad()
+    def kernel_weights(self) -> KernelWeights:
+        """Fold both convs' bias and BN and pack the kernel's weights."""
+        dt, op = self.dtype, self.conv.conv_op
+
+        def folded(conv, bn):
+            return fold_conv_bn(conv.bias, bn.weight, bn.bias, bn.running_mean,
+                                bn.running_var, bn.eps)
+
+        sc1, bi1 = folded(op[0], op[1])
+        sc2, bi2 = folded(op[3], op[4])
+        return KernelWeights(
+            wt=pack_convt_kernel(self.up.weight.to(dt)).contiguous(),
+            bt=self.up.bias.float().contiguous(),
+            wc=pack_conv3x3_kernel(op[0].weight.to(dt)).contiguous(),
+            sc1=sc1.contiguous(), bi1=bi1.contiguous(),
+            w2=(op[3].weight.float() * sc2.view(-1, 1, 1, 1)).to(dt), b2=bi2.to(dt))
+
+    def freeze_kernel_weights(self) -> None:
+        """Fold and pack once for a predictor whose weights no longer change."""
+        self._frozen = self.kernel_weights()
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        if self.kernel_path(x, skip):
+            return self._fused(x, skip)
+        x = self.up(x)
+        x = pad_to_match(x, (skip.shape[-2], skip.shape[-1]))
+        return self.conv(torch.cat([x, skip], dim=1))
+
+    def _fused(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        w = self._frozen if self._frozen is not None else self.kernel_weights()
+        out = fused_up_concat_conv(x, skip, w.wt, w.bt, w.wc, w.sc1, w.bi1)
+        return torch.relu_(F.conv2d(out, w.w2, w.b2, padding=1))
+
+
+class OutConv(nn.Module):
+    """1x1 output head. Heads to <= 2 channels compute in float32, as the
+    JAX package's multiply-and-reduce head does."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv.out_channels <= 2:
+            return F.conv2d(x.float(), self.conv.weight.float(),
+                            self.conv.bias.float()).to(x.dtype)
+        return _conv(x, self.conv, self.dtype)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """He-normal conv and transposed-conv kernels and zero biases, drawn in
+    module order from ``generator``; BatchNorm at identity (the defaults).
+    Every conv here feeds a ReLU, so He scaling keeps activations O(1)
+    through the full depth."""
+    for m in module.modules():
+        if isinstance(m, nn.ConvTranspose2d):
+            fan_in = m.in_channels  # k == s: each output sees Cin inputs
+        elif isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        else:
+            continue
+        m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+        if m.bias is not None:
+            m.bias.zero_()

@@ -1,0 +1,6 @@
+"""Tensor ops of the port (NCHW, channels_last in memory)."""
+
+from unet_zoo_tpu_torch.ops.padding import pad_to_match
+from unet_zoo_tpu_torch.ops.pooling import max_pool2d
+
+__all__ = ["max_pool2d", "pad_to_match"]
