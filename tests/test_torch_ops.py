@@ -15,7 +15,8 @@ import torch
 
 from unet_zoo_tpu.ops import max_pool2d as jax_max_pool2d
 from unet_zoo_tpu.ops import pad_to_match as jax_pad_to_match
-from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match
+from unet_zoo_tpu.ops import resize_bilinear as jax_resize_bilinear
+from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, resize_bilinear
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,6 +53,38 @@ def test_max_pool2d_matches_jax(hw):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("hw", [(7, 9), (6, 6), (5, 3)])
+@pytest.mark.parametrize("window,padding", [(7, 3), (3, 1)])
+def test_padded_max_pool2d_matches_jax(hw, window, padding):
+    """Stride-1 padded pools as mmunet's morphology uses them (-inf padding);
+    erosion is -max_pool2d(-x)."""
+    x = np.random.default_rng(2).standard_normal((2, *hw, 4)).astype(np.float32)
+    for sign in (1.0, -1.0):
+        ref = sign * np.asarray(jax_max_pool2d(jnp.asarray(sign * x), window, 1, padding))
+        got = sign * _nhwc(max_pool2d(_nchw(sign * x).contiguous(memory_format=torch.channels_last),
+                                      window, 1, padding))
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("hw,size", [
+    ((5, 7), (10, 14)),   # mmunet's 2x upsample at odd sizes
+    ((8, 8), (16, 16)),
+    ((9, 4), (5, 11)),    # down in one dim, up in the other
+    ((6, 6), (6, 6)),     # no-op
+    ((1, 3), (2, 6)),     # a single row
+])
+def test_resize_bilinear_matches_jax(hw, size, align_corners):
+    """ATen against the JAX package's interpolation matmuls, float32: 1e-5."""
+    x = np.random.default_rng(3).standard_normal((2, *hw, 3)).astype(np.float32)
+    ref = np.asarray(jax_resize_bilinear(jnp.asarray(x), size, align_corners=align_corners))
+    got = _nhwc(resize_bilinear(_nchw(x).contiguous(memory_format=torch.channels_last),
+                                size, align_corners=align_corners))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, unet_zoo_tpu_torch, unet_zoo_tpu_torch.utils.serving, "
             "unet_zoo_tpu_torch.utils.convert; "
@@ -66,22 +99,30 @@ def test_create_model_without_cuda_raises(monkeypatch):
     from unet_zoo_tpu_torch import create_model
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        create_model("unet")
+    for name in ("unet", "mmunet"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            create_model(name)
 
 
 def test_registry_surface():
     from unet_zoo_tpu.models import _REGISTRY as JAX_REGISTRY
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
-    assert list_models() == ["unet"]
-    assert get_model_config("unet") == {}
+    assert list_models() == ["mmunet", "unet"]
+    assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)
     assert m.module.up_convolution_1.use_kernels is False
-    jax_spec = JAX_REGISTRY["unet"]
-    for key in ("main", "side1"):
-        assert m.loss_weight(key) == jax_spec.loss_weight(key)
+    mm = create_model("mmunet", device="cpu", use_pallas=True, base_channels=16, num_classes=2)
+    assert (mm.in_channels, mm.num_classes, mm.image_size) == (3, 2, None)
+    assert mm.module.up5.conv[0].use_kernels is True and mm.module.up1.use_kernels is True
+    assert mm.module.first_down[0].out_channels == 16 and mm.module.down3[0].out_channels == 128
+    for name, model in (("unet", m), ("mmunet", mm)):
+        jax_spec = JAX_REGISTRY[name]
+        assert (model.spec.requires_image_size, model.spec.default_image_size) == (
+            jax_spec.requires_image_size, jax_spec.default_image_size)
+        for key in ("main", "side1"):
+            assert model.loss_weight(key) == jax_spec.loss_weight(key)
     with pytest.raises(ValueError, match="not both"):
         create_model("unet", device="cpu", use_pallas=True, use_kernels=True)
     with pytest.raises(ValueError, match="Unknown model"):

@@ -13,6 +13,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
+from unet_zoo_tpu_torch.models.mmunet import MMUNet
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.nn import init_weights
 
@@ -158,6 +159,17 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
 @register_model("unet")
 def _build_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
     return UNet(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
+
+
+@register_model("mmunet")
+def _build_mmunet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return MMUNet(
+        in_channels=in_channels, num_classes=num_classes,
+        base_channels=kw.pop("base_channels", 96),
+        bilinear=kw.pop("bilinear", True),
+        layer_scale_init_value=kw.pop("layer_scale_init_value", 1e-6),
+        se_ratio=kw.pop("se_ratio", 0.25), dtype=dtype, **kw,
+    )
 
 
 __all__ = [

@@ -6,9 +6,11 @@ from unet_zoo_tpu_torch.nn.blocks import (
     OutConv,
     TransposedUp,
     UpSampleUNet,
+    batch_norm,
+    conv,
     conv_norm_act,
     init_weights,
 )
 
 __all__ = ["DoubleConv", "DownSample", "OutConv", "TransposedUp", "UpSampleUNet",
-           "conv_norm_act", "init_weights"]
+           "batch_norm", "conv", "conv_norm_act", "init_weights"]

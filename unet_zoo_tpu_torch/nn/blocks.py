@@ -32,24 +32,27 @@ from unet_zoo_tpu_torch.ops.kernels.fused_up import (
 )
 
 
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    bias = None if conv.bias is None else conv.bias.to(dtype)
-    return F.conv2d(x, conv.weight.to(dtype), bias, conv.stride, conv.padding)
+def conv(x: torch.Tensor, module: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """``module``'s convolution (stride, padding, groups) computed in ``dtype``."""
+    bias = None if module.bias is None else module.bias.to(dtype)
+    return module._conv_forward(x, module.weight.to(dtype), bias)
 
 
-def conv_norm_act(x: torch.Tensor, conv: nn.Conv2d, bn: nn.BatchNorm2d,
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """``bn`` on a ``dtype`` input: float32 statistics and affine, so it
+    normalises in float32 and returns the input's type."""
+    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight.float(),
+                        bn.bias.float(), bn.training, bn.momentum, bn.eps)
+
+
+def conv_norm_act(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d,
                   dtype: torch.dtype) -> torch.Tensor:
     """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``).
 
     A function over the two modules rather than a module of its own, so
     that ``DoubleConv`` keeps the original zoo's flat ``conv_op`` indices.
     """
-    x = _conv(x, conv, dtype)
-    # float32 statistics and affine on a ``dtype`` input: normalises in
-    # float32 and returns ``dtype``
-    x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight.float(),
-                     bn.bias.float(), bn.training, bn.momentum, bn.eps)
-    return torch.relu(x)
+    return torch.relu(batch_norm(conv(x, conv_m, dtype), bn))
 
 
 class DoubleConv(nn.Module):
@@ -200,22 +203,35 @@ class OutConv(nn.Module):
         if self.conv.out_channels <= 2:
             return F.conv2d(x.float(), self.conv.weight.float(),
                             self.conv.bias.float()).to(x.dtype)
-        return _conv(x, self.conv, self.dtype)
+        return conv(x, self.conv, self.dtype)
 
 
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """He-normal conv and transposed-conv kernels and zero biases, drawn in
-    module order from ``generator``; BatchNorm at identity (the defaults).
-    Every conv here feeds a ReLU, so He scaling keeps activations O(1)
-    through the full depth."""
+    """Fan-in-scaled normal weights and zero biases, drawn in module order
+    from ``generator``; BatchNorm at identity (the defaults).
+
+    Convolutions and transposed convolutions get He scaling (std
+    sqrt(2 / fan_in)): every one in ``unet`` feeds a ReLU, so activations
+    stay O(1) through the full depth. ``nn.Linear`` and ``nn.Conv1d`` are
+    the pointwise MLPs and attention projections inside mmunet's 22
+    residual blocks, where eval BatchNorm at identity normalises nothing;
+    they get std 0.5 / sqrt(fan_in), a quarter of the LeCun variance, so
+    each branch adds a few percent to its input's variance and random
+    full-width mmunet logits stay O(1) (``chip_smoke.py`` prints their std).
+    """
     for m in module.modules():
         if isinstance(m, nn.ConvTranspose2d):
-            fan_in = m.in_channels  # k == s: each output sees Cin inputs
+            fan_in, gain = m.in_channels, 2.0  # k == s: each output sees Cin inputs
         elif isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+            gain = 2.0
+        elif isinstance(m, nn.Conv1d):
+            fan_in, gain = m.in_channels // m.groups * m.kernel_size[0], 0.25
+        elif isinstance(m, nn.Linear):
+            fan_in, gain = m.in_features, 0.25
         else:
             continue
-        m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
+        m.weight.normal_(0.0, (gain / fan_in) ** 0.5, generator=generator)
         if m.bias is not None:
             m.bias.zero_()

@@ -2,5 +2,6 @@
 
 from unet_zoo_tpu_torch.ops.padding import pad_to_match
 from unet_zoo_tpu_torch.ops.pooling import max_pool2d
+from unet_zoo_tpu_torch.ops.resize import resize_bilinear
 
-__all__ = ["max_pool2d", "pad_to_match"]
+__all__ = ["max_pool2d", "pad_to_match", "resize_bilinear"]

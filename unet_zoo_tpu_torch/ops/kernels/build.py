@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). All sources compile in parallel, one ``nvcc`` each. The
-libraries land in ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of source and flags, so an unchanged source is built once.
+takes seconds); ``csrc/*.cuh`` are headers the sources share. All sources
+compile in parallel, one ``nvcc`` each. The libraries land in ``_build/``
+beside this file (listed in ``.gitignore``), named by a hash of source,
+headers and flags, so an unchanged source is built once.
 Nothing is built at import time: the first launch calls :func:`library`.
 """
 
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -7,7 +7,8 @@
 // unet_zoo_tpu_torch/ops/kernels/fused_up.py.
 //
 // Form: two launches of one tensor-core GEMM kernel (mma.sync m16n8k16, bf16
-// in, f32 accumulate), fed by a 4-stage cp.async ring in shared memory.
+// in, f32 accumulate), fed by a 4-stage cp.async ring in shared memory
+// (gemm_mainloop in mma.cuh, shared with K4).
 //   1. ConvT as a GEMM: [B*Hc*Wc, Cin] x [Cin, 4*Cu]. Columns are packed
 //      (a, b, cu), so column (a, b, cu) of coarse pixel (m, n) belongs to fine
 //      pixel (2m+a, 2n+b): the depth-to-space is index math in the store. The
@@ -37,12 +38,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "mma.cuh"
 
-constexpr int BK = 32;           // K chunk per pipeline stage
-constexpr int NSTAGE = 4;        // cp.async ring depth
-constexpr int NTHREADS = 256;    // 8 warps, each on a 64x32 output tile
-constexpr int A_LD = BK + 8;     // A tile row pitch: 80 B, ldmatrix conflict-free
+namespace {
 
 struct Params {
   const __nv_bfloat16* a0;  // convT: y [M, Cin]; conv: up [B, H, W, c0]
@@ -56,79 +54,24 @@ struct Params {
   int c0, c1;               // convT: Cin, Cu; conv: Cu, Cs
 };
 
-template <int BM, int BN>
-constexpr int smem_bytes() {
-  return NSTAGE * (BM * A_LD + BK * (BN + 8)) * 2;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // CONV3 = false: the ConvT GEMM with the depth-to-space store.
 // CONV3 = true: the 3x3 implicit GEMM over up|skip with the folded-BN epilogue.
-// Block tile BM x BN; warps are (BM/64) x (BN/32), each on 64 rows x 32 columns.
+// Block tile BM x BN; warps are (BM/64) x (BN/32), each on 64 rows x 32 columns
+// (the main loop is gemm_mainloop in mma.cuh; this kernel adds the A loader
+// and the epilogue).
 template <bool CONV3, int BM, int BN>
-__global__ void __launch_bounds__(NTHREADS, 2) fused_up_gemm(const Params p) {
-  static_assert((BM / 64) * (BN / 32) * 32 == NTHREADS, "8 warps of 64x32");
-  constexpr int B_LD = BN + 8;              // B tile row pitch, ldmatrix conflict-free
-  constexpr int A_ITERS = BM * BK / 8 / NTHREADS;  // 16-byte A chunks per thread
-  constexpr int B_ITERS = BK * BN / 8 / NTHREADS;  // 16-byte B chunks per thread
-  constexpr int B_COLS = BN / 8;            // 16-byte chunks in one B row
+__global__ void __launch_bounds__(GEMM_THREADS, 2) fused_up_gemm(const Params p) {
+  using T = GemmTile<BM, BN>;
   extern __shared__ __align__(128) unsigned char smem[];
-  using ATile = __nv_bfloat16[BM][A_LD];
-  using BTile = __nv_bfloat16[BK][B_LD];
-  ATile* As = reinterpret_cast<ATile*>(smem);
-  BTile* Bs = reinterpret_cast<BTile*>(smem + NSTAGE * sizeof(ATile));
-
-  const int tid = threadIdx.x;
   const int m_blk = blockIdx.x * BM;
   const int n_blk = blockIdx.y * BN;
 
-  // Loader roles: thread tid copies A rows a_row + 64*i at column a_col.
-  const int a_row = tid >> 2;
-  const int a_col = (tid & 3) * 8;
-
   // Pixel coordinates of this thread's A rows, fixed across the K loop.
-  int rb[A_ITERS], rh[A_ITERS], rw[A_ITERS];
-  bool rv[A_ITERS];
+  int rb[T::A_ITERS], rh[T::A_ITERS], rw[T::A_ITERS];
+  bool rv[T::A_ITERS];
 #pragma unroll
-  for (int i = 0; i < A_ITERS; ++i) {
-    const int m = m_blk + a_row + i * 64;
+  for (int i = 0; i < T::A_ITERS; ++i) {
+    const int m = m_blk + T::a_row(i);
     rv[i] = m < p.M;
     const int mm = rv[i] ? m : 0;
     rw[i] = mm % p.W;
@@ -136,8 +79,8 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_up_gemm(const Params p) {
     rb[i] = mm / (p.W * p.H);
   }
 
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * BK;
+  auto load_a = [&](typename T::ATile& tile, int k0) {
+    const int a_col = T::a_col();
     if constexpr (CONV3) {
       const int c2 = p.c0 + p.c1;
       const int tap = k0 / c2;
@@ -145,7 +88,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_up_gemm(const Params p) {
       const int dy = tap / 3 - 1;
       const int dx = tap % 3 - 1;
 #pragma unroll
-      for (int i = 0; i < A_ITERS; ++i) {
+      for (int i = 0; i < T::A_ITERS; ++i) {
         const int hh = rh[i] + dy;
         const int ww = rw[i] + dx;
         const bool ok = rv[i] && hh >= 0 && hh < p.H && ww >= 0 && ww < p.W;
@@ -154,87 +97,26 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_up_gemm(const Params p) {
           const size_t pix = (static_cast<size_t>(rb[i]) * p.H + hh) * p.W + ww;
           src = c < p.c0 ? p.a0 + pix * p.c0 + c : p.a1 + pix * p.c1 + (c - p.c0);
         }
-        cp_async16(&As[stage][a_row + i * 64][a_col], src, ok);
+        cp_async16(&tile[T::a_row(i)][a_col], src, ok);
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < A_ITERS; ++i) {
-        const int m = m_blk + a_row + i * 64;
+      for (int i = 0; i < T::A_ITERS; ++i) {
+        const int m = m_blk + T::a_row(i);
         const __nv_bfloat16* src =
             rv[i] ? p.a0 + static_cast<size_t>(m) * p.K + k0 + a_col : p.a0;
-        cp_async16(&As[stage][a_row + i * 64][a_col], src, rv[i]);
+        cp_async16(&tile[T::a_row(i)][a_col], src, rv[i]);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < B_ITERS; ++i) {
-      const int chunk = tid + i * NTHREADS;
-      const int row = chunk / B_COLS;
-      const int col = (chunk % B_COLS) * 8;
-      const int n = n_blk + col;
-      const bool ok = n < p.N;
-      const __nv_bfloat16* src =
-          ok ? p.w + static_cast<size_t>(k0 + row) * p.N + n : p.w;
-      cp_async16(&Bs[stage][row][col], src, ok);
     }
   };
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  constexpr int WARPS_N = BN / 32;
-  const int wm = (warp / WARPS_N) * 64;
-  const int wn = (warp % WARPS_N) * 32;
-
   float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  gemm_mainloop<BM, BN>(smem, p.w, p.N, p.K, n_blk, load_a, acc);
 
-  const int KT = p.K / BK;
-#pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
-    if (s < KT) load_tile(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<NSTAGE - 2>();
-    __syncthreads();  // tile kt has landed; every warp is done with tile kt-1
-    const int nk = kt + NSTAGE - 1;
-    if (nk < KT) load_tile(nk % NSTAGE, nk);
-    cp_async_commit();
-
-    const int st = kt % NSTAGE;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[4][4];
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ldsm_x4(af[i], &As[st][wm + i * 16 + (lane & 15)][ks + (lane >> 4) * 8]);
-      }
-#pragma unroll
-      for (int j2 = 0; j2 < 2; ++j2) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &Bs[st][ks + (lane & 7) + ((lane >> 3) & 1) * 8]
-                            [wn + j2 * 16 + (lane >> 4) * 8]);
-        bf[2 * j2][0] = r[0];
-        bf[2 * j2][1] = r[1];
-        bf[2 * j2 + 1][0] = r[2];
-        bf[2 * j2 + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue. Accumulator (i, j, 2*half + e) sits at row
-  // wm + 16i + g + 8*half and column wn + 8j + 2*tig + e.
+  // Epilogue (accumulator layout: GemmTile in mma.cuh).
+  const int wm = T::warp_row();
+  const int wn = T::warp_col();
+  const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int tig = lane & 3;
 #pragma unroll
@@ -281,12 +163,12 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_up_gemm(const Params p) {
 
 template <bool CONV3, int BM, int BN>
 int launch(const Params& p, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<BM, BN>();
+  constexpr int bytes = GemmTile<BM, BN>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(fused_up_gemm<CONV3, BM, BN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-  fused_up_gemm<CONV3, BM, BN><<<grid, NTHREADS, bytes, stream>>>(p);
+  fused_up_gemm<CONV3, BM, BN><<<grid, GEMM_THREADS, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

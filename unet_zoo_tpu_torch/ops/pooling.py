@@ -1,8 +1,9 @@
 """Pooling primitives (NCHW).
 
 Semantics match ``torch.nn.MaxPool2d`` with floor division of the spatial
-dims, as the UNet encoder uses it. Ceil mode, average and adaptive pools
-come with the models that need them.
+dims, as the UNet encoder and mmunet's morphology use it; padding is
+filled with -inf, as ``unet_zoo_tpu/ops/pooling.py`` does. Ceil mode,
+average and adaptive pools come with the models that need them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,15 @@ import torch
 import torch.nn.functional as F
 
 
-def max_pool2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None) -> torch.Tensor:
-    """k x k max pool, no padding, floor mode."""
-    return F.max_pool2d(x, window, window if stride is None else stride)
+def max_pool2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
+               padding: int = 0) -> torch.Tensor:
+    """k x k max pool, -inf padding, floor mode.
+
+    A stride-1 window above 3 is separable: two 1-D passes take 2k compares
+    per output instead of k^2 and give the same result, as in the JAX
+    package (mmunet's 7x7 morphology)."""
+    stride = window if stride is None else stride
+    if stride == 1 and window > 3:
+        x = F.max_pool2d(x, (window, 1), 1, (padding, 0))
+        return F.max_pool2d(x, (1, window), 1, (0, padding))
+    return F.max_pool2d(x, window, stride, padding)

@@ -9,7 +9,10 @@ loads with ``strict=True``. It is the inverse of the JAX package's
 * conv: HWIO -> OIHW;
 * ConvTranspose: Flax applies the kernel spatially flipped, so
   ``torch_w = flip(flax_k, axes 0, 1).transpose(2, 3, 0, 1)``;
-* BatchNorm: scale/bias/mean/var -> weight/bias/running_mean/running_var.
+* BatchNorm: scale/bias/mean/var -> weight/bias/running_mean/running_var;
+* Dense -> ``nn.Linear``: ``kernel.T``; Dense -> ``nn.Conv1d(k=1)``:
+  ``kernel.T[:, :, None]``;
+* a grouped conv keeps the conv rule: [3, 3, 2, C] -> [C, 2, 3, 3].
 """
 
 from __future__ import annotations
@@ -67,7 +70,58 @@ def _unet(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
-CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {"unet": _unet}
+def _dense(sd, key, p):
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _mkblock(sd, prefix, p, s):
+    for i in (1, 2, 3):
+        _conv(sd, f"{prefix}.dwconv{i}", p[f"dwconv{i}"])
+        _bn(sd, f"{prefix}.norm{i}", p[f"norm{i}"], s[f"norm{i}"])
+    _bn(sd, f"{prefix}.norm4", p["norm4"], s["norm4"])
+    _dense(sd, f"{prefix}.pwconv1", p["pwconv1"])
+    _dense(sd, f"{prefix}.pwconv2", p["pwconv2"])
+    if "norm_ea" in p:
+        _bn(sd, f"{prefix}.norm_ea", p["norm_ea"], s["norm_ea"])
+        _conv(sd, f"{prefix}.conv1", p["conv1"])
+        for name in ("linear_0", "linear_1"):
+            sd[f"{prefix}.{name}.weight"] = _t(np.asarray(p[name]["kernel"]).T[:, :, None])
+        _conv(sd, f"{prefix}.conv2.0", p["conv2"])
+        _bn(sd, f"{prefix}.conv2.1", p["conv2_bn"], s["conv2_bn"])
+
+
+def _mmunet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("first_down", "down0", "down0_1", "down1", "down2", "down3"):
+        _conv(sd, f"{name}.0", p[f"{name}_conv"])
+        _bn(sd, f"{name}.1", p[f"{name}_bn1"], s[f"{name}_bn1"])
+        _mkblock(sd, f"{name}.2", p[f"{name}_blk1"], s[f"{name}_blk1"])
+        _bn(sd, f"{name}.3", p[f"{name}_bn2"], s[f"{name}_bn2"])
+        _mkblock(sd, f"{name}.4", p[f"{name}_blk2"], s[f"{name}_blk2"])
+    for u in (1, 2, 3, 4):
+        up, us = p[f"up{u}"], s[f"up{u}"]
+        if "mlp_fc1" in up:
+            _conv(sd, f"up{u}.mlp.fc1", up["mlp_fc1"])
+            _conv(sd, f"up{u}.mlp.fc2", up["mlp_fc2"])
+        _conv(sd, f"up{u}.linear1", up["linear1"])
+        _conv(sd, f"up{u}.conv.0", up["fuse_conv"])
+        _bn(sd, f"up{u}.conv.1", up["fuse_bn"], us["fuse_bn"])
+        _mkblock(sd, f"up{u}.conv.2", up["blk1"], us["blk1"])
+        _mkblock(sd, f"up{u}.conv.3", up["blk2"], us["blk2"])
+    for i in (1, 2):
+        _mkblock(sd, f"up5.conv.{i - 1}", p[f"up5_blk{i}"], s[f"up5_blk{i}"])
+    _conv(sd, "eam.up_x2.1", p["efm_conv"])
+    _bn(sd, "eam.up_x2.2", p["efm_bn"], s["efm_bn"])
+    _conv(sd, "eam.linear1", p["efm_linear1"])
+    _conv(sd, "out_conv.0", p["out_conv"])
+    return sd
+
+
+CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
+    "mmunet": _mmunet, "unet": _unet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
