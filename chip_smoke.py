@@ -24,7 +24,22 @@
    launch counters and by the profiler; times both paths, and K4 and K5 at
    every launch shape against their plain versions and the bf16 module
    chains they replace.
-7. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+7. Holds K6 (``fused_axial_attention``) against its plain version at every
+   launch shape of the full-width ``gated`` forward, on both axes, in
+   ``wopos`` mode at two shapes, and at an odd shape whose axis is shorter
+   than the kernel size; each comparison is shown to reject planted faults
+   (the k embedding read untransposed, the softmax over queries, the sve
+   term dropped).
+8. Serves full-width ``gated`` (bf16, B=8, 256x256) on both paths: K6 must
+   run 16 times per forward, by the launch counter and by the profiler;
+   times both paths and K6 at every launch shape against its bound, its
+   plain version and the bf16 module chain it replaces. Serves
+   ``axialunet``, ``medt``, ``logo`` and ``medt_logo`` at B=2, 128x128 on
+   both paths, compared the same way. Each model is also served in float32
+   on the kernel path against float32 compute, and with faults planted
+   into K6's arguments (q and k swapped, the k embedding untransposed, the
+   sve term dropped), which the served-model checks must reject.
+9. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -67,6 +82,35 @@ K4_BRANCH_SHARE = 2e-2
 # K5 against its plain version, relative: half a bf16 ulp (2^-8) plus f32
 # differences of exp and of the sum over C (see k5_reading).
 K5_REL = 2.0 ** -8 + 2.0 ** -16
+# gated at 256px: (H = W of the blocks, gp, kernel size, AxialBlocks of that
+# shape); every block runs K6 twice, along H and along W (layer1_0, layer2_0,
+# layer2_1, layer3_0, layer3_1..3, layer4_0)
+AXIAL_SHAPES = [(128, 2, 128, 1), (128, 4, 128, 1), (64, 4, 64, 1), (64, 8, 64, 1),
+                (32, 8, 32, 3), (32, 16, 32, 1)]
+AXIAL_GROUPS = 8
+# K6 against its plain version: the error beyond the output's bf16 rounding
+# (half an ulp, 2^-8 |ref|), as a share of the output's rms (see k6_reading).
+# What remains is f32 arithmetic in another order (sums over j, expf); the
+# planted faults read orders of magnitude above the limit.
+K6_SHARE = 1e-3
+# MedT, kernel path vs plain path: relative L2 of logits and mask agreement.
+# Both paths are bf16 and round in different places: the plain path rounds
+# the similarity logits, the softmax and every BN to bf16, the kernel keeps
+# them in f32. Measured on the H100 (PERF.md): gated at B=8/256px 6.8e-3 and
+# 0.99982; the B=2/128px forwards up to 5.1e-2 (medt) and 0.9913, where the
+# kernel path lay closer to f32 compute than the plain path (4.1e-2 against
+# 5.5e-2). So each run also holds the kernel path's distance to f32 compute
+# to at most MEDT_F32_RATIO times the plain path's. These limits on logits
+# do not part K6's rounding from a small fault (gated's planted untransposed
+# k embedding passes all three); medt_faults holds every K6 launch of the
+# served forward against its plain version, which rejects every fault.
+MEDT_REL_L2 = {"gated": 2e-2, "small": 1e-1}
+MEDT_AGREE = 0.99
+MEDT_F32_RATIO = 1.25
+# one K6 launch per AxialAttention: two per AxialBlock (8 blocks; LoGo's
+# global branch 3 and local branch 8)
+MEDT_LAUNCHES = {"gated": 2 * sum(n for *_, n in AXIAL_SHAPES), "axialunet": 16, "medt": 16,
+                 "logo": 16, "medt_logo": 22}
 
 
 def log(*a):
@@ -302,56 +346,90 @@ def check_k4_k5(torch, gen, device):
     return k4_err, k5_err
 
 
-def serve_mmunet(torch, gen, device):
-    """Full-width mmunet on both paths: agreement, launches, rates, breakdown."""
+def serve_both_paths(torch, gen, device, name, batch, image, counters, rel_l2_max, agree_min,
+                     f32_ratio=None):
+    """``name`` served in bf16 on the kernel path and on the plain module path
+    with the same seeded weights. Sets every ``counters`` entry ({wrapper
+    module: LAUNCHES key}) to 0 just before one kernel-path forward and reads
+    them just after; compares the logits (relative L2 <= ``rel_l2_max``), the
+    masks (agreement >= ``agree_min``) and each path's distance to float32
+    compute on the same bf16-rounded weights (kernel path at most
+    ``f32_ratio`` times the plain path's, when given). Returns the two
+    predictors, the input, the launches, the agreement figures and the
+    plain path's and the float32 compute's logits."""
     from unet_zoo_tpu_torch import create_model
-    from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
-    from unet_zoo_tpu_torch.ops.kernels import morph as k5
     from unet_zoo_tpu_torch.utils.serving import make_predictor
 
-    x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
-    kern = create_model("mmunet", dtype=torch.bfloat16, seed=0)
-    plain = create_model("mmunet", dtype=torch.bfloat16, seed=0, use_kernels=False)
-    log(f"mmunet: {sum(p.numel() for p in kern.module.parameters()) / 1e6:.2f} M parameters")
-    pred_k, pred_p = make_predictor(kern, None, "logits"), make_predictor(plain, None, "logits")
+    x = torch.randn(batch, 3, image, image, generator=gen, device=device)
+    kern = create_model(name, dtype=torch.bfloat16, seed=0, image_size=image)
+    plain = create_model(name, dtype=torch.bfloat16, seed=0, image_size=image, use_kernels=False)
+    log(f"{name}: {sum(p.numel() for p in kern.module.parameters()) / 1e6:.2f} M parameters")
+    preds = {"kernel": make_predictor(kern, None, "logits"),
+             "plain": make_predictor(plain, None, "logits")}
 
-    k4.LAUNCHES["fused_mkblock"] = 0
-    k5.LAUNCHES["fused_softmax_morph"] = 0
-    logits_k = pred_k(x)
+    for mod, key in counters:
+        mod.LAUNCHES[key] = 0
+    logits_k = preds["kernel"](x)
     torch.cuda.synchronize()
-    launches = {"fused_mkblock": k4.LAUNCHES["fused_mkblock"],
-                "fused_softmax_morph": k5.LAUNCHES["fused_softmax_morph"]}
-    logits_p = pred_p(x)
+    launches = {key: mod.LAUNCHES[key] for mod, key in counters}
+    logits_p = preds["plain"](x)
     mask_k = make_predictor(kern, None, "mask")(x)
     mask_p = make_predictor(plain, None, "mask")(x)
     torch.cuda.synchronize()
-    log(f"main path: K4 launches {launches['fused_mkblock']}, "
-        f"K5 launches {launches['fused_softmax_morph']} in one mmunet forward")
+    log(f"main path: {launches} in one {name} forward (B={batch}, {image}px)")
+    for t in (logits_k, logits_p):
+        assert t.shape == (batch, 1, image, image) and torch.isfinite(t.float()).all()
+    lk, lp = logits_k.float(), logits_p.float()
+    rel_l2 = ((lk - lp).norm() / lp.norm()).item()
+    agree = (mask_k == mask_p).float().mean().item()
+    exact = create_model(name, seed=0, image_size=image, use_kernels=False)
+    lf = make_predictor(exact, None, "logits")(x).float()
+    del exact
+    dist = {k: ((t - lf).norm() / lf.norm()).item() for k, t in (("kernel", lk), ("plain", lp))}
+    log(f"serve {name}: logits std {lp.std().item():.4f}, rel L2 kernel vs plain {rel_l2:.3e} "
+        f"(<= {rel_l2_max:.0e}), mask agreement {agree:.5f} (>= {agree_min}); rel L2 to f32 "
+        f"compute: kernel path {dist['kernel']:.3e}, plain path {dist['plain']:.3e}"
+        + (f" (kernel <= {f32_ratio} x plain)" if f32_ratio else ""))
+    if not (rel_l2 <= rel_l2_max and agree >= agree_min
+            and (f32_ratio is None or dist["kernel"] <= f32_ratio * dist["plain"])):
+        raise AssertionError(f"{name} kernel path disagrees with the plain path")
+    return (preds, x, launches, dict(rel_l2=rel_l2, mask_agreement=agree, rel_l2_to_f32=dist),
+            {"plain": lp, "f32": lf})
+
+
+def time_paths(torch, name, preds, x, profile):
+    """img/s of both paths and, with ``profile``, their device-time breakdowns."""
+    batch, image = x.shape[0], x.shape[-1]
+    times = serve_times(torch, preds, x)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rates = {k: batch / (m / 1e3) for k, m in med.items()}
+    for path in ("kernel", "plain"):
+        q = statistics.quantiles(times[path], n=4)
+        log(f"serve {name} bf16 B={batch} {image}px, {path} path: {rates[path]:.1f} img/s "
+            f"(forward median {med[path]:.4f} ms, quartiles {q[0]:.4f}-{q[2]:.4f} ms)")
+    busy = None
+    if profile:
+        busy = {path: breakdown(torch, f"{name} {path}", lambda: fn(x), med[path])
+                for path, fn in preds.items()}
+    return rates, med, busy
+
+
+def serve_mmunet(torch, gen, device):
+    """Full-width mmunet on both paths: agreement, launches, rates, breakdown."""
+    from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
+    from unet_zoo_tpu_torch.ops.kernels import morph as k5
+
+    preds, x, launches, agreement, _ = serve_both_paths(
+        torch, gen, device, "mmunet", SERVE_BATCH, IMAGE,
+        [(k4, "fused_mkblock"), (k5, "fused_softmax_morph")], MMUNET_REL_L2, 0.99)
     want = {"fused_mkblock": sum(n for *_, n in MKBLOCK_SHAPES),
             "fused_softmax_morph": sum(n for *_, n in MORPH_SHAPES)}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
-    for t in (logits_k, logits_p):
-        assert t.shape == (SERVE_BATCH, 1, IMAGE, IMAGE) and torch.isfinite(t.float()).all()
-    lk, lp = logits_k.float(), logits_p.float()
-    rel_l2 = ((lk - lp).norm() / lp.norm()).item()
-    agree = (mask_k == mask_p).float().mean().item()
-    # how far each bf16 path lies from float32 compute on the same bf16-rounded weights
-    exact = create_model("mmunet", seed=0, use_kernels=False)
-    lf = make_predictor(exact, None, "logits")(x).float()
-    del exact
-    dist = {name: ((t - lf).norm() / lf.norm()).item() for name, t in (("kernel", lk),
-                                                                     ("plain", lp))}
-    log(f"serve mmunet: logits std {lp.std().item():.4f}, rel L2 kernel vs plain "
-        f"{rel_l2:.3e} (<= {MMUNET_REL_L2:.0e}), mask agreement {agree:.5f} (>= 0.99); "
-        f"rel L2 to f32 compute: kernel path {dist['kernel']:.3e}, plain path "
-        f"{dist['plain']:.3e}")
-    if not (rel_l2 <= MMUNET_REL_L2 and agree >= 0.99):
-        raise AssertionError("mmunet kernel path disagrees with the plain path")
 
     # every K4 launch is a cascade grid and an MLP: one fused grid (C = 96,
     # 192) or two GEMM grids
-    events = profile_forward(torch, lambda: pred_k(x))
+    events = profile_forward(torch, lambda: preds["kernel"](x))
     count = lambda key: sum(key in e.name for e in events)
     seen = {key: count(key) for key in ("mkblock_cascade", "mkblock_mlp_fused", "mkblock_gemm",
                                          "softmax_morph_kernel")}
@@ -361,17 +439,8 @@ def serve_mmunet(torch, gen, device):
             and seen["softmax_morph_kernel"] == want["fused_softmax_morph"]):
         raise AssertionError("profiler did not see K4 on every MKBlock and K5 on every gate")
 
-    times = serve_times(torch, {"kernel": pred_k, "plain": pred_p}, x)
-    med = {k: statistics.median(v) for k, v in times.items()}
-    rates = {k: SERVE_BATCH / (m / 1e3) for k, m in med.items()}
-    for name in ("kernel", "plain"):
-        q = statistics.quantiles(times[name], n=4)
-        log(f"serve mmunet bf16 B={SERVE_BATCH} {IMAGE}px, {name} path: {rates[name]:.1f} img/s "
-            f"(forward median {med[name]:.4f} ms, quartiles {q[0]:.4f}-{q[2]:.4f} ms)")
-    busy = {name: breakdown(torch, name, lambda: fn(x), med[name])
-            for name, fn in (("kernel", pred_k), ("plain", pred_p))}
-    return launches, rates, med, busy, dict(rel_l2=rel_l2, mask_agreement=agree,
-                                            rel_l2_to_f32=dist)
+    rates, med, busy = time_paths(torch, "mmunet", preds, x, profile=True)
+    return launches, rates, med, busy, agreement
 
 
 def time_k4_k5(torch, gen, device):
@@ -421,6 +490,283 @@ def time_k4_k5(torch, gen, device):
             f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, module chain "
             f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return k4_rows, k5_rows
+
+
+def axial_work(n, length, g, gp, ks, wopos):
+    """K6: (f32 operations, least bytes). Per (row, group, i, j): 6c + 4gp + 5
+    operations with c = gp/2 (2c + 2gp + 5 for wopos): the three similarity
+    dot products, sv and sve, max, exp, sum. Bytes: qkv read and the output
+    written once (bf16), the scale tables and ``relative`` once (f32)."""
+    c = gp // 2
+    per = 2 * c + 2 * gp + 5 if wopos else 6 * c + 4 * gp + 5
+    tables = 3 * g + 3 * g * gp + (0 if wopos else 2 * gp * (2 * ks - 1))
+    return n * g * length * length * per, 2 * 3 * n * length * g * gp + 4 * tables
+
+
+def k6_case(torch, gen, b, h, w, gp, ks, wopos, device):
+    """Random K6 operands (bf16 qkv, f32 tables) with O(1) scales, so that
+    every term of the similarity and of the output shows."""
+    g = AXIAL_GROUPS
+    u = lambda *s: 0.5 + torch.rand(*s, generator=gen, device=device)
+    qkv = bf16_input(torch, gen, (b, 2 * g * gp, h, w), device)
+    relative = None if wopos else (torch.randn(2 * gp, 2 * ks - 1, generator=gen, device=device)
+                                   / gp ** 0.5)
+    sim_scale, out_scale = u(3, g), u(2, g, gp)
+    if wopos:
+        sim_scale[1:] = 0.0
+        out_scale[1] = 0.0
+    shift = 0.1 * torch.randn(g, gp, generator=gen, device=device)
+    return qkv, relative, sim_scale, out_scale, shift
+
+
+def k6_reading(got, ref):
+    """K6's error beyond its output rounding, as a share of the output:
+    max over elements of (|got - ref| - 2^-8 |ref|) / rms(ref)."""
+    excess = (got.float() - ref).abs() - 2.0 ** -8 * ref.abs()
+    return (excess.max() / ref.pow(2).mean().sqrt()).item()
+
+
+def k6_faults(torch, qkv, relative, sim_scale, out_scale, shift, ks, width_axis):
+    """K6's plain version (f32) with one fault planted each: the softmax
+    taken over the queries i (``torch.softmax`` redirected for that one
+    call) and, in the positional modes, through the plain version's own
+    arguments: k's embedding read untransposed (the k rows of ``relative``
+    reversed, which transposes k_emb alone) and the sve term dropped."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    def plain(rel, scale):
+        return k6.fused_axial_attention_reference(qkv, rel, sim_scale, scale, shift, ks,
+                                                  width_axis)
+
+    softmax = torch.softmax
+    torch.softmax = lambda t, dim: softmax(t, dim=-2)
+    try:
+        faults = [("softmax over i", plain(relative, out_scale))]
+    finally:
+        torch.softmax = softmax
+    if relative is not None:
+        faults += [(name, plain(*args)) for name, args in k6_arg_faults(
+            torch, relative, out_scale)]
+    return faults
+
+
+def k6_arg_faults(torch, relative, out_scale):
+    """Faults that K6's arguments can carry, each (name, (relative,
+    out_scale)): the k embedding untransposed, the sve term dropped."""
+    gp = out_scale.shape[2]
+    k_flat = relative.clone()
+    k_flat[gp // 2:gp] = relative[gp // 2:gp].flip(-1)
+    no_sve = out_scale.clone()
+    no_sve[1] = 0.0
+    return [("k_emb untransposed", (k_flat, out_scale)), ("sve dropped", (relative, no_sve))]
+
+
+def check_k6(torch, gen, device):
+    """K6 against its plain version (f32) at every launch shape on both axes,
+    in wopos mode at two shapes and at an odd shape with L < ks, each
+    beside planted faults that the same comparison must reject; returns
+    the max abs error."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    cases = [(SERVE_BATCH, s, s, gp, ks, False, axis) for s, gp, ks, _ in AXIAL_SHAPES
+             for axis in (False, True)]
+    cases += [(SERVE_BATCH, 128, 128, 4, 128, True, False),
+              (SERVE_BATCH, 32, 32, 16, 32, True, True)]
+    cases.append((1, 29, 37, 4, 40, False, False))   # N = 37 rows, L = 29 < ks = 40
+    err = 0.0
+    for b, h, w, gp, ks, wopos, width_axis in cases:
+        args = k6_case(torch, gen, b, h, w, gp, ks, wopos, device)
+        got = k6.fused_axial_attention(*args, ks, width_axis)
+        f32 = [None if a is None else a.float() for a in args]
+        ref = k6.fused_axial_attention_reference(*f32, ks, width_axis)
+        caught = {name: k6_reading(out, ref) for name, out in
+                  k6_faults(torch, *f32, ks, width_axis)}
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        reading = k6_reading(got, ref)
+        axis = "W" if width_axis else "H"
+        n, length = (b * h, w) if width_axis else (b * w, h)
+        e = (got.float() - ref).abs().max().item()
+        log(f"K6 qkv={[b, 2 * AXIAL_GROUPS * gp, h, w]} along {axis} (N={n}, L={length}, "
+            f"gp={gp}, ks={ks}{', wopos' if wopos else ''}): max_abs_err {e:.3e}; beyond "
+            f"output rounding {reading:.3e} of the output rms (limit {K6_SHARE:.0e}); least "
+            f"planted fault {min(caught.values()):.3e} ({min(caught, key=caught.get)})")
+        if not reading <= K6_SHARE:
+            raise AssertionError(f"K6 disagrees with its plain version: {reading}")
+        if not min(caught.values()) > K6_SHARE:
+            raise AssertionError(f"the K6 comparison passed a planted fault: {caught}")
+        err = max(err, e)
+    return err
+
+
+def medt_faults(torch, name, preds, x, refs, plain_to_f32, rel_l2_max):
+    """K6 inside the served bf16 model: every launch of a forward is held
+    against K6's plain version on the same operands, the model's own
+    activations (k6_reading, limit K6_SHARE). Then faults planted into K6's
+    arguments, each through the real kernel on every axis pass that has the
+    term: each group's q and k read swapped (every mode) and, in the
+    positional modes, the k embedding untransposed and the sve term
+    dropped. Each forward is read by every check of the served model
+    (against the plain path, its distance to f32 compute, every launch
+    against the plain version); every fault must fail at least one.
+    Returns the readings."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    kernel = k6.fused_axial_attention
+    dist = lambda a, b: ((a - b).norm() / b.norm()).item()
+    mask = lambda t: torch.sigmoid(t) > 0.5
+
+    def swapped(qkv, relative, sim_scale, out_scale, shift):
+        g, gp = out_scale.shape[1], out_scale.shape[2]
+        order = torch.cat([torch.arange(gp // 2, gp), torch.arange(gp // 2),
+                           torch.arange(gp, 2 * gp)])
+        idx = (order + 2 * gp * torch.arange(g)[:, None]).flatten().to(qkv.device)
+        qkv = qkv[:, idx].contiguous(memory_format=torch.channels_last)
+        return qkv, relative, sim_scale, out_scale, shift
+
+    def arg_fault(which):
+        def plant(qkv, relative, sim_scale, out_scale, shift):
+            if relative is not None:          # a wopos pass has neither term
+                relative, out_scale = dict(k6_arg_faults(torch, relative, out_scale))[which]
+            return qkv, relative, sim_scale, out_scale, shift
+        return plant
+
+    def checked(plant, passes):
+        def launch(*a):
+            got = kernel(*(a[:5] if plant is None else plant(*a[:5])), *a[5:])
+            f32 = [None if t is None else t.float() for t in a[:5]]
+            passes.append(k6_reading(got, k6.fused_axial_attention_reference(*f32, *a[5:])))
+            return got
+        return launch
+
+    faults = {"none": None, "q and k swapped": swapped}
+    if name != "medt":
+        faults.update({w: arg_fault(w) for w in ("k_emb untransposed", "sve dropped")})
+    readings = {}
+    try:
+        for fault, plant in faults.items():
+            passes = []
+            k6.fused_axial_attention = checked(plant, passes)
+            lk = preds["kernel"](x).float()
+            k6.fused_axial_attention = kernel
+            r = dict(rel_l2=dist(lk, refs["plain"]),
+                     mask_agreement=(mask(lk) == mask(refs["plain"])).float().mean().item(),
+                     f32_ratio=dist(lk, refs["f32"]) / plain_to_f32,
+                     launch_reading_max=max(passes))
+            failed = [k for k, bad in (("rel_l2", r["rel_l2"] > rel_l2_max),
+                                       ("mask_agreement", r["mask_agreement"] < MEDT_AGREE),
+                                       ("f32_ratio", r["f32_ratio"] > MEDT_F32_RATIO),
+                                       ("launch_reading", r["launch_reading_max"] > K6_SHARE))
+                      if bad]
+            readings[fault] = dict(r, failed=failed)
+            log(f"{name} planted fault {fault}: rel L2 vs plain {r['rel_l2']:.3e} (<= "
+                f"{rel_l2_max:.0e}), mask agreement {r['mask_agreement']:.5f} (>= {MEDT_AGREE}), "
+                f"distance to f32 {r['f32_ratio']:.3f} x plain's (<= {MEDT_F32_RATIO}), its "
+                f"{len(passes)} K6 launches against the plain version at most "
+                f"{r['launch_reading_max']:.3e} (<= {K6_SHARE:.0e}): fails {failed or 'nothing'}")
+    finally:
+        k6.fused_axial_attention = kernel
+    if readings["none"]["failed"]:
+        raise AssertionError(f"{name}: K6 disagrees with its plain version in the served model")
+    passed = [f for f, r in readings.items() if f != "none" and not r["failed"]]
+    if passed:
+        raise AssertionError(f"{name}: the served-model checks passed planted faults {passed}")
+    return readings
+
+
+def serve_medt(torch, gen, device, name, batch, image, profile):
+    """One MedT model on both paths: one K6 launch per AxialAttention,
+    agreement, planted faults, rates and, with ``profile``, the profiler's
+    count of K6 grids and the device-time breakdown."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    rel_l2_max = MEDT_REL_L2["gated" if name == "gated" else "small"]
+    preds, x, launches, agreement, refs = serve_both_paths(
+        torch, gen, device, name, batch, image, [(k6, "fused_axial_attention")],
+        rel_l2_max, MEDT_AGREE, MEDT_F32_RATIO)
+    launches = launches["fused_axial_attention"]
+    want = MEDT_LAUNCHES[name]
+    if launches != want:
+        raise AssertionError(f"K6 ran {launches} times in {name}, expected {want}")
+    faults = medt_faults(torch, name, preds, x, refs,
+                         agreement["rel_l2_to_f32"]["plain"], rel_l2_max)
+    seen = None
+    if profile:
+        events = profile_forward(torch, lambda: preds["kernel"](x))
+        seen = sum("axial_attention_kernel" in e.name for e in events)
+        log(f"profiler: {seen} axial_attention_kernel grids in one {name} forward")
+        if seen != want:
+            raise AssertionError(f"profiler saw K6 {seen} times in {name}, expected {want}")
+    rates, med, busy = time_paths(torch, name, preds, x, profile)
+    return dict(launches=launches, profiler_grids=seen, serve_img_per_s=rates, forward_ms=med,
+                device_busy_ms=busy, planted_faults=faults, **agreement)
+
+
+def random_attention(torch, width, ks, width_axis, mode, device, seed):
+    """A bf16 eval AxialAttention with seeded weights, BN off identity and
+    bf16-rounded parameters (the predictor's module path)."""
+    from unet_zoo_tpu_torch.models.medt_net import AxialAttention
+    from unet_zoo_tpu_torch.nn import init_weights
+    from unet_zoo_tpu_torch.utils.serving import cast_params_for_inference
+
+    attn = AxialAttention(width, width, AXIAL_GROUPS, ks, width_axis=width_axis, mode=mode,
+                          dtype=torch.bfloat16, use_kernels=False)
+    g = torch.Generator().manual_seed(seed)
+    init_weights(attn, g)
+    with torch.no_grad():
+        for m in attn.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.uniform_(-0.1, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+    return cast_params_for_inference(attn).to(device).eval()
+
+
+def time_k6(torch, gen, device):
+    """K6 at each launch shape of the B=8 gated forward, both axes: kernel,
+    plain version, bound, and the bf16 module chain it replaces (the module
+    path from bn_qkv to bn_output, on the same projections)."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    rows = []
+    for s, gp, ks, blocks in AXIAL_SHAPES:
+        for width_axis in (False, True):
+            b, g = SERVE_BATCH, AXIAL_GROUPS
+            attn = random_attention(torch, g * gp, ks, width_axis, "gated", device, s + gp)
+            w = k6.fold_axial_params(attn)
+            qkv = bf16_input(torch, gen, (b, 2 * g * gp, s, s), device)
+            tokens = k6.axis_rows(qkv, width_axis).contiguous()
+            tables = (w.relative, w.sim_scale, w.out_scale, w.out_shift)
+            with torch.inference_mode():
+                ms = cuda_ms(torch, lambda: k6.fused_axial_attention(qkv, *tables, ks,
+                                                                     width_axis), 20)
+                plain_ms = cuda_ms(torch, lambda: k6.fused_axial_attention_reference(
+                    qkv, *tables, ks, width_axis), 3)
+                chain_ms = cuda_ms(torch, lambda: attn.core(tokens), 10)
+            ops, nbytes = axial_work(b * s, s, g, gp, ks, False)
+            bound_ms, bound_by = bound(0, nbytes, ops)
+            axis = "W" if width_axis else "H"
+            rows.append(dict(qkv=[b, 2 * g * gp, s, s], axis=axis, n=b * s, length=s, gp=gp,
+                             kernel_size=ks, launches=blocks, f32_ops=ops, bytes=nbytes, ms=ms,
+                             plain_ms=plain_ms, module_chain_ms=chain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, tflops=ops / ms / 1e9))
+            log(f"K6 qkv={[b, 2 * g * gp, s, s]} along {axis} x{blocks}: {ms:.4f} ms "
+                f"({ops / ms / 1e9:.2f} TFLOP/s f32), plain {plain_ms:.4f} ms, module chain "
+                f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    # wopos (medt's mode) at the largest shape: kernel against its module chain
+    s, gp, ks, _ = AXIAL_SHAPES[1]
+    attn = random_attention(torch, AXIAL_GROUPS * gp, ks, False, "wopos", device, 7)
+    w = k6.fold_axial_params(attn)
+    qkv = bf16_input(torch, gen, (SERVE_BATCH, 2 * AXIAL_GROUPS * gp, s, s), device)
+    tokens = k6.axis_rows(qkv, False).contiguous()
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: k6.fused_axial_attention(
+            qkv, None, w.sim_scale, w.out_scale, w.out_shift, ks, False), 20)
+        chain_ms = cuda_ms(torch, lambda: attn.core(tokens), 10)
+    log(f"K6 wopos qkv={[SERVE_BATCH, 2 * AXIAL_GROUPS * gp, s, s]} along H: {ms:.4f} ms, "
+        f"module chain {chain_ms:.4f} ms")
+    return rows, dict(qkv=[SERVE_BATCH, 2 * AXIAL_GROUPS * gp, s, s], ms=ms,
+                      module_chain_ms=chain_ms)
 
 
 def per_forward(rows, key):
@@ -567,6 +913,14 @@ def main() -> int:
     mm_launches, mm_rates, mm_med, mm_busy, mm_agreement = serve_mmunet(torch, gen, device)
     k4_rows, k5_rows = time_k4_k5(torch, gen, device)
 
+    # 7-8. MedT: K6 checks, gated served at full width, the other four names
+    # at B=2/128px, K6 per launch shape
+    k6_err = check_k6(torch, gen, device)
+    gated = serve_medt(torch, gen, device, "gated", SERVE_BATCH, IMAGE, profile=True)
+    others = {name: serve_medt(torch, gen, device, name, 2, 128, profile=False)
+              for name in ("axialunet", "medt", "logo", "medt_logo")}
+    k6_rows, k6_wopos = time_k6(torch, gen, device)
+
     total = lambda key: sum(s[key] for s in stages)
     bound_ms, bound_by = bound(total("flops"), total("bytes"))
     k4_bound = bound(per_forward(k4_rows, "tc_flops"), per_forward(k4_rows, "bytes"),
@@ -574,6 +928,7 @@ def main() -> int:
     k5_bound = bound(0, per_forward(k5_rows, "bytes"), per_forward(k5_rows, "f32_ops"))
     mm_serving = dict(serve_img_per_s=mm_rates, forward_ms=mm_med, device_busy_ms=mm_busy,
                       **mm_agreement)
+    k6_bound = bound(0, per_forward(k6_rows, "bytes"), per_forward(k6_rows, "f32_ops"))
     log(json.dumps({"kernels": [{
         "name": "fused_up_concat_conv",
         "route": "cuda",
@@ -618,6 +973,23 @@ def main() -> int:
         "library_ms": None,
         "module_chain_ms": per_forward(k5_rows, "module_chain_ms"),
         "shapes": k5_rows,
+    }, {
+        "name": "fused_axial_attention",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/axial_attention.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/axial_attention.py:82",
+        "launches": gated["launches"],
+        "max_abs_err": k6_err,
+        "ms": per_forward(k6_rows, "ms"),
+        "plain_ms": per_forward(k6_rows, "plain_ms"),
+        "bound_ms": k6_bound[0],
+        "bound_by": k6_bound[1],
+        "library_ms": None,
+        "module_chain_ms": per_forward(k6_rows, "module_chain_ms"),
+        "gated": gated,
+        "others": others,
+        "wopos": k6_wopos,
+        "shapes": k6_rows,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

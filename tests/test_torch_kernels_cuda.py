@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K4, K5) against their plain PyTorch
+"""The port's CUDA kernels (K1, K4, K5, K6) against their plain PyTorch
 versions, and each model's kernel path against its plain path, on the card.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``: a CUDA kernel has no CPU
@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from unet_zoo_tpu_torch import create_model
+from unet_zoo_tpu_torch.models.medt_net import AxialAttention
 from unet_zoo_tpu_torch.models.mmunet import MKBlock
 from unet_zoo_tpu_torch.nn import init_weights
+from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
 from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
 from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
 from unet_zoo_tpu_torch.ops.kernels import morph as k5
@@ -175,3 +177,134 @@ def test_mmunet_float32_model_runs_kernels(cuda_device):
     ref = preds[1](x)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= 3e-2
+
+
+# K6: the error beyond the output's bf16 rounding (2^-8 |ref|) as a share of
+# the output's rms (chip_smoke.py's k6_reading, with the same limit).
+K6_SHARE = 1e-3
+
+
+def _k6_reading(got, ref):
+    excess = (got.float() - ref).abs() - 2.0 ** -8 * ref.abs()
+    return (excess.max() / ref.pow(2).mean().sqrt()).item()
+
+
+def _k6_case(device, b, h, w, gp, ks, wopos, g=8):
+    gen = torch.Generator(device=device).manual_seed(0)
+    u = lambda *s: 0.5 + torch.rand(*s, generator=gen, device=device)
+    qkv = torch.randn(b, 2 * g * gp, h, w, generator=gen, device=device).to(torch.bfloat16)
+    relative = None if wopos else (torch.randn(2 * gp, 2 * ks - 1, generator=gen, device=device)
+                                   / gp ** 0.5)
+    sim_scale, out_scale = u(3, g), u(2, g, gp)
+    if wopos:
+        sim_scale[1:] = 0.0
+        out_scale[1] = 0.0
+    return (qkv.contiguous(memory_format=torch.channels_last), relative, sim_scale, out_scale,
+            0.1 * torch.randn(g, gp, generator=gen, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,gp,ks,wopos,width_axis", [
+    (2, 128, 128, 2, 128, False, False),   # gated layer1 (group split 2)
+    (2, 64, 64, 8, 64, False, True),       # layer3_0, along W
+    (4, 32, 32, 16, 32, False, False),     # layer4_0: the largest reduce-scatter
+    (1, 29, 37, 4, 40, False, False),      # L = 29 < ks = 40: the ks - 1 offset
+    (2, 16, 16, 4, 16, True, True),        # wopos
+    (1, 3, 250, 8, 256, True, True),       # 8 keys per lane
+    (2, 64, 64, 32, 64, False, True),      # gp 32: groups=4 or width_per_group=128
+    (1, 4, 512, 2, 512, False, True),      # 16 keys per lane: image_size 1024's layer1
+    (1, 2, 300, 32, 300, True, True),      # wopos, gp 32, 10 keys per lane
+])
+def test_fused_axial_attention_kernel_matches_reference(cuda_device, b, h, w, gp, ks, wopos,
+                                                        width_axis):
+    args = _k6_case(cuda_device, b, h, w, gp, ks, wopos)
+    f32 = [None if a is None else a.float() for a in args]
+    ref = k6.fused_axial_attention_reference(*f32, ks, width_axis)
+    got = k6.fused_axial_attention(*args, ks, width_axis)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
+    assert _k6_reading(got, ref) <= K6_SHARE
+    if not wopos:
+        # the output without the sve term, or with the k embedding read
+        # untransposed (the k rows of relative reversed), fails the comparison
+        no_sve = f32[:3] + [torch.stack([f32[3][0], torch.zeros_like(f32[3][1])]), f32[4]]
+        assert _k6_reading(k6.fused_axial_attention_reference(*no_sve, ks, width_axis),
+                           ref) > K6_SHARE
+        k_flat = f32[1].clone()
+        k_flat[gp // 2:gp] = f32[1][gp // 2:gp].flip(-1)
+        assert _k6_reading(k6.fused_axial_attention(args[0], k_flat, *args[2:], ks,
+                                                    width_axis), ref) > K6_SHARE
+
+
+@pytest.mark.cuda
+def test_axial_attention_outside_kernel_shapes_raises(cuda_device):
+    """No shape gate: a bf16 block on the card whose shape K6 does not take
+    raises instead of running the module path; use_kernels=False serves it."""
+    for gp, length in ((6, 32), (32, 512)):      # gp not built; shared memory too small
+        attn = AxialAttention(8 * gp, 8 * gp, 8, length, width_axis=True, mode="gated",
+                              dtype=torch.bfloat16)
+        init_weights(attn, torch.Generator().manual_seed(0))
+        attn = attn.to(cuda_device).eval()
+        x = torch.randn(1, 8 * gp, 2, length, device=cuda_device).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        before = k6.LAUNCHES["fused_axial_attention"]
+        with torch.no_grad(), pytest.raises(ValueError, match="use_kernels=False"):
+            attn(x)
+        assert k6.LAUNCHES["fused_axial_attention"] == before
+        attn.use_kernels = False
+        with torch.no_grad():
+            assert torch.isfinite(attn(x).float()).all()
+
+
+@pytest.mark.cuda
+def test_gated_registry_kwargs_run_kernel(cuda_device):
+    """create_model('gated', groups=4): layer4's gp is 32, which K6 takes."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    preds = [make_predictor(create_model("gated", dtype=torch.bfloat16, image_size=64, groups=4,
+                                         use_kernels=k), None, "logits") for k in (None, False)]
+    before = k6.LAUNCHES["fused_axial_attention"]
+    got = preds[0](x).float()
+    assert k6.LAUNCHES["fused_axial_attention"] - before == 16
+    ref = preds[1](x).float()
+    assert torch.isfinite(got).all()
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,launches", [("gated", 16), ("medt", 16), ("medt_logo", 22)])
+def test_medt_kernel_path_matches_plain_path(cuda_device, name, launches):
+    """chip_smoke.py's limits for the small MedT forwards: relative L2 of
+    the bf16 paths <= 1e-1, and the kernel path no farther from float32
+    compute than 1.25x the plain path (the plain path rounds the
+    similarity logits to bf16)."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    preds = [make_predictor(create_model(name, dtype=dt, image_size=64, use_kernels=k), None,
+                            "logits")
+             for dt, k in ((torch.bfloat16, None), (torch.bfloat16, False), (torch.float32, False))]
+    before = k6.LAUNCHES["fused_axial_attention"]
+    got = preds[0](x).float()
+    assert k6.LAUNCHES["fused_axial_attention"] - before == launches
+    ref, exact = preds[1](x).float(), preds[2](x).float()
+    assert torch.isfinite(got).all()
+    dist = lambda a, b: ((a - b).norm() / b.norm()).item()
+    assert dist(got, ref) <= 1e-1
+    assert dist(got, exact) <= 1.25 * dist(ref, exact)
+
+
+@pytest.mark.cuda
+def test_axial_attention_float32_runs_kernel(cuda_device):
+    """use_kernels=True on a float32 module: K6 runs on a bf16 copy of the
+    projections and hands back float32."""
+    attn = AxialAttention(16, 16, 8, 32, stride=2, width_axis=True, mode="gated",
+                          use_kernels=True)
+    init_weights(attn, torch.Generator().manual_seed(0))
+    attn = attn.to(cuda_device).eval()
+    x = torch.randn(2, 16, 32, 32, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    before = k6.LAUNCHES["fused_axial_attention"]
+    with torch.no_grad():
+        got = attn(x)
+        attn.use_kernels = False
+        ref = attn(x)
+    assert k6.LAUNCHES["fused_axial_attention"] - before == 1
+    assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 16)  # pooled 2x2
+    assert ((got - ref).norm() / ref.norm()).item() <= 1e-2

@@ -24,9 +24,10 @@ from unet_zoo_tpu.ops.pallas import morph as jax_morph
 from unet_zoo_tpu.utils.convert import convert_state_dict
 from unet_zoo_tpu.utils.serving import make_predictor as jax_make_predictor
 from unet_zoo_tpu_torch import create_model
-from unet_zoo_tpu_torch.models.mmunet import GroupedConv2in, MKBlock, use_kernel
+from unet_zoo_tpu_torch.models.mmunet import GroupedConv2in, MKBlock
 from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
 from unet_zoo_tpu_torch.ops.kernels import morph as k5
+from unet_zoo_tpu_torch.ops.kernels import use_kernel
 from unet_zoo_tpu_torch.utils import convert as port_convert
 from unet_zoo_tpu_torch.utils.convert import from_jax_variables
 from unet_zoo_tpu_torch.utils.serving import cast_params_for_inference, make_predictor
@@ -271,12 +272,13 @@ def test_grouped_conv2in_matches_jax():
 
 def test_use_kernel_dispatch():
     x = torch.zeros(1, 32, 4, 4)
-    assert not use_kernel(None, False, x, 32)              # auto: bf16 CUDA only
-    assert use_kernel(True, False, x, 32)
-    assert not use_kernel(True, True, x, 32)               # training
-    assert not use_kernel(False, False, x, 32)
-    assert not use_kernel(True, False, torch.zeros(1, 16, 4, 4), 32)   # C % 32: module path
-    assert use_kernel(True, False, torch.zeros(1, 16, 4, 4), 8)
+    assert not use_kernel(None, False, x)                  # auto: bf16 CUDA only
+    assert use_kernel(True, False, x)
+    assert not use_kernel(True, True, x)                   # training
+    assert not use_kernel(False, False, x)
+    assert not use_kernel(True, False, x, fits=False)      # outside the shape gate
+    z = torch.zeros(1, 16, 4, 4)
+    assert not MKBlock(16, use_kernels=True).eval().kernel_path(z)   # C % 32: module path
     blocks = [m for m in create_model("mmunet", device="cpu", base_channels=16,
                                       use_kernels=True).module.modules()
               if isinstance(m, MKBlock)]

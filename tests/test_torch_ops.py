@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from unet_zoo_tpu.ops import avg_pool2d as jax_avg_pool2d
 from unet_zoo_tpu.ops import max_pool2d as jax_max_pool2d
 from unet_zoo_tpu.ops import pad_to_match as jax_pad_to_match
 from unet_zoo_tpu.ops import resize_bilinear as jax_resize_bilinear
-from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, resize_bilinear
+from unet_zoo_tpu_torch.ops import avg_pool2d, max_pool2d, pad_to_match, resize_bilinear
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,6 +68,27 @@ def test_padded_max_pool2d_matches_jax(hw, window, padding):
         np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("hw,window,stride,padding", [
+    ((8, 8), 2, None, 0),    # the stride-2 axial blocks
+    ((7, 9), 2, None, 0),    # odd sizes: floor mode drops the last row/column
+    ((5, 6), 3, 2, 1),       # zero padding counted in the window area
+    ((9, 4), 3, 1, 0),
+])
+def test_avg_pool2d_matches_jax(hw, window, stride, padding):
+    """Float32 sums over the window area on both sides; the bf16 case
+    rounds the same float32 mean once: 1e-6, and bf16-exact."""
+    x = np.random.default_rng(4).standard_normal((2, *hw, 3)).astype(np.float32)
+    ref = np.asarray(jax_avg_pool2d(jnp.asarray(x), window, stride, padding))
+    xt = _nchw(x).contiguous(memory_format=torch.channels_last)
+    got = _nhwc(avg_pool2d(xt, window, stride, padding))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    ref16 = jax_avg_pool2d(jnp.asarray(x).astype(jnp.bfloat16), window, stride, padding)
+    got16 = avg_pool2d(xt.to(torch.bfloat16), window, stride, padding)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_nhwc(got16.float()), np.asarray(ref16.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("align_corners", [True, False])
 @pytest.mark.parametrize("hw,size", [
     ((5, 7), (10, 14)),   # mmunet's 2x upsample at odd sizes
@@ -108,7 +130,7 @@ def test_registry_surface():
     from unet_zoo_tpu.models import _REGISTRY as JAX_REGISTRY
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
-    assert list_models() == ["mmunet", "unet"]
+    assert list_models() == ["axialunet", "gated", "logo", "medt", "medt_logo", "mmunet", "unet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)

@@ -13,6 +13,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
+from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.nn import init_weights
@@ -170,6 +171,54 @@ def _build_mmunet(in_channels, num_classes, image_size, depth, dtype, **kw):
         layer_scale_init_value=kw.pop("layer_scale_init_value", 1e-6),
         se_ratio=kw.pop("se_ratio", 0.25), dtype=dtype, **kw,
     )
+
+
+_MEDT_DEAD_KWARGS = ("norm_layer", "zero_init_residual", "replace_stride_with_dilation",
+                     "layers", "s")
+
+
+def _build_medt_family(mode, in_channels, num_classes, image_size, dtype, kw):
+    # the JAX registry's defaults; the same kwargs are accepted and dropped
+    for dead in _MEDT_DEAD_KWARGS:
+        kw.pop(dead, None)
+    return ResAxialAttentionUNet(
+        mode=mode, num_classes=num_classes, in_channels=in_channels,
+        img_size=image_size if image_size is not None else 128,
+        groups=kw.pop("groups", 8), width_per_group=kw.pop("width_per_group", 64),
+        dtype=dtype, **kw)
+
+
+@register_model("axialunet", default_image_size=128)
+def _build_axialunet(in_channels, num_classes, image_size, depth, dtype, pretrained=False, **kw):
+    return _build_medt_family("base", in_channels, num_classes, image_size, dtype, kw)
+
+
+@register_model("gated", default_image_size=128)
+def _build_gated(in_channels, num_classes, image_size, depth, dtype, pretrained=False, **kw):
+    return _build_medt_family("gated", in_channels, num_classes, image_size, dtype, kw)
+
+
+@register_model("medt", default_image_size=128)
+def _build_medt(in_channels, num_classes, image_size, depth, dtype, pretrained=False, **kw):
+    return _build_medt_family("wopos", in_channels, num_classes, image_size, dtype, kw)
+
+
+@register_model("logo", default_image_size=128)
+def _build_logo(in_channels, num_classes, image_size, depth, dtype, pretrained=False, **kw):
+    # wired as 'gated', as in the original zoo and the JAX registry
+    return _build_medt_family("gated", in_channels, num_classes, image_size, dtype, kw)
+
+
+@register_model("medt_logo", default_image_size=128)
+def _build_medt_logo(in_channels, num_classes, image_size, depth, dtype, pretrained=False,
+                     **kw):
+    for dead in _MEDT_DEAD_KWARGS:
+        kw.pop(dead, None)
+    return MedTLoGo(
+        num_classes=num_classes, in_channels=in_channels,
+        img_size=image_size if image_size is not None else 128,
+        groups=kw.pop("groups", 8), width_per_group=kw.pop("width_per_group", 64),
+        dtype=dtype, **kw)
 
 
 __all__ = [

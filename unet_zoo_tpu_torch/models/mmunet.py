@@ -36,17 +36,7 @@ from torch import nn
 
 from unet_zoo_tpu_torch.nn import batch_norm, conv
 from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, resize_bilinear
-from unet_zoo_tpu_torch.ops.kernels import mkblock, morph
-
-
-def use_kernel(use_kernels: Optional[bool], training: bool, x: torch.Tensor,
-               channel_align: int) -> bool:
-    """Whether a block runs its kernel on ``x`` (see the module docstring)."""
-    if use_kernels is False or training or x.shape[1] % channel_align:
-        return False
-    if use_kernels is None:
-        return x.is_cuda and x.dtype == torch.bfloat16
-    return True
+from unet_zoo_tpu_torch.ops.kernels import mkblock, morph, use_kernel
 
 
 def _linear(x: torch.Tensor, lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:
@@ -57,7 +47,7 @@ def softmax_morph(z: torch.Tensor, repeat: int, use_kernels: Optional[bool], tra
     """softmax over C, then ``repeat`` rounds of 7x7 (dilate, erode): K5 on
     the kernel path (on a bfloat16 copy of ``z``, as MKBlock runs K4), else
     the plain chain of softmax and max pools."""
-    if use_kernel(use_kernels, training, z, morph.CHANNEL_ALIGN):
+    if use_kernel(use_kernels, training, z, z.shape[1] % morph.CHANNEL_ALIGN == 0):
         zb = z.to(torch.bfloat16, memory_format=torch.channels_last)
         d, e = morph.fused_softmax_morph(zb, 7, repeat)
         return d.to(z.dtype), e.to(z.dtype)
@@ -116,7 +106,8 @@ class MKBlock(nn.Module):
         self._frozen: Optional[mkblock.MKBlockWeights] = None
 
     def kernel_path(self, x: torch.Tensor) -> bool:
-        return use_kernel(self.use_kernels, self.training, x, mkblock.CHANNEL_ALIGN)
+        return use_kernel(self.use_kernels, self.training, x,
+                          x.shape[1] % mkblock.CHANNEL_ALIGN == 0)
 
     def freeze_kernel_weights(self) -> None:
         """Fold once for a predictor whose weights no longer change."""

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match
+from unet_zoo_tpu_torch.ops.kernels import use_kernel
 from unet_zoo_tpu_torch.ops.kernels.fused_up import (
     fold_conv_bn,
     fused_up_concat_conv,
@@ -146,13 +147,8 @@ class UpSampleUNet(nn.Module):
         self._frozen: Optional[KernelWeights] = None
 
     def kernel_path(self, x: torch.Tensor, skip: torch.Tensor) -> bool:
-        if self.use_kernels is False or self.training:
-            return False
-        if skip.shape[-2] != 2 * x.shape[-2] or skip.shape[-1] != 2 * x.shape[-1]:
-            return False
-        if self.use_kernels is None:
-            return x.is_cuda and x.dtype == torch.bfloat16
-        return True
+        doubled = skip.shape[-2] == 2 * x.shape[-2] and skip.shape[-1] == 2 * x.shape[-1]
+        return use_kernel(self.use_kernels, self.training, x, doubled)
 
     @torch.no_grad()
     def kernel_weights(self) -> KernelWeights:
@@ -219,8 +215,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     they get std 0.5 / sqrt(fan_in), a quarter of the LeCun variance, so
     each branch adds a few percent to its input's variance and random
     full-width mmunet logits stay O(1) (``chip_smoke.py`` prints their std).
+    A module's ``init_gain`` attribute overrides the gain (MedT's qkv
+    projections draw at std sqrt(1 / fan_in), as in JAX), and a module with
+    a ``draw_parameters(generator)`` method draws its own other parameters
+    (MedT's relative embeddings) when it is reached.
     """
     for m in module.modules():
+        if hasattr(m, "draw_parameters"):
+            m.draw_parameters(generator)
         if isinstance(m, nn.ConvTranspose2d):
             fan_in, gain = m.in_channels, 2.0  # k == s: each output sees Cin inputs
         elif isinstance(m, nn.Conv2d):
@@ -232,6 +234,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             fan_in, gain = m.in_features, 0.25
         else:
             continue
+        gain = getattr(m, "init_gain", gain)
         m.weight.normal_(0.0, (gain / fan_in) ** 0.5, generator=generator)
         if m.bias is not None:
             m.bias.zero_()

@@ -1,7 +1,7 @@
 """Tensor ops of the port (NCHW, channels_last in memory)."""
 
 from unet_zoo_tpu_torch.ops.padding import pad_to_match
-from unet_zoo_tpu_torch.ops.pooling import max_pool2d
+from unet_zoo_tpu_torch.ops.pooling import avg_pool2d, max_pool2d
 from unet_zoo_tpu_torch.ops.resize import resize_bilinear
 
-__all__ = ["max_pool2d", "pad_to_match", "resize_bilinear"]
+__all__ = ["avg_pool2d", "max_pool2d", "pad_to_match", "resize_bilinear"]

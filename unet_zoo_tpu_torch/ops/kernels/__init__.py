@@ -3,3 +3,27 @@
 Modules here import no compiler or GPU package at import time; each kernel
 is built on its first launch (``build.py``).
 """
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def use_kernel(use_kernels: Optional[bool], training: bool, x: torch.Tensor,
+               fits: bool = True) -> bool:
+    """Whether a block runs its kernel on ``x``, the rule every model shares.
+
+    ``use_kernels`` ``None`` runs it in eval for bfloat16 CUDA activations;
+    ``True`` in eval on any device, which on the CPU means its plain
+    version; ``False`` never. Training always takes the module path.
+    ``fits`` is the block's shape gate: a block whose shape the kernel does
+    not take runs its module path (a block with no gate leaves it True and
+    lets the kernel's wrapper raise).
+    """
+    if use_kernels is False or training or not fits:
+        return False
+    if use_kernels is None:
+        return x.is_cuda and x.dtype == torch.bfloat16
+    return True

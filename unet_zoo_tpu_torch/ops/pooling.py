@@ -2,8 +2,10 @@
 
 Semantics match ``torch.nn.MaxPool2d`` with floor division of the spatial
 dims, as the UNet encoder and mmunet's morphology use it; padding is
-filled with -inf, as ``unet_zoo_tpu/ops/pooling.py`` does. Ceil mode,
-average and adaptive pools come with the models that need them.
+filled with -inf, as ``unet_zoo_tpu/ops/pooling.py`` does. ``avg_pool2d``
+matches ``AvgPool2d`` with ``count_include_pad`` (the MedT family's
+stride-2 axial blocks). Ceil mode and the adaptive pools come with the
+models that need them.
 """
 
 from __future__ import annotations
@@ -26,3 +28,12 @@ def max_pool2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
         x = F.max_pool2d(x, (window, 1), 1, (padding, 0))
         return F.max_pool2d(x, (1, window), 1, (0, padding))
     return F.max_pool2d(x, window, stride, padding)
+
+
+def avg_pool2d(x: torch.Tensor, window: int = 2, stride: Optional[int] = None,
+               padding: int = 0) -> torch.Tensor:
+    """k x k average pool, floor mode: the window sum in float32 over the
+    window area (zero padding counted), returned in ``x.dtype``."""
+    stride = window if stride is None else stride
+    return F.avg_pool2d(x.float(), window, stride, padding,
+                        count_include_pad=True).to(x.dtype)

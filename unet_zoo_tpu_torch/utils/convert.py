@@ -12,7 +12,9 @@ loads with ``strict=True``. It is the inverse of the JAX package's
 * BatchNorm: scale/bias/mean/var -> weight/bias/running_mean/running_var;
 * Dense -> ``nn.Linear``: ``kernel.T``; Dense -> ``nn.Conv1d(k=1)``:
   ``kernel.T[:, :, None]``;
-* a grouped conv keeps the conv rule: [3, 3, 2, C] -> [C, 2, 3, 3].
+* a grouped conv keeps the conv rule: [3, 3, 2, C] -> [C, 2, 3, 3];
+* MedT's qkv Dense -> ``qkv_transform.conv`` (``Conv1d`` k=1):
+  ``kernel.T[:, :, None]``; ``relative`` and the scalar gates as they are.
 """
 
 from __future__ import annotations
@@ -120,8 +122,69 @@ def _mmunet(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _axial_attention(sd, prefix, p, s):
+    # Dense [in, out] -> Conv1d(k=1) weight [out, in, 1]
+    sd[f"{prefix}.qkv_transform.conv.weight"] = _t(np.asarray(p["qkv"]["kernel"]).T[:, :, None])
+    for name in ("bn_qkv", "bn_similarity", "bn_output"):
+        _bn(sd, f"{prefix}.{name}", p[name], s[name])
+    for name in ("relative", "f_qr", "f_kr", "f_sv", "f_sve"):   # absent for wopos
+        if name in p:
+            sd[f"{prefix}.{name}"] = _t(p[name])
+
+
+def _axial_block(sd, prefix, p, s):
+    _conv(sd, f"{prefix}.conv_down", p["conv_down"])
+    _bn(sd, f"{prefix}.bn1", p["bn1"], s["bn1"])
+    for name in ("hight_block", "width_block"):
+        _axial_attention(sd, f"{prefix}.{name}", p[name], s[name])
+    _conv(sd, f"{prefix}.conv_up", p["conv_up"])
+    _bn(sd, f"{prefix}.bn2", p["bn2"], s["bn2"])
+    if "downsample_conv" in p:
+        _conv(sd, f"{prefix}.downsample.0", p["downsample_conv"])
+        _bn(sd, f"{prefix}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+
+
+def _axial_stages(sd, p, s, names):
+    for name in names:
+        bi = 0
+        while f"{name}_{bi}" in p:
+            _axial_block(sd, f"{name}.{bi}", p[f"{name}_{bi}"], s[f"{name}_{bi}"])
+            bi += 1
+
+
+def _stem(sd, p, s, suffix):
+    for c in (1, 2, 3):
+        _conv(sd, f"conv{c}{suffix}", p[f"conv{c}"])
+        _bn(sd, f"bn{c}{suffix}", p[f"bn{c}"], s[f"bn{c}"])
+
+
+def _medt_family(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _stem(sd, p, s, "")
+    _axial_stages(sd, p, s, ("layer1", "layer2", "layer3", "layer4"))
+    for d in (1, 2, 3, 4):
+        _conv(sd, f"decoder{d}", p[f"decoder{d}"])
+    _conv(sd, "final_conv", p["final_conv"])
+    return sd
+
+
+def _medt_logo(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _stem(sd, p["stem"], s["stem"], "")
+    _stem(sd, p["stem_p"], s["stem_p"], "_p")
+    _axial_stages(sd, p, s, ("layer1", "layer2", "layer1_p", "layer2_p", "layer3_p",
+                             "layer4_p"))
+    for name in ("decoder4", "decoder5", "decoder1_p", "decoder2_p", "decoder3_p",
+                 "decoder4_p", "decoder5_p", "decoderf", "adjust"):
+        _conv(sd, name, p[name])
+    return sd
+
+
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
-    "mmunet": _mmunet, "unet": _unet}
+    "axialunet": _medt_family, "gated": _medt_family, "logo": _medt_family,
+    "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet, "unet": _unet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
