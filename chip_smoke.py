@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -39,7 +39,29 @@
    on the kernel path against float32 compute, and with faults planted
    into K6's arguments (q and k swapped, the k embedding untransposed, the
    sve term dropped), which the served-model checks must reject.
-9. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+9. Holds K7 (``fused_axial_train``: stats, forward, B1, B2) against its
+   plain version, forward and backward (13 outputs), at every launch shape
+   of the B=8 ``gated`` train step on both axes, at gp 32 with L = 128 and at N = 37,
+   L = 29 < ks = 40; each comparison is shown to reject planted faults (B2
+   without the e x̂ term, var without -mu^2, d_relative from one block, kr
+   reading the k embedding untransposed).
+10. Trains full-width ``gated`` (bf16 compute, float32 parameters, B=8,
+   256x256) through ``make_train_step`` on the kernel path and on the module
+   path from the same weights and batch: each K7 grid runs 16 times per
+   step, by the launch counters and by the profiler; gradients and running
+   statistics of the two paths compared; the loss must fall over 10 steps
+   on both; train img/s, peak memory, device busy time; every K7 launch of
+   a step held against the plain version on the model's own operands and
+   incoming gradients; every axis pass of a step run again on its own
+   operands, the train kernel chain and the bf16 module chain each held
+   against the float32 module chain (outputs, gradients, running
+   statistics), with planted faults that must fail. Where the whole
+   model's bf16 gradient stands: float32 on bf16-rounded weights and both
+   bf16 paths against float32, at registry depth and at layers (1, 1, 1,
+   1) (reported). ``axialunet`` trains 3 steps at B=2/128px. K7 timed per
+   launch shape against its bound, its plain version and the module chain
+   it replaces.
+11. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -111,6 +133,27 @@ MEDT_F32_RATIO = 1.25
 # global branch 3 and local branch 8)
 MEDT_LAUNCHES = {"gated": 2 * sum(n for *_, n in AXIAL_SHAPES), "axialunet": 16, "medt": 16,
                  "logo": 16, "medt_logo": 22}
+# K7 against its plain version (float32 on the same bf16 operands): every
+# output's error beyond its own rounding (2^-8 |ref| for the bf16 outputs sv,
+# sve, d_q, d_k, d_qg, d_kg, d_v; none for the float32 mu, var, d_relative,
+# d_gamma), as a share of the output's rms (see k7_readings). What remains is
+# float32 arithmetic in another order; the planted faults read far above.
+K7_SHARE = 1e-3
+K7_OUTPUTS = ("sv", "sve", "mu", "var", "d_q", "d_k", "d_qg", "d_kg", "d_v", "d_q_emb",
+              "d_k_emb", "d_v_emb", "d_gamma")
+# K7's four grids, each launched once per positional axis pass of a train step
+K7_GRIDS = ("axial_train_stats", "axial_train_fwd", "axial_train_b1", "axial_train_b2")
+TRAIN_STEPS = 10
+# An axis pass of the trained model run again on its own bf16 operands and
+# incoming gradient (check_train_blocks): the parameters whose gradients are
+# read. bn_similarity.bias has an exactly zero gradient (softmax shift
+# invariance). The gates' gradients are zero but for BatchNorm's eps, and so
+# are bn_qkv.weight's on the v channels, and at gp 2 on all of them: each
+# scales channels whose scale a train-mode BatchNorm normalises away. Their
+# bf16 and float32 readings are both noise, so they are left out.
+BLOCK_PARAMS = ("relative", "bn_qkv.bias", "bn_similarity.weight", "bn_output.weight",
+                "bn_output.bias")
+TRAIN_BLOCK_REL_L2 = 5e-2
 
 
 def log(*a):
@@ -179,13 +222,16 @@ def morph_work(b, c, h, w, k, repeat):
 
 
 def profile_forward(torch, fn):
-    """Device events of one traced call of ``fn`` (synchronised)."""
+    """Device events of one traced call of ``fn`` (synchronised), without
+    the ranges of user annotations (such as ``Optimizer.step``), which span
+    kernels already counted."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def serve_times(torch, preds, x):
@@ -201,13 +247,17 @@ def serve_times(torch, preds, x):
     return times
 
 
-def breakdown(torch, name, fn, forward_ms):
-    """Log where one forward's device time goes, by kernel, and the idle share."""
+def breakdown(torch, name, fn, forward_ms, counts=None):
+    """Log where one call's device time goes (a forward, or a train step), by
+    kernel, and the idle share; ``counts``, if given, gets each kernel's
+    launches."""
     per = {}
     for e in profile_forward(torch, fn):
         per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        if counts is not None:
+            counts[e.name] = counts.get(e.name, 0) + 1
     busy = sum(per.values())
-    log(f"{name} path device time {busy:.4f} ms of {forward_ms:.4f} ms forward "
+    log(f"{name} path device time {busy:.4f} ms of {forward_ms:.4f} ms per call "
         f"(idle share {1 - busy / forward_ms:.3f}); top kernels:")
     for kname, ms in sorted(per.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms:8.4f} ms  {kname[:110]}")
@@ -769,6 +819,586 @@ def time_k6(torch, gen, device):
                       module_chain_ms=chain_ms)
 
 
+def k7_operands(torch, gen, b, h, w, gp, ks, width_axis, device):
+    """K7's operands as AxialAttention hands them over at one launch shape:
+    the rows of a bf16 [B, 2 g gp, H, W] projection along the axis, with q,
+    k and v strided slices of it (q and k offset by 0.5 so that the terms'
+    means, and var's -mu^2, are not zero); qg = 0.3 q, kg = 0.7 k; float32
+    ``relative`` and gamma; bf16 upstream gradients of sv and sve."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    g, c = AXIAL_GROUPS, gp // 2
+    offset = ((torch.arange(2 * gp, device=device) < gp).float() * 0.5).repeat(g)
+    x = torch.randn(b, 2 * g * gp, h, w, generator=gen, device=device) + offset.view(1, -1, 1, 1)
+    qkv = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    rows = k6.axis_rows(qkv, width_axis)
+    n, length = rows.shape[:2]
+    rows = rows.reshape(n, length, g, 2 * gp)
+    q, k, v = rows[..., :c], rows[..., c:gp], rows[..., gp:]
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    ops = [q, k, (q.float() * 0.3).to(torch.bfloat16), (k.float() * 0.7).to(torch.bfloat16), v,
+           r(2 * gp, 2 * ks - 1) / gp ** 0.5, 1.0 + 0.2 * r(3, g)]
+    cts = [r(n, length, g, gp).to(torch.bfloat16) for _ in range(2)]
+    return ops, cts
+
+
+def k7_outputs(outs, grads, gp):
+    """K7's thirteen outputs by name: the four results and the gradients of
+    q, k, qg, kg, v, the q, k and v rows of ``relative``, and gamma."""
+    return dict(zip(K7_OUTPUTS, (*outs, *grads[:5], grads[5][:gp // 2], grads[5][gp // 2:gp],
+                                 grads[5][gp:], grads[6])))
+
+
+def k7_run(torch, fn, ops, cts, ks):
+    """``fn`` (K7 or its plain version) forward and backward on ``ops``
+    (also inside another backward, where grad mode is off)."""
+    leaves = [t.detach().requires_grad_() for t in ops]
+    with torch.enable_grad():
+        outs = fn(*leaves, ks)
+        grads = torch.autograd.grad(outs[:2], leaves, [c.to(outs[0].dtype) for c in cts])
+    return k7_outputs(outs, grads, ops[4].shape[-1])
+
+
+def k7_reference(torch, ops, cts, ks):
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+
+    return k7_run(torch, k7.fused_axial_train_reference, [t.float() for t in ops],
+                  [c.float() for c in cts], ks)
+
+
+def k7_readings(got, ref):
+    """Each output's error beyond its own rounding (half a bf16 ulp for the
+    bf16 outputs, none for the float32 ones), as a share of its rms."""
+    out = {}
+    for name in K7_OUTPUTS:
+        g, r = got[name].float(), ref[name].float()
+        rounding = 2.0 ** -8 * r.abs() if got[name].element_size() == 2 else 0.0   # bf16
+        out[name] = (((g - r).abs() - rounding).max() / r.pow(2).mean().sqrt()).item()
+    return out
+
+
+def k7_faults(torch, ops, cts, ks, ref):
+    """K7 through its real kernels with one fault planted each: B2 without
+    the e x̂ term (e = 0), var without -mu^2, d_relative (d_v_emb among it)
+    from one block's partial only, and kr reading the k embedding
+    untransposed (the k rows of ``relative`` reversed). Returns the largest
+    reading of each."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+
+    def run(patch=None, value=None, operands=ops):
+        saved = getattr(k7, patch) if patch else None
+        if patch:
+            setattr(k7, patch, value)
+        try:
+            return max(k7_readings(k7_run(torch, k7.fused_axial_train, operands, cts, ks),
+                                   ref).values())
+        finally:
+            if patch:
+                setattr(k7, patch, saved)
+
+    gp = ops[4].shape[-1]
+    k_flat = ops[5].clone()
+    k_flat[gp // 2:gp] = ops[5][gp // 2:gp].flip(-1)
+    return {"B2 without e x_hat": run("_e_term", lambda a, s, m: torch.zeros_like(a)),
+            "var without -mu^2": run("_moments", lambda sums, m: ((sums[:3] / m).float(),
+                                                                   (sums[3:] / m).float())),
+            "d_relative from one block": run("_sum_blocks", lambda part: part[0]),
+            "kr untransposed": run(operands=ops[:5] + [k_flat, ops[6]])}
+
+
+def check_k7(torch, gen, device):
+    """K7 against its plain version, forward and backward, at every launch
+    shape of the B=8 gated train step on both axes, at gp 32 with L = 128 and at an odd
+    shape (N = 37, L = 29 < ks = 40), each beside planted faults that the
+    same readings must reject. Returns the max abs error of sv and sve and
+    the largest reading of each output."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+
+    cases = [(SERVE_BATCH, s, s, gp, ks, axis) for s, gp, ks, _ in AXIAL_SHAPES
+             for axis in (False, True)]
+    # gp 32 at L = 128: the most sums over queries per lane (d_v: 4 x 32 floats)
+    cases += [(2, 128, 128, 32, 128, True), (1, 29, 37, 4, 40, False)]
+    err, worst = 0.0, dict.fromkeys(K7_OUTPUTS, 0.0)
+    for b, h, w, gp, ks, width_axis in cases:
+        ops, cts = k7_operands(torch, gen, b, h, w, gp, ks, width_axis, device)
+        ref = k7_reference(torch, ops, cts, ks)
+        got = k7_run(torch, k7.fused_axial_train, ops, cts, ks)
+        caught = k7_faults(torch, ops, cts, ks, ref)
+        torch.cuda.synchronize()
+        readings = k7_readings(got, ref)
+        n, length = ops[0].shape[:2]
+        e = max((got[k].float() - ref[k]).abs().max().item() for k in ("sv", "sve"))
+        top = max(readings, key=readings.get)
+        log(f"K7 N={n} L={length} gp={gp} ks={ks} along {'W' if width_axis else 'H'}: sv/sve "
+            f"max_abs_err {e:.3e}; largest reading {readings[top]:.3e} ({top}; limit "
+            f"{K7_SHARE:.0e}); " + ", ".join(f"{k} {v:.2e}" for k, v in readings.items()))
+        log(f"  planted faults: " + ", ".join(f"{k} {v:.3e}" for k, v in caught.items()))
+        if not readings[top] <= K7_SHARE:
+            raise AssertionError(f"K7 disagrees with its plain version: {readings}")
+        if not min(caught.values()) > K7_SHARE:
+            raise AssertionError(f"the K7 comparison passed a planted fault: {caught}")
+        err = max(err, e)
+        worst = {k: max(worst[k], readings[k]) for k in worst}
+        del ref, got
+        torch.cuda.empty_cache()
+    return err, worst
+
+
+def checked_k7(torch, readings):
+    """K7's wrapper with every launch held against the plain version: the
+    forward runs the kernels; the backward runs K7's backward and, on the
+    same operands and incoming gradients, the plain version's forward and
+    backward, and appends the readings."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+
+    kernel = k7.fused_axial_train
+
+    class Checked(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, qg, kg, v, relative, gamma, ks, eps):
+            leaves = [t.detach().requires_grad_() for t in (q, k, qg, kg, v, relative, gamma)]
+            with torch.enable_grad():
+                outs = kernel(*leaves, ks, eps)
+            ctx.leaves, ctx.outs, ctx.ks = leaves, outs, ks
+            rets = tuple(o.detach() for o in outs)
+            ctx.mark_non_differentiable(rets[2], rets[3])
+            return rets
+
+        @staticmethod
+        def backward(ctx, d_sv, d_sve, _d_mu, _d_var):
+            cts = [d_sv.contiguous(), d_sve.contiguous()]
+            grads = torch.autograd.grad(ctx.outs[:2], ctx.leaves, cts)
+            gp = ctx.leaves[4].shape[-1]
+            got = k7_outputs([o.detach() for o in ctx.outs], grads, gp)
+            ref = k7_reference(torch, [t.detach() for t in ctx.leaves], cts, ctx.ks)
+            readings.append(k7_readings(got, ref))
+            return (*grads, None, None)
+
+    return lambda *a: Checked.apply(*a)
+
+
+def train_batch(torch, gen, b, size, device):
+    """A fixed seeded batch: uint8 images and one uint8 disk mask each."""
+    images = torch.randint(0, 256, (b, 3, size, size), generator=gen, device=device,
+                           dtype=torch.uint8)
+    yy, xx = torch.meshgrid(torch.arange(size, device=device), torch.arange(size, device=device),
+                            indexing="ij")
+    centre = size * (0.25 + 0.5 * torch.rand(b, 2, 1, 1, generator=gen, device=device))
+    disk = (yy - centre[:, 0]) ** 2 + (xx - centre[:, 1]) ** 2 < (size / 5) ** 2
+    return images, disk[:, None].to(torch.uint8)
+
+
+def rel_l2(torch, a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def train_paths(torch, gen, device, name, batch, image, steps, profile):
+    """``name`` trained in bf16 (float32 parameters) through
+    ``make_train_step`` on the kernel path and on the module path, from the
+    same seeded weights and one fixed batch. Step 1 of each path: K7's
+    launches by counter (set to 0 just before the kernel path's step), peak
+    memory, and the two paths' gradients and running statistics compared
+    (reported). Then ``steps`` - 1 steps of each, in turns, timed; the loss
+    must fall on both paths when ``steps`` >= 10. With ``profile``, one
+    traced step of each path (K7's grids by name, device busy time, idle
+    share) and one step whose every K7 launch is held against the plain
+    version, and whose every axis pass is held against float32
+    (check_train_blocks)."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+
+    images, masks = train_batch(torch, gen, batch, image, device)
+    models = {"kernel": create_model(name, dtype=torch.bfloat16, seed=0, image_size=image),
+              "plain": create_model(name, dtype=torch.bfloat16, seed=0, image_size=image,
+                                    use_kernels=False)}
+    states = {p: create_train_state(m) for p, m in models.items()}
+    step = {p: make_train_step(m) for p, m in models.items()}
+    losses, peak = {"kernel": [], "plain": []}, {}
+    for path in ("kernel", "plain"):
+        for key in K7_GRIDS:
+            k7.LAUNCHES[key] = 0
+        k6.LAUNCHES["fused_axial_attention"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses[path].append(step[path](states[path], images, masks)["loss"])
+        torch.cuda.synchronize()
+        peak[path] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if path == "kernel":
+            launches = {key: k7.LAUNCHES[key] for key in K7_GRIDS}
+            eval_launches = k6.LAUNCHES["fused_axial_attention"]
+    passes = MEDT_LAUNCHES[name]
+    log(f"main path: {launches} in one {name} train step (B={batch}, {image}px), K6 "
+        f"{eval_launches}; peak memory kernel path {peak['kernel']:.2f} GiB, module path "
+        f"{peak['plain']:.2f} GiB")
+    if launches != dict.fromkeys(K7_GRIDS, passes) or eval_launches:
+        raise AssertionError(f"K7 grids {launches} (K6 {eval_launches}), expected {passes} each")
+
+    # step 1 clipped each path's gradient in place by its own global norm, so
+    # gradients are compared as directions (see direction_readings)
+    grads = {p: {n: t.grad.float() for n, t in m.module.named_parameters() if t.dim() > 0}
+             for p, m in models.items()}
+    stats = {p: flat_buffers(torch, m.module) for p, m in models.items()}
+    agreement = dict(grad_directions=direction_readings(torch, grads["kernel"], grads["plain"]),
+                     running_stats_rel_l2=rel_l2(torch, stats["kernel"], stats["plain"]))
+    log(f"{name} step 1, kernel vs module path: loss {losses['kernel'][0].item():.6f} / "
+        f"{losses['plain'][0].item():.6f}; gradient directions "
+        f"{show_directions(agreement['grad_directions'])}; running statistics rel L2 "
+        f"{agreement['running_stats_rel_l2']:.3e}")
+    for t in (*grads["kernel"].values(), stats["kernel"]):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{name}: non-finite gradients or statistics on the kernel path")
+
+    times = {"kernel": [], "plain": []}
+    for r in range(1, steps):
+        for path in (("kernel", "plain") if r % 2 else ("plain", "kernel")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[path].append(step[path](states[path], images, masks)["loss"])
+            torch.cuda.synchronize()
+            times[path].append(1e3 * (time.perf_counter() - t0))
+    losses = {p: [v.item() for v in ls] for p, ls in losses.items()}
+    for path in ("kernel", "plain"):
+        log(f"{name} {path} path losses: " + ", ".join(f"{v:.4f}" for v in losses[path]))
+        if not all(torch.isfinite(torch.tensor(losses[path]))):
+            raise AssertionError(f"{name}: non-finite loss on the {path} path")
+        if steps >= 10 and not losses[path][-1] < losses[path][0]:
+            raise AssertionError(f"{name}: the loss did not fall on the {path} path")
+    med = {p: statistics.median(t) for p, t in times.items()}
+    rates = {p: batch / (m / 1e3) for p, m in med.items()}
+    for path in ("kernel", "plain"):
+        log(f"train {name} bf16 B={batch} {image}px, {path} path: {rates[path]:.1f} img/s "
+            f"(step median {med[path]:.4f} ms over {len(times[path])} steps)")
+    out = dict(launches=launches, peak_gib=peak, losses=losses, train_img_per_s=rates,
+               step_ms=med, **agreement)
+    if not profile:
+        return out
+
+    counts, busy = {}, {}
+    for path in ("kernel", "plain"):
+        path_counts = {}
+        busy[path] = breakdown(torch, f"{name} train {path}",
+                               lambda: step[path](states[path], images, masks), med[path],
+                               path_counts)
+        if path == "kernel":
+            counts = {g: sum(c for kname, c in path_counts.items() if f"{g}_kernel" in kname)
+                      for g in K7_GRIDS}
+    log(f"profiler: {counts} K7 grids in one {name} train step")
+    if counts != dict.fromkeys(K7_GRIDS, passes):
+        raise AssertionError(f"profiler saw K7 grids {counts}, expected {passes} each")
+
+    readings, records = [], []
+    kernel = k7.fused_axial_train
+    k7.fused_axial_train = checked_k7(torch, readings)
+    blocks = recording_blocks(torch, models["kernel"].module, records)
+    try:
+        step["kernel"](states["kernel"], images, masks)
+        torch.cuda.synchronize()
+    finally:
+        k7.fused_axial_train = kernel
+        for attn in blocks:
+            del attn.train_core
+    worst = {k: max(r[k] for r in readings) for k in K7_OUTPUTS}
+    top = max(worst, key=worst.get)
+    log(f"{name}: {len(readings)} K7 launches of a train step against the plain version on the "
+        f"model's operands and incoming gradients: largest reading {worst[top]:.3e} ({top}; "
+        f"limit {K7_SHARE:.0e}); " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if len(readings) != passes or not worst[top] <= K7_SHARE:
+        raise AssertionError(f"{name}: K7 disagrees with its plain version in training")
+    if len(records) != passes:
+        raise AssertionError(f"{name}: {len(records)} axis passes recorded, expected {passes}")
+    return dict(out, profiler_grids=counts, device_busy_ms=busy, launch_readings_max=worst,
+                axis_passes=check_train_blocks(torch, name, records))
+
+
+def flat_buffers(torch, module):
+    """Every running statistic of ``module``, flattened into one float32 vector."""
+    return torch.cat([b.float().flatten() for n, b in module.named_buffers() if "running" in n])
+
+
+def direction_readings(torch, grads, ref):
+    """Gradients (float32 tensors by parameter name) against ``ref`` as
+    directions: the rel L2 between unit vectors, over all tensors that are
+    nonzero in both (``all``), per tensor (the ``median`` and the three
+    largest). Unit vectors 2 apart point opposite ways, sqrt(2) apart are
+    orthogonal."""
+    unit = lambda t: t / t.norm()
+    names = [n for n in ref if n in grads and ref[n].norm() > 0 and grads[n].norm() > 0]
+    flat = lambda g: unit(torch.cat([g[n].flatten() for n in names]))
+    per = {n: (unit(grads[n]) - unit(ref[n])).norm().item() for n in names}
+    return dict(all=(flat(grads) - flat(ref)).norm().item(),
+                median=statistics.median(per.values()),
+                largest=dict(sorted(per.items(), key=lambda kv: -kv[1])[:3]))
+
+
+def show_directions(r):
+    return (f"rel L2 {r['all']:.3e}, median over tensors {r['median']:.3e}, largest "
+            + ", ".join(f"{n} {v:.2e}" for n, v in r["largest"].items()))
+
+
+def grad_noise(torch, device, batch, image, layers=None):
+    """Where the bf16 train-mode gradient of random-weight ``gated`` stands.
+    One forward and backward (no update) on a seeded batch, float32 on the
+    module path as the reference; against it, as directions: float32 on the
+    same weights rounded to bf16 (a perturbation of the size of bf16
+    rounding, with no bf16 arithmetic), the bf16 module path and the bf16
+    kernel path (K7). ``layers`` replaces the registry's depth."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.data import prepare_images, prepare_masks
+    from unet_zoo_tpu_torch.models.medt_net import ResAxialAttentionUNet
+    from unet_zoo_tpu_torch.nn import init_weights
+    from unet_zoo_tpu_torch.train import multi_output_loss
+
+    images, masks = train_batch(torch, torch.Generator(device=device).manual_seed(1), batch,
+                                image, device)
+
+    def grads(dtype, use_kernels, rounded=False):
+        model = create_model("gated", dtype=dtype, seed=0, image_size=image, device=device,
+                             use_kernels=use_kernels)
+        module = model.module
+        if layers is not None:
+            module = ResAxialAttentionUNet(mode="gated", layers=layers, img_size=image,
+                                           dtype=dtype, use_kernels=use_kernels)
+            init_weights(module, torch.Generator().manual_seed(0))
+            module = module.to(device=device, memory_format=torch.channels_last)
+        if rounded:
+            with torch.no_grad():
+                for p in module.parameters():
+                    p.copy_(p.to(torch.bfloat16))
+        module.train()
+        multi_output_loss(module(prepare_images(images)), prepare_masks(masks),
+                          model.loss_weight).backward()
+        return {n: p.grad.float() for n, p in module.named_parameters()
+                if p.dim() > 0 and p.grad is not None}
+
+    ref = grads(torch.float32, False)
+    out = {}
+    for label, args in (("f32 on bf16-rounded weights", (torch.float32, False, True)),
+                        ("bf16 module path", (torch.bfloat16, False)),
+                        ("bf16 kernel path", (torch.bfloat16, True))):
+        out[label] = direction_readings(torch, grads(*args), ref)
+        log(f"gated {image}px B={batch} layers {layers or 'registry'}, gradient directions "
+            f"against float32: {label} {show_directions(out[label])}")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def recording_blocks(torch, module, records):
+    """Has every positional AxialAttention of ``module`` append to
+    ``records``, at each train pass, a copy of itself as it was before the
+    pass (weights and running statistics), its bf16 projections and the
+    gradient that reaches its output. Returns the blocks; ``del
+    block.train_core`` undoes it."""
+    import copy
+
+    from unet_zoo_tpu_torch.models.medt_net import AxialAttention
+
+    blocks = [m for m in module.modules() if isinstance(m, AxialAttention) and m.mode != "wopos"]
+    for attn in blocks:
+        def train_core(qkv, attn=attn, core=attn.train_core):
+            rec = dict(block=copy.deepcopy(attn), qkv=qkv.detach())
+            del rec["block"].train_core
+            out = core(qkv)
+            out.register_hook(lambda g: rec.__setitem__("grad", g.detach()))
+            records.append(rec)
+            return out
+
+        attn.train_core = train_core
+    return blocks
+
+
+def block_chain(torch, rec, fn, dtype):
+    """One recorded axis pass run again from its recorded state, on its own
+    projections and incoming gradient, by ``fn`` (``train_core``: the train
+    kernel path; ``core``: the module path) computing in ``dtype``: the
+    output, the gradients of the projections and of BLOCK_PARAMS, and the
+    batch statistics behind the running statistics' update, by name and
+    part: bn_similarity's per term (qk, qr, kr), bn_output's per sv and sve
+    channels (their scales differ tenfold and more)."""
+    import copy
+
+    blk = copy.deepcopy(rec["block"])
+    blk.dtype = dtype
+    bns = {n: m for n, m in blk.named_children() if n.startswith("bn_")}
+    before = {n: (m.running_mean.clone(), m.running_var.clone()) for n, m in bns.items()}
+    params = dict(blk.named_parameters())
+    x = rec["qkv"].to(dtype).requires_grad_()
+    out = getattr(blk, fn)(x)
+    grads = torch.autograd.grad(out, [x] + [params[n] for n in BLOCK_PARAMS],
+                                rec["grad"].to(out.dtype))
+    r = dict(out=out.detach(), d_qkv=grads[0],
+             **{f"d_{n}": g for n, g in zip(BLOCK_PARAMS, grads[1:])})
+    for n, m in bns.items():
+        for stat, b, b0 in (("mean", m.running_mean, before[n][0]),
+                            ("var", m.running_var, before[n][1])):
+            batch = (b - (1 - m.momentum) * b0) / m.momentum
+            parts = ({"": batch} if n == "bn_qkv" else
+                     dict(zip(("qk", "qr", "kr"), batch.reshape(3, -1))) if n == "bn_similarity"
+                     else {"sv": batch[0::2], "sve": batch[1::2]})
+            r.update({f"{n} batch {stat} {part}".strip(): t for part, t in parts.items()})
+    return r
+
+
+def block_faults(torch, rec, ref):
+    """The train kernel chain of one recorded pass with a fault planted each:
+    K7's sve dropped; the kr gate dropped (kg = k: train-mode BatchNorm
+    normalises the scale away, so only the running statistics show it);
+    bf16 BatchNorm normalising with the running statistics (a fault of the
+    BatchNorm helper in bf16 only). Returns each fault's largest reading
+    against the float32 module chain ``ref``."""
+    import torch.nn.functional as F
+
+    from unet_zoo_tpu_torch.models import medt_net
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+
+    kernel, bn_last = k7.fused_axial_train, medt_net._bn_last
+
+    def no_sve(*a):
+        sv, sve, mu, var = kernel(*a)
+        return sv, torch.zeros_like(sve), mu, var
+
+    def running_bn(t, bn):
+        if t.dtype != torch.bfloat16:
+            return bn_last(t, bn)
+        y = F.batch_norm(t.reshape(-1, t.shape[-1]).float(), bn.running_mean, bn.running_var,
+                         bn.weight, bn.bias, False, 0.0, bn.eps)
+        return y.to(t.dtype).reshape(t.shape)
+
+    plants = {"sve dropped": (k7, "fused_axial_train", no_sve),
+              "kr gate dropped": (k7, "fused_axial_train",
+                                  lambda q, k, qg, kg, *a: kernel(q, k, qg, k, *a)),
+              "bf16 BatchNorm on running statistics": (medt_net, "_bn_last", running_bn)}
+    caught = {}
+    for fault, (owner, attr, value) in plants.items():
+        saved = getattr(owner, attr)
+        setattr(owner, attr, value)
+        try:
+            got = block_chain(torch, rec, "train_core", torch.bfloat16)
+        finally:
+            setattr(owner, attr, saved)
+        caught[fault] = max(block_readings(torch, got, ref).values())
+    return caught
+
+
+def block_readings(torch, got, ref):
+    """Each quantity of one axis pass (block_chain) against ``ref`` by rel
+    L2, but a batch mean's error over the rms of the batch's second moment
+    (var + mean²): BatchNorm divides by the spread, so a mean's error counts
+    at that scale, where a mean near zero would read rounding as large."""
+    out = {}
+    for k, r in ref.items():
+        if " batch mean" in k:
+            second = ref[k.replace(" mean", " var")] + r * r
+            out[k] = ((got[k] - r).norm() / second.sqrt().norm()).item()
+        else:
+            out[k] = rel_l2(torch, got[k], r)
+    return out
+
+
+def check_train_blocks(torch, name, records):
+    """Every positional axis pass of one train step, run again from its
+    recorded state on its own bf16 projections and incoming gradient: the
+    train kernel chain (``train_core``, K7) and the bf16 module chain
+    (``core``) against the float32 module chain (block_readings): the
+    output, the gradients of the projections and of BLOCK_PARAMS, and the
+    batch statistics behind the running statistics; limit
+    TRAIN_BLOCK_REL_L2. Each pass also runs the
+    planted faults of block_faults, which must read above the limit.
+    Returns the largest reading of each quantity on each chain and the
+    smallest reading of each fault."""
+    worst = {"kernel": {}, "module": {}}
+    caught = {}
+    for rec in records:
+        ref = block_chain(torch, rec, "core", torch.float32)
+        for path, fn in (("kernel", "train_core"), ("module", "core")):
+            got = block_chain(torch, rec, fn, torch.bfloat16)
+            for k, v in block_readings(torch, got, ref).items():
+                worst[path][k] = max(worst[path].get(k, 0.0), v)
+        for fault, r in block_faults(torch, rec, ref).items():
+            caught[fault] = min(caught.get(fault, float("inf")), r)
+        del ref, got
+    for path in ("kernel", "module"):
+        top = max(worst[path], key=worst[path].get)
+        log(f"{name}: {len(records)} axis passes of a train step again on their own operands, "
+            f"{path} chain in bf16 against the float32 module chain: largest rel L2 "
+            f"{worst[path][top]:.3e} ({top}; limit {TRAIN_BLOCK_REL_L2:.0e}); "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst[path].items()))
+    log(f"  planted faults, smallest over the passes: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in caught.items()))
+    if not max(max(w.values()) for w in worst.values()) <= TRAIN_BLOCK_REL_L2:
+        raise AssertionError(f"{name}: an axis pass in bf16 strays from float32: {worst}")
+    if not min(caught.values()) > TRAIN_BLOCK_REL_L2:
+        raise AssertionError(f"{name}: the axis-pass comparison passed a planted fault: {caught}")
+    return dict(readings_max=worst, faults_min=caught)
+
+
+def k7_work(n, length, g, gp, ks):
+    """K7's least work: (forward f32 operations, backward f32 operations,
+    forward bytes, backward bytes). Per (row, group, i, j), c = gp/2: forward
+    6c (terms) + 9 (moments) + 9 (logits, softmax) + 4gp (sv, sve); backward
+    6c + 9 (sim once more) + 4gp (dsim) + 4 (dpre) + 12 (S, dtot) + 4gp (d_v,
+    d_v_emb) + 12c (the q/k contractions). Bytes: every bf16 operand read and
+    every output written once, ``relative`` and the [3, g] tables once."""
+    c, pairs, nl = gp // 2, n * g * length * length, n * length * g
+    tables = 4 * 2 * gp * (2 * ks - 1)
+    return (pairs * (6 * c + 4 * gp + 18), pairs * (18 * c + 8 * gp + 25),
+            2 * (4 * nl * c + nl * gp) + 2 * 2 * nl * gp + tables + 4 * 9 * g,
+            2 * (4 * nl * c + 3 * nl * gp) + 2 * (4 * nl * c + nl * gp) + 2 * tables + 4 * 15 * g)
+
+
+def time_k7(torch, gen, device):
+    """K7 at each launch shape of the B=8 gated train step, both axes:
+    forward (stats + fwd) and backward (B1 + B2) ms, the plain version's
+    forward + backward, the bf16 module chain's forward + backward (the
+    module path from bn_qkv to bn_output, what K7 replaces in training) and
+    the same chain on the train kernel path, and the bound."""
+    from unet_zoo_tpu_torch.models.medt_net import AxialAttention
+    from unet_zoo_tpu_torch.nn import init_weights
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+
+    rows = []
+    for s, gp, ks, blocks in AXIAL_SHAPES:
+        for width_axis in (False, True):
+            b, g = SERVE_BATCH, AXIAL_GROUPS
+            ops, cts = k7_operands(torch, gen, b, s, s, gp, ks, width_axis, device)
+            leaves = [t.detach().requires_grad_() for t in ops]
+            fwd_ms = cuda_ms(torch, lambda: k7.fused_axial_train(*leaves, ks), 10)
+            outs = k7.fused_axial_train(*leaves, ks)
+            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(outs[:2], leaves, cts,
+                                                                retain_graph=True), 10)
+            plain_ms = cuda_ms(torch, lambda: k7_reference(torch, ops, cts, ks), 2)
+            attn = AxialAttention(g * gp, g * gp, g, ks, width_axis=width_axis, mode="gated",
+                                  dtype=torch.bfloat16)
+            init_weights(attn, torch.Generator().manual_seed(s + gp))
+            attn = attn.to(device).train()
+            n = b * s
+            tokens = torch.randn(n, s, 2 * g * gp, generator=gen, device=device).to(
+                torch.bfloat16).requires_grad_()
+            ct = torch.randn(n, s, g * gp, generator=gen, device=device).to(torch.bfloat16)
+            chain = lambda core: torch.autograd.grad(core(tokens), [tokens, attn.relative], ct)
+            chain_ms = cuda_ms(torch, lambda: chain(attn.core), 5)
+            kchain_ms = cuda_ms(torch, lambda: chain(attn.train_core), 10)
+            fwd_ops, bwd_ops, fwd_bytes, bwd_bytes = k7_work(n, s, g, gp, ks)
+            bound_ms, bound_by = bound(0, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)
+            axis = "W" if width_axis else "H"
+            rows.append(dict(n=n, length=s, gp=gp, kernel_size=ks, axis=axis, launches=blocks,
+                             fwd_ms=fwd_ms, bwd_ms=bwd_ms, ms=fwd_ms + bwd_ms,
+                             f32_ops=fwd_ops + bwd_ops, bytes=fwd_bytes + bwd_bytes,
+                             fwd_bound_ms=bound(0, fwd_bytes, fwd_ops)[0],
+                             bwd_bound_ms=bound(0, bwd_bytes, bwd_ops)[0],
+                             bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+                             module_chain_ms=chain_ms, kernel_chain_ms=kchain_ms))
+            log(f"K7 N={n} L={s} gp={gp} along {axis} x{blocks}: fwd {fwd_ms:.4f} ms + bwd "
+                f"{bwd_ms:.4f} ms (bound {rows[-1]['fwd_bound_ms']:.4f} + "
+                f"{rows[-1]['bwd_bound_ms']:.4f}, {bound_by}), plain {plain_ms:.4f} ms, module "
+                f"chain {chain_ms:.4f} ms, kernel chain {kchain_ms:.4f} ms")
+            del outs, leaves, attn, tokens
+            torch.cuda.empty_cache()
+    return rows
+
+
 def per_forward(rows, key):
     """A per-launch quantity summed over one forward's launches."""
     return sum(r[key] * r["launches"] for r in rows)
@@ -920,6 +1550,18 @@ def main() -> int:
     others = {name: serve_medt(torch, gen, device, name, 2, 128, profile=False)
               for name in ("axialunet", "medt", "logo", "medt_logo")}
     k6_rows, k6_wopos = time_k6(torch, gen, device)
+    torch.cuda.empty_cache()
+
+    # 9-10. MedT training: K7 checks, gated trained at full width on both
+    # paths, axialunet briefly at 128px, K7 per launch shape
+    k7_err, k7_worst = check_k7(torch, gen, device)
+    gated_train = train_paths(torch, gen, device, "gated", SERVE_BATCH, IMAGE, TRAIN_STEPS,
+                              profile=True)
+    torch.cuda.empty_cache()
+    noise = {str(layers or "registry"): grad_noise(torch, device, SERVE_BATCH, IMAGE, layers)
+             for layers in (None, (1, 1, 1, 1))}
+    axialunet_train = train_paths(torch, gen, device, "axialunet", 2, 128, 3, profile=False)
+    k7_rows = time_k7(torch, gen, device)
 
     total = lambda key: sum(s[key] for s in stages)
     bound_ms, bound_by = bound(total("flops"), total("bytes"))
@@ -929,6 +1571,7 @@ def main() -> int:
     mm_serving = dict(serve_img_per_s=mm_rates, forward_ms=mm_med, device_busy_ms=mm_busy,
                       **mm_agreement)
     k6_bound = bound(0, per_forward(k6_rows, "bytes"), per_forward(k6_rows, "f32_ops"))
+    k7_bound = bound(0, per_forward(k7_rows, "bytes"), per_forward(k7_rows, "f32_ops"))
     log(json.dumps({"kernels": [{
         "name": "fused_up_concat_conv",
         "route": "cuda",
@@ -990,6 +1633,27 @@ def main() -> int:
         "others": others,
         "wopos": k6_wopos,
         "shapes": k6_rows,
+    }, {
+        "name": "fused_axial_train",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/axial_train.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/axial_train.py:209",
+        "launches": sum(gated_train["launches"].values()),
+        "max_abs_err": k7_err,
+        "ms": per_forward(k7_rows, "ms"),
+        "plain_ms": per_forward(k7_rows, "plain_ms"),
+        "bound_ms": k7_bound[0],
+        "bound_by": k7_bound[1],
+        "library_ms": None,
+        "fwd_ms": per_forward(k7_rows, "fwd_ms"),
+        "bwd_ms": per_forward(k7_rows, "bwd_ms"),
+        "module_chain_ms": per_forward(k7_rows, "module_chain_ms"),
+        "kernel_chain_ms": per_forward(k7_rows, "kernel_chain_ms"),
+        "readings_max": k7_worst,
+        "gated_train": gated_train,
+        "gated_grad_noise": noise,
+        "axialunet_train": axialunet_train,
+        "shapes": k7_rows,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

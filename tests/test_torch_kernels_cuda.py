@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K4, K5, K6) against their plain PyTorch
+"""The port's CUDA kernels (K1, K4, K5, K6, K7) against their plain PyTorch
 versions, and each model's kernel path against its plain path, on the card.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``: a CUDA kernel has no CPU
@@ -16,6 +16,7 @@ from unet_zoo_tpu_torch.models.medt_net import AxialAttention
 from unet_zoo_tpu_torch.models.mmunet import MKBlock
 from unet_zoo_tpu_torch.nn import init_weights
 from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
 from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
 from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
 from unet_zoo_tpu_torch.ops.kernels import morph as k5
@@ -308,3 +309,145 @@ def test_axial_attention_float32_runs_kernel(cuda_device):
     assert k6.LAUNCHES["fused_axial_attention"] - before == 1
     assert got.dtype == torch.float32 and got.shape == (2, 16, 16, 16)  # pooled 2x2
     assert ((got - ref).norm() / ref.norm()).item() <= 1e-2
+
+
+# K7: every output read as its error beyond its own rounding (2^-8 |ref| for
+# the bf16 outputs sv, sve, d_q, d_k, d_qg, d_kg, d_v; none for the float32
+# mu, var, d_relative, d_gamma) as a share of the output's rms, against the
+# plain version in float32 on the same bf16 operands (chip_smoke.py's
+# k7_readings, with the same limit).
+K7_SHARE = 1e-3
+K7_OUTPUTS = ("sv", "sve", "mu", "var", "d_q", "d_k", "d_qg", "d_kg", "d_v", "d_q_emb",
+              "d_k_emb", "d_v_emb", "d_gamma")
+
+
+def _k7_operands(device, n, length, g, gp, ks, seed=0):
+    """bf16 operands with nonzero term means (so var's -mu^2 shows), f32
+    ``relative`` and gamma, and bf16 upstream gradients of sv and sve."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    c = gp // 2
+    bf = lambda t: t.to(torch.bfloat16)
+    q, k = bf(r(n, length, g, c) + 0.5), bf(r(n, length, g, c) + 0.5)
+    ops = [q, k, bf(q.float() * 0.3), bf(k.float() * 0.7), bf(r(n, length, g, gp)),
+           r(2 * gp, 2 * ks - 1) / gp ** 0.5, 1.0 + 0.2 * r(3, g)]
+    return ops, [bf(r(n, length, g, gp)), bf(r(n, length, g, gp))]
+
+
+def _k7_run(fn, ops, cts, ks):
+    """Outputs and the gradients of the seven operands, by name."""
+    leaves = [t.detach().requires_grad_() for t in ops]
+    sv, sve, mu, var = fn(*leaves, ks)
+    grads = torch.autograd.grad((sv, sve), leaves, [c.to(sv.dtype) for c in cts])
+    gp = ops[4].shape[-1]
+    d_rel = grads[5]
+    return dict(zip(K7_OUTPUTS, (sv, sve, mu, var, *grads[:5], d_rel[:gp // 2],
+                                 d_rel[gp // 2:gp], d_rel[gp:], grads[6])))
+
+
+def _k7_readings(got, ref):
+    out = {}
+    for name in K7_OUTPUTS:
+        g, r = got[name].float(), ref[name].float()
+        rounding = 2.0 ** -8 * r.abs() if got[name].dtype == torch.bfloat16 else 0.0
+        out[name] = (((g - r).abs() - rounding).max() / r.pow(2).mean().sqrt()).item()
+    return out
+
+
+def _k7_reference(ops, cts, ks):
+    return _k7_run(k7.fused_axial_train_reference, [t.float() for t in ops],
+                   [c.float() for c in cts], ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,length,gp,ks", [
+    (256, 128, 2, 128),    # gated layer1 at B=2 (L = 128, gp 2)
+    (256, 128, 4, 128),    # layer2_0
+    (128, 64, 8, 64),      # layer3_0
+    (64, 32, 16, 32),      # layer4_0
+    (37, 29, 4, 40),       # L = 29 < ks = 40: the ks - 1 offset, a ragged warp
+    (16, 128, 32, 128),    # gp 32, L 128: one group per block, the most sums over i per lane
+])
+def test_fused_axial_train_kernel_matches_reference(cuda_device, monkeypatch, n, length, gp, ks):
+    """K7's four grids against the plain version, forward and backward,
+    and planted faults the same readings must reject: B2 without the e x̂
+    term, var without -mu^2, d_relative from one block only, kr reading
+    the k embedding untransposed."""
+    ops, cts = _k7_operands(cuda_device, n, length, 8, gp, ks)
+    ref = _k7_reference(ops, cts, ks)
+    before = dict(k7.LAUNCHES)
+    got = _k7_run(k7.fused_axial_train, ops, cts, ks)
+    torch.cuda.synchronize()
+    assert {k: k7.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    readings = _k7_readings(got, ref)
+    assert max(readings.values()) <= K7_SHARE, readings
+
+    def faulty(patch=None, value=None):
+        if patch is not None:
+            monkeypatch.setattr(k7, patch, value)
+        try:
+            return _k7_readings(_k7_run(k7.fused_axial_train, faulty_ops, cts, ks), ref)
+        finally:
+            monkeypatch.undo()
+
+    faulty_ops = ops
+    caught = {
+        "no e x̂": faulty("_e_term", lambda a, s, m: torch.zeros_like(a)),
+        "var without -mu^2": faulty("_moments", lambda sums, m: (
+            (sums[:3] / m).float(), (sums[3:] / m).float())),
+        "one block": faulty("_sum_blocks", lambda part: part[0]),
+    }
+    k_flat = ops[5].clone()
+    k_flat[gp // 2:gp] = ops[5][gp // 2:gp].flip(-1)
+    faulty_ops = ops[:5] + [k_flat, ops[6]]
+    caught["kr untransposed"] = faulty()
+    for name, r in caught.items():
+        assert max(r.values()) > K7_SHARE, (name, r)
+
+
+@pytest.mark.cuda
+def test_axial_attention_train_outside_kernel_shapes_raises(cuda_device):
+    """No shape gate in training either: a bf16 block K7 does not take (gp 6;
+    an axis of 256) raises and launches nothing, and so does a float32 block
+    with use_kernels=True (K7 trains bf16 only); use_kernels=False trains it."""
+    for gp, length, dtype, use_kernels in ((6, 32, torch.bfloat16, None),
+                                           (4, 256, torch.bfloat16, None),
+                                           (4, 32, torch.float32, True)):
+        attn = AxialAttention(8 * gp, 8 * gp, 8, length, width_axis=True, mode="gated",
+                              dtype=dtype, use_kernels=use_kernels)
+        init_weights(attn, torch.Generator().manual_seed(0))
+        attn = attn.to(cuda_device).train()
+        x = torch.randn(2, 8 * gp, 2, length, device=cuda_device).to(dtype)
+        x = x.contiguous(memory_format=torch.channels_last)
+        before = dict(k7.LAUNCHES)
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            attn(x)
+        assert k7.LAUNCHES == before
+        attn.use_kernels = False
+        attn(x).float().sum().backward()
+        assert torch.isfinite(attn.relative.grad).all()
+
+
+@pytest.mark.cuda
+def test_gated_train_step_runs_k7_on_both_passes(cuda_device):
+    """One train step of bf16 gated (64px, B=2) on the kernel path and on the
+    module path from the same weights and batch: every grid of K7 on all 16
+    axis passes, finite loss and gradients, losses within 2e-2 (two bf16
+    paths that round in different places)."""
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+
+    gen = torch.Generator().manual_seed(4)
+    images = torch.randint(0, 256, (2, 3, 64, 64), generator=gen, dtype=torch.uint8)
+    masks = (torch.rand(2, 1, 64, 64, generator=gen) > 0.5).to(torch.uint8)
+    losses = {}
+    for use_kernels in (None, False):
+        model = create_model("gated", dtype=torch.bfloat16, image_size=64, use_kernels=use_kernels)
+        state = create_train_state(model)
+        before = dict(k7.LAUNCHES)
+        metrics = make_train_step(model)(state, images, masks)
+        torch.cuda.synchronize()
+        launched = {k: k7.LAUNCHES[k] - before[k] for k in before}
+        assert launched == dict.fromkeys(before, 16 if use_kernels is None else 0)
+        assert all(torch.isfinite(p.grad).all() for p in model.module.parameters())
+        losses[use_kernels] = metrics["loss"].item()
+    assert abs(losses[None] - losses[False]) <= 2e-2 * losses[False], losses

@@ -326,7 +326,12 @@ def test_kernel_dispatch():
     assert not attn.kernel_path(x)                       # auto: bf16 CUDA only
     attn.use_kernels = True
     assert attn.kernel_path(x)
-    assert not attn.train().kernel_path(x)               # training: module path
+    assert attn.train().kernel_path(x)                   # training: K7 (plain version here)
+    attn.use_kernels = None
+    assert not attn.kernel_path(x)                       # auto in training: bf16 CUDA only
+    wopos = AxialAttention(8, 16, 4, 8, mode="wopos", use_kernels=True)
+    assert wopos.eval().kernel_path(x) and not wopos.train().kernel_path(x)   # no train kernel
+    attn.eval()
     # no shape gate: gp 6, which the CUDA kernel does not take, stays on the
     # kernel path (its plain version here; on the card the wrapper raises)
     odd = AxialAttention(8, 24, 4, 8, mode="gated", use_kernels=True)

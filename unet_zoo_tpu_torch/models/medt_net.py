@@ -13,19 +13,33 @@ Module and attribute names follow the original PyTorch zoo (``conv1..3``,
 ``decoder1..4``, ``final_conv``; LoGo's ``*_p``, ``decoderf``, ``adjust``),
 so ``state_dict`` keys match what ``unet_zoo_tpu.utils.convert`` reads.
 
-Kernel (``use_kernels``, as in ``mmunet``: ``None`` runs it in eval for
-bfloat16 CUDA activations; ``True`` in eval on any device, which on the CPU
-means its plain version; ``False`` never): every axis pass runs K6,
-``fused_axial_attention``, on the output of the qkv projection with
-``bn_qkv`` folded into it; the BatchNorms and gates after it fold into the
-kernel's scales. ``None`` includes ``wopos``, which the JAX package's TPU
-gate leaves off: on the H100 the kernel path serves ``medt`` about twice as
-fast as the module path (PERF.md). Training takes the module path, which
-applies every BatchNorm as the JAX package's module path does. There is no
-shape gate: on the card the kernel takes group widths gp in
-``k6.GROUP_PLANES`` and axes up to ``k6.MAX_LENGTH`` that fit its shared
-memory, and raises for any other block, rather than hand it to the module
-path.
+Kernels (``use_kernels``, the shared rule of ``ops.kernels.use_kernel``:
+``None`` runs them for bfloat16 CUDA activations; ``True`` on any device,
+which on the CPU means their plain versions; ``False`` never):
+
+- in eval every axis pass runs K6, ``fused_axial_attention``, on the output
+  of the qkv projection with ``bn_qkv`` folded into it; the BatchNorms and
+  gates after it fold into the kernel's scales. ``None`` includes
+  ``wopos``, which the JAX package's TPU gate leaves off: on the H100 the
+  kernel path serves ``medt`` about twice as fast as the module path
+  (PERF.md);
+- in training the positional modes (``base``, ``gated``) run K7,
+  ``fused_axial_train``, from the batch-normalised projections to sv and
+  sve (the counterpart of ``_fused_train_path``,
+  ``unet_zoo_tpu/models/medt_net.py:285-330``); the qkv projection,
+  ``bn_qkv``, the gates and ``bn_output`` stay in PyTorch, and
+  ``bn_similarity``'s running statistics take K7's biased moments. K7
+  takes bfloat16 activations on the card: a float32 model with
+  ``use_kernels=True`` raises in training (in eval K6 takes a bf16 copy).
+  ``wopos`` trains on the module path: the JAX package has no train kernel
+  for it.
+
+The module path applies every BatchNorm as the JAX package's module path
+does, in eval and in training. There is no shape gate: on the card K6
+takes group widths gp in ``k6.GROUP_PLANES`` and axes up to
+``k6.MAX_LENGTH`` that fit its shared memory, K7 gp in ``k7.GROUP_PLANES``
+and axes up to ``k7.MAX_LENGTH``; each raises for any other block, rather
+than hand it to the module path.
 """
 
 from __future__ import annotations
@@ -36,9 +50,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unet_zoo_tpu_torch.nn import batch_norm, conv
+from unet_zoo_tpu_torch.nn import batch_norm, conv, update_running_stats
 from unet_zoo_tpu_torch.ops import avg_pool2d, resize_bilinear
 from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
 from unet_zoo_tpu_torch.ops.kernels import use_kernel
 
 MODES = ("base", "gated", "wopos")
@@ -105,14 +120,19 @@ class AxialAttention(nn.Module):
             self.relative.normal_(0.0, (1.0 / self.group_planes) ** 0.5, generator=generator)
 
     def kernel_path(self, x: torch.Tensor) -> bool:
-        return use_kernel(self.use_kernels, self.training, x)
+        return use_kernel(self.use_kernels, self.training, x, trains=self.mode != "wopos")
 
     def freeze_kernel_weights(self) -> None:
         """Fold once for a predictor whose weights no longer change."""
         self._frozen = k6.fold_axial_params(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self._kernel(x) if self.kernel_path(x) else self._module(x)
+        if not self.kernel_path(x):
+            out = self._module(x)
+        elif self.training:
+            out = self._train_kernel(x)
+        else:
+            out = self._kernel(x)
         return avg_pool2d(out, self.stride) if self.stride > 1 else out
 
     def _kernel(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,14 +145,45 @@ class AxialAttention(nn.Module):
                                        self.kernel_size, self.width_axis)
         return out.to(self.dtype)
 
-    def _module(self, x: torch.Tensor) -> torch.Tensor:
+    def _projections(self, x: torch.Tensor) -> torch.Tensor:
+        """The qkv projections of the axis pass's rows: [B*R, L, 2*out]."""
         tokens = k6.axis_rows(x, self.width_axis)                   # [B*R, L, C_in]
-        qkv = tokens @ self.qkv_transform.conv.weight[:, :, 0].t().to(self.dtype)
-        return _unrows(self.core(qkv), x.shape[0], self.width_axis)
+        return tokens @ self.qkv_transform.conv.weight[:, :, 0].t().to(self.dtype)
+
+    def _module(self, x: torch.Tensor) -> torch.Tensor:
+        return _unrows(self.core(self._projections(x)), x.shape[0], self.width_axis)
+
+    def _train_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        return _unrows(self.train_core(self._projections(x)), x.shape[0], self.width_axis)
+
+    def train_core(self, qkv: torch.Tensor) -> torch.Tensor:
+        """The train kernel path from ``bn_qkv`` to ``bn_output`` (what the
+        module path's :meth:`core` computes in training): K7 between the
+        batch-normalised projections and the output BatchNorm. On the card
+        K7 takes bfloat16 only: a float32 module raises here rather than
+        train below the precision it was built with."""
+        dt, g, gp = self.dtype, self.groups, self.group_planes
+        n, length, _ = qkv.shape
+        c = gp // 2
+        qkv = _bn_last(qkv, self.bn_qkv)
+        if qkv.is_cuda and qkv.dtype != torch.bfloat16:
+            raise ValueError(f"K7 trains bfloat16 activations on the card, not {qkv.dtype}: "
+                             "build the model with dtype=torch.bfloat16, or use_kernels=False "
+                             "to train it on its module path")
+        qkv = qkv.reshape(n, length, g, 2 * gp)
+        q, k, v = qkv[..., :c], qkv[..., c:gp], qkv[..., gp:]
+        qg, kg = q, k
+        if self.mode == "gated":
+            qg, kg = q * self.f_qr.to(q.dtype), k * self.f_kr.to(q.dtype)
+        bn = self.bn_similarity
+        sv, sve, mu, var = k7.fused_axial_train(q, k, qg, kg, v, self.relative,
+                                                bn.weight.reshape(3, g), self.kernel_size, bn.eps)
+        update_running_stats(bn, mu, var)
+        return self._output(sv.to(dt), sve.to(dt))
 
     def core(self, qkv: torch.Tensor) -> torch.Tensor:
-        """The module path from ``bn_qkv`` to ``bn_output``, what K6 replaces:
-        qkv projections [N, L, 2*out] -> [N, L, out]."""
+        """The module path from ``bn_qkv`` to ``bn_output``, what K6 replaces
+        in eval and K7 in training: qkv projections [N, L, 2*out] -> [N, L, out]."""
         dt, g, gp, out = self.dtype, self.groups, self.group_planes, self.out_planes
         n, length, _ = qkv.shape
         c = gp // 2
@@ -156,9 +207,15 @@ class AxialAttention(nn.Module):
         sim = torch.softmax(stacked.reshape(n, length, length, 3, g).sum(3), dim=2)
         sv = torch.einsum("nijg,njgc->nigc", sim, v)
         sve = torch.einsum("nijg,cij->nigc", sim, v_emb)
+        return self._output(sv, sve)
+
+    def _output(self, sv: torch.Tensor, sve: torch.Tensor) -> torch.Tensor:
+        """Gates, then (sv, sve) interleaved per channel, BN, each pair summed:
+        [N, L, g, gp] twice -> [N, L, out]."""
+        dt, out = self.dtype, self.out_planes
+        n, length, g, gp = sv.shape
         if self.mode == "gated":
             sv, sve = sv * self.f_sv.to(dt), sve * self.f_sve.to(dt)
-        # (sv, sve) interleaved per channel, BN, then each pair summed
         paired = _bn_last(torch.stack([sv, sve], dim=-1).reshape(n, length, 2 * out),
                           self.bn_output)
         return paired.reshape(n, length, g, gp, 2).sum(-1).reshape(n, length, out)

@@ -10,7 +10,8 @@ from unet_zoo_tpu_torch.nn.blocks import (
     conv,
     conv_norm_act,
     init_weights,
+    update_running_stats,
 )
 
 __all__ = ["DoubleConv", "DownSample", "OutConv", "TransposedUp", "UpSampleUNet",
-           "batch_norm", "conv", "conv_norm_act", "init_weights"]
+           "batch_norm", "conv", "conv_norm_act", "init_weights", "update_running_stats"]

@@ -10,9 +10,10 @@ stored parameters to bfloat16 (``utils.serving.cast_params_for_inference``)
 changes their values, not the compute type. BatchNorm always normalises in
 float32 and returns the compute type.
 
-Train-mode BatchNorm is ``F.batch_norm``, which updates ``running_var``
-with the unbiased batch variance; Flax uses the biased one. Only eval runs
-on this slice's path; the training port has to settle that divergence.
+Train-mode BatchNorm (:func:`batch_norm`) follows Flax, not
+``nn.BatchNorm2d``: it normalises with the biased batch variance and
+updates ``running_var`` with the biased one too (decay 0.9, i.e. torch
+momentum 0.1), where ``F.batch_norm`` would update it with the unbiased.
 """
 
 from __future__ import annotations
@@ -41,9 +42,37 @@ def conv(x: torch.Tensor, module: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """``bn`` on a ``dtype`` input: float32 statistics and affine, so it
-    normalises in float32 and returns the input's type."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight.float(),
-                        bn.bias.float(), bn.training, bn.momentum, bn.eps)
+    normalises in float32 and returns the input's type.
+
+    In eval it applies the running statistics. In training it normalises
+    with the batch mean and biased variance over every axis but 1, then
+    updates the running statistics as Flax's ``BatchNorm`` does
+    (``unet_zoo_tpu/nn/blocks.py:36-46``) with the *biased* variance (see
+    :func:`update_running_stats`). ``F.batch_norm`` hands its batch mean
+    and unbiased variance out through momentum-1 buffers; the biased
+    variance is the latter times (n - 1) / n.
+    """
+    weight, bias = bn.weight.float(), bn.bias.float()
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, weight, bias, False, 0.0,
+                            bn.eps)
+    mean = torch.zeros_like(bn.running_mean)
+    var = torch.ones_like(bn.running_var)
+    y = F.batch_norm(x, mean, var, weight, bias, True, 1.0, bn.eps)
+    n = x.numel() // x.shape[1]
+    update_running_stats(bn, mean, var * ((n - 1) / n))
+    return y
+
+
+def update_running_stats(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """Flax's running-statistics update from a batch's mean and biased
+    variance: ``r = (1 - m) r + m s`` with ``m = bn.momentum`` (0.1, Flax's
+    decay 0.9), in float32."""
+    m = bn.momentum
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - m).add_(mean.reshape(-1).float() * m)
+        bn.running_var.mul_(1.0 - m).add_(var.reshape(-1).float() * m)
+        bn.num_batches_tracked.add_(1)
 
 
 def conv_norm_act(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d,

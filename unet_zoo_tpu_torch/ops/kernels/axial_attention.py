@@ -173,18 +173,25 @@ def _smem_bytes(length: int, gb: int, gp: int, wopos: bool) -> int:
     return 4 * (length * (gb * 2 * gp + 1) + rel + 3 * gb + 3 * gb * gp)
 
 
-def group_split(rows: int, groups: int, length: int, gp: int, wopos: bool) -> int:
+def split_groups(rows: int, groups: int, smem_bytes, kernel: str, length: int, gp: int) -> int:
     """Blocks that share one row's groups: the largest divisor of ``groups``
     that keeps the grid near ``_TARGET_BLOCKS`` blocks, raised while a
-    block's shared memory would exceed ``_SMEM_LIMIT``."""
+    block's shared memory, ``smem_bytes(groups per block)``, would exceed
+    ``_SMEM_LIMIT``."""
     divisors = [d for d in range(1, groups + 1) if groups % d == 0]
     want = max(1, -(-_TARGET_BLOCKS // rows))
     split = max(d for d in divisors if d <= want)
     for d in divisors:
-        if d >= split and _smem_bytes(length, groups // d, gp, wopos) <= _SMEM_LIMIT:
+        if d >= split and smem_bytes(groups // d) <= _SMEM_LIMIT:
             return d
-    raise ValueError(f"the K6 kernel does not fit an axis of {length} with gp={gp} in shared "
-                     f"memory; use_kernels=False runs such a model on its module path")
+    raise ValueError(f"the {kernel} kernel does not fit an axis of {length} with gp={gp} in "
+                     f"shared memory; use_kernels=False runs such a model on its module path")
+
+
+def group_split(rows: int, groups: int, length: int, gp: int, wopos: bool) -> int:
+    """K6's :func:`split_groups`."""
+    return split_groups(rows, groups, lambda gb: _smem_bytes(length, gb, gp, wopos), "K6",
+                        length, gp)
 
 
 def _check_kernel_args(qkv, relative, sim_scale, out_scale, out_shift, kernel_size,

@@ -1,0 +1,61 @@
+"""Segmentation metrics. Counterpart of ``unet_zoo_tpu/train/metrics.py:14-116``.
+
+``dice_coefficient`` and ``iou_score`` stay on the device (no ``.item()``);
+``boundary_f1`` is a host metric over numpy masks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _binary(prediction_logits: torch.Tensor, threshold: float) -> torch.Tensor:
+    return (torch.sigmoid(prediction_logits.float()) > threshold).float()
+
+
+def dice_coefficient(prediction_logits: torch.Tensor, target: torch.Tensor,
+                     epsilon: float = 1e-7, threshold: float = 0.5) -> torch.Tensor:
+    """Thresholded binary Dice over the whole batch; 1.0 where both the
+    prediction and the target are empty (``union == 0``)."""
+    pred, tgt = _binary(prediction_logits, threshold), target.float()
+    union = pred.sum() + tgt.sum()
+    dice = (2.0 * (pred * tgt).sum() + epsilon) / (union + epsilon)
+    return torch.where(union == 0, torch.ones_like(dice), dice)
+
+
+def iou_score(prediction_logits: torch.Tensor, target: torch.Tensor,
+              epsilon: float = 1e-7, threshold: float = 0.5) -> torch.Tensor:
+    """Thresholded binary IoU over the whole batch; 1.0 where ``union == 0``."""
+    pred, tgt = _binary(prediction_logits, threshold), target.float()
+    inter = (pred * tgt).sum()
+    union = pred.sum() + tgt.sum() - inter
+    iou = (inter + epsilon) / (union + epsilon)
+    return torch.where(union == 0, torch.ones_like(iou), iou)
+
+
+def boundary_f1(pred_mask, target_mask, tolerance: int = 2) -> float:
+    """Boundary F1 between binary [H, W] masks (anything squeezable to it):
+    precision is the share of predicted boundary pixels within
+    ``tolerance`` (Euclidean) of a target boundary pixel, recall the
+    converse. Boundaries are 4-connected inner contours (mask minus its
+    erosion). Both boundary-free: 1.0; exactly one: 0.0."""
+    import numpy as np
+    from scipy import ndimage
+
+    def contour(m):
+        m = np.squeeze(np.asarray(m).astype(bool))
+        er = ndimage.binary_erosion(m, structure=ndimage.generate_binary_structure(2, 1),
+                                    border_value=0)
+        return m & ~er
+
+    bp, bt = contour(pred_mask), contour(target_mask)
+    n_p, n_t = int(bp.sum()), int(bt.sum())
+    if n_p == 0 and n_t == 0:
+        return 1.0
+    if n_p == 0 or n_t == 0:
+        return 0.0
+    precision = float((ndimage.distance_transform_edt(~bt)[bp] <= tolerance).mean())
+    recall = float((ndimage.distance_transform_edt(~bp)[bt] <= tolerance).mean())
+    if precision + recall == 0:
+        return 0.0
+    return 2.0 * precision * recall / (precision + recall)
