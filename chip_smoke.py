@@ -61,7 +61,22 @@
    1) (reported). ``axialunet`` trains 3 steps at B=2/128px. K7 timed per
    launch shape against its bound, its plain version and the module chain
    it replaces.
-11. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+11. Holds K2 (``swin_window_attention``) against its plain version at every
+   launch shape of both served ``swin_unet_v2`` configurations (224px with
+   window 7, 256px with window 8: N 49 and 64, nW 64/16/4 and unshifted)
+   and at an odd shape (B_ = 6, hd 16), with tau below its 0.01 clip, a
+   bias of a few units and an all-zero q row and k row; each comparison is
+   shown to reject planted faults (the bias table transposed, the mask read
+   by image, tau unclipped, the softmax over queries).
+12. Serves full-width ``swin_unet_v2`` (registry defaults, bf16, B=8) in
+   both configurations on both paths, tau and the CPB bias sharpened alike
+   on both: K2 must run 14 times per forward, by the launch counter and by
+   the profiler; every K2 launch of the served forward is held against its
+   plain version on the model's own operands, and faults planted into K2's
+   arguments (q and k swapped, the bias transposed, the mask read by image)
+   must fail; times both paths and K2 at every launch shape against its
+   bound, its plain version and the bf16 module chain it replaces.
+13. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -154,6 +169,34 @@ TRAIN_STEPS = 10
 BLOCK_PARAMS = ("relative", "bn_qkv.bias", "bn_similarity.weight", "bn_output.weight",
                 "bn_output.bias")
 TRAIN_BLOCK_REL_L2 = 5e-2
+# swin_unet_v2 served at full width (registry defaults, heads (3, 6, 12, 24),
+# hd 32): (image, window) of the registry default and of the YAML configs
+SWIN_CONFIGS = [(224, 7), (256, 8)]
+SWIN_HEADS = (3, 6, 12, 24)
+# one K2 launch per SwinBlockV2: 8 encoder and 6 decoder blocks
+SWIN_LAUNCHES = 14
+# K2 against its plain version: the error beyond the output's bf16 rounding
+# as a share of the output's rms (k6_reading, the K6 rule)
+K2_SHARE = 1e-3
+# swin_unet_v2 with sharpened attention, kernel path vs plain path: relative
+# L2 of the logits, mask agreement, and the kernel path's distance to f32
+# compute at most SWIN_F32_RATIO times the plain path's. The plain path
+# rounds P to bf16 before P.V and computes the CPB table in bf16; K2 keeps
+# both in f32. Measured on the H100 (PERF.md): 1.107e-2 and 1.173e-2 at
+# 224px and 256px, masks 0.9965, distances to f32 0.88 and 0.85 of the
+# plain path's; the faults planted into K2's arguments read 0.59 or more.
+SWIN_REL_L2 = 3e-2
+SWIN_AGREE = 0.99
+SWIN_F32_RATIO = 1.25
+# tau of the served comparison, drawn uniformly (init: 1), and the sharper
+# draw whose paths are only reported: with cosines over tau down to 0.005 the
+# attention is near one-hot, and bf16 rounding flips its choices on either
+# path (PERF.md)
+SWIN_TAU = (0.1, 1.0)
+SWIN_TAU_SHARPER = (0.005, 0.1)
+# profile_forward: most traces of one call, and the traces it took beyond two
+PROFILE_TRIES = 5
+PROFILE_RETAKES = [0]
 
 
 def log(*a):
@@ -221,7 +264,7 @@ def morph_work(b, c, h, w, k, repeat):
     return n * (5 + 4 * (k - 1) * repeat), 3 * 2 * n
 
 
-def profile_forward(torch, fn):
+def trace_once(torch, fn):
     """Device events of one traced call of ``fn`` (synchronised), without
     the ranges of user annotations (such as ``Optimizer.step``), which span
     kernels already counted."""
@@ -232,6 +275,25 @@ def profile_forward(torch, fn):
         torch.cuda.synchronize()
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def profile_forward(torch, fn):
+    """Device events of one whole traced call of ``fn``, which must launch
+    the same kernels on every call. The profiler now and then loses a block of a
+    trace's kernel records (on the H100 a repeated mmunet trace lost some of
+    its K4 and K5 grids once), so ``fn`` is traced until two traces in a row
+    hold as many device events, and the second is read; after
+    PROFILE_TRIES traces, the fullest. PROFILE_RETAKES counts the traces
+    taken beyond the first two."""
+    traces = [trace_once(torch, fn), trace_once(torch, fn)]
+    while len(traces[-1]) != len(traces[-2]) and len(traces) < PROFILE_TRIES:
+        log(f"profiler: traces of {len(traces[-2])} and {len(traces[-1])} device events; "
+            "tracing again")
+        PROFILE_RETAKES[0] += 1
+        traces.append(trace_once(torch, fn))
+    if len(traces[-1]) == len(traces[-2]):
+        return traces[-1]
+    return max(traces, key=len)
 
 
 def serve_times(torch, preds, x):
@@ -397,22 +459,30 @@ def check_k4_k5(torch, gen, device):
 
 
 def serve_both_paths(torch, gen, device, name, batch, image, counters, rel_l2_max, agree_min,
-                     f32_ratio=None):
+                     f32_ratio=None, prepare=None, **kwargs):
     """``name`` served in bf16 on the kernel path and on the plain module path
     with the same seeded weights. Sets every ``counters`` entry ({wrapper
     module: LAUNCHES key}) to 0 just before one kernel-path forward and reads
     them just after; compares the logits (relative L2 <= ``rel_l2_max``), the
     masks (agreement >= ``agree_min``) and each path's distance to float32
     compute on the same bf16-rounded weights (kernel path at most
-    ``f32_ratio`` times the plain path's, when given). Returns the two
-    predictors, the input, the launches, the agreement figures and the
-    plain path's and the float32 compute's logits."""
+    ``f32_ratio`` times the plain path's, when given). ``prepare(module)``,
+    if given, changes every model's weights alike before it is served;
+    ``kwargs`` go to ``create_model``. Returns the two predictors, the input,
+    the launches, the agreement figures and the plain path's and the float32
+    compute's logits."""
     from unet_zoo_tpu_torch import create_model
     from unet_zoo_tpu_torch.utils.serving import make_predictor
 
+    def build(**kw):
+        model = create_model(name, seed=0, image_size=image, **kwargs, **kw)
+        if prepare is not None:
+            prepare(model.module)
+        return model
+
     x = torch.randn(batch, 3, image, image, generator=gen, device=device)
-    kern = create_model(name, dtype=torch.bfloat16, seed=0, image_size=image)
-    plain = create_model(name, dtype=torch.bfloat16, seed=0, image_size=image, use_kernels=False)
+    kern = build(dtype=torch.bfloat16)
+    plain = build(dtype=torch.bfloat16, use_kernels=False)
     log(f"{name}: {sum(p.numel() for p in kern.module.parameters()) / 1e6:.2f} M parameters")
     preds = {"kernel": make_predictor(kern, None, "logits"),
              "plain": make_predictor(plain, None, "logits")}
@@ -432,7 +502,7 @@ def serve_both_paths(torch, gen, device, name, batch, image, counters, rel_l2_ma
     lk, lp = logits_k.float(), logits_p.float()
     rel_l2 = ((lk - lp).norm() / lp.norm()).item()
     agree = (mask_k == mask_p).float().mean().item()
-    exact = create_model(name, seed=0, image_size=image, use_kernels=False)
+    exact = build(use_kernels=False)
     lf = make_predictor(exact, None, "logits")(x).float()
     del exact
     dist = {k: ((t - lf).norm() / lf.norm()).item() for k, t in (("kernel", lk), ("plain", lp))}
@@ -487,7 +557,8 @@ def serve_mmunet(torch, gen, device):
     mlps = seen["mkblock_mlp_fused"] + seen["mkblock_gemm"] / 2
     if not (seen["mkblock_cascade"] == mlps == want["fused_mkblock"]
             and seen["softmax_morph_kernel"] == want["fused_softmax_morph"]):
-        raise AssertionError("profiler did not see K4 on every MKBlock and K5 on every gate")
+        raise AssertionError(f"profiler did not see K4 on every MKBlock and K5 on every gate: "
+                             f"{seen}, launches {want}")
 
     rates, med, busy = time_paths(torch, "mmunet", preds, x, profile=True)
     return launches, rates, med, busy, agreement
@@ -1399,6 +1470,293 @@ def time_k7(torch, gen, device):
     return rows
 
 
+def swin_launch_shapes(image, window, batch=SERVE_BATCH):
+    """K2's launch shapes in one forward of registry-default swin_unet_v2
+    (embed 96, depths (2, 2, 2, 2), heads (3, 6, 12, 24), hd 32): rows of
+    (B_, nh, N, hd, nW, launches); nW 1 is an unshifted block (no mask).
+    Stages 0-2 run two encoder and two decoder blocks, the odd one of each
+    pair shifted; the last stage two encoder blocks, whose window covers
+    the stage, so neither shifts."""
+    rows = []
+    for stage, nh in enumerate(SWIN_HEADS):
+        res = image // 4 >> stage
+        w = min(window, res)
+        nw, blocks = (res // w) ** 2, 4 if stage < 3 else 2
+        shape = (batch * nw, nh, w * w, 96 * 2 ** stage // nh)
+        if res > window:
+            rows += [(*shape, nw, blocks // 2), (*shape, 1, blocks // 2)]
+        else:
+            rows.append((*shape, 1, blocks))
+    return rows
+
+
+def k2_work(b_, nh, n, hd, nw):
+    """K2: (tensor-core FLOPs, f32 operations, least bytes). q.k from the
+    bf16 q and k could run on the tensor cores (exact products); P.V is
+    float32 (P is not rounded), and so are the norms (4 hd per token) and
+    about 10 operations per (i, j): the cosine's divide, tau, bias, mask,
+    max, exp, sum and the normalisation. Bytes: q, k, v read and the
+    output written once (bf16), tau and bias [nh, N, N] and the mask
+    [nW, N, N] once (f32)."""
+    pairs = b_ * nh
+    return (2 * pairs * n * n * hd, pairs * (n * n * (2 * hd + 10) + 4 * n * hd),
+            2 * 4 * pairs * n * hd + 4 * (2 * nh + (nw if nw > 1 else 0)) * n * n)
+
+
+def k2_case(torch, gen, b_, nh, n, hd, nw, device):
+    """Random K2 operands at one launch shape: q, k and v as views of one
+    bf16 [B_, N, 3, nh, hd] projection (the model's layout), with an all-zero
+    q row and k row (the 1e-6 clamp); tau from U(0.005, 0.1), so some
+    entries lie below the 0.01 clip; a bias of a few units; a random
+    0 / -100 mask of nW windows, None for nW 1."""
+    qkv = torch.randn(b_, n, 3, nh, hd, generator=gen, device=device).to(torch.bfloat16)
+    qkv[0, 1, 0, 0] = 0.0
+    qkv[0, 2, 1, 0] = 0.0
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    tau = 0.005 + 0.095 * torch.rand(nh, n, n, generator=gen, device=device)
+    bias = 3.0 * torch.randn(nh, n, n, generator=gen, device=device)
+    mask = None
+    if nw > 1:
+        drop = torch.rand(nw, n, n, generator=gen, device=device) < 0.3
+        mask = torch.where(drop, -100.0, 0.0)
+    return q, k, v, tau, bias, mask
+
+
+def mask_by_image(torch, mask, b_):
+    """The mask as window b would read it at ``mask[b // nW]``: by image, not
+    by window (expanded to one mask per window)."""
+    nw = mask.shape[0]
+    return mask[(torch.arange(b_, device=mask.device) // nw) % nw]
+
+
+def k2_faults(torch, q, k, v, tau, bias, mask):
+    """K2's plain version (f32) with one fault planted each: the bias table
+    transposed, the mask read by image (where there is a mask), tau
+    unclipped (``_clip_tau`` redirected for that one call) and the softmax
+    over the queries (``torch.softmax`` redirected)."""
+    from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
+
+    plain = k2.swin_window_attention_reference
+    faults = [("bias transposed", plain(q, k, v, tau, bias.transpose(1, 2).contiguous(), mask))]
+    if mask is not None:
+        faults.append(("mask by image", plain(q, k, v, tau, bias, mask_by_image(torch, mask,
+                                                                                  q.shape[0]))))
+    clip, softmax = k2._clip_tau, torch.softmax
+    k2._clip_tau = lambda t: t.float()
+    try:
+        faults.append(("tau unclipped", plain(q, k, v, tau, bias, mask)))
+    finally:
+        k2._clip_tau = clip
+    torch.softmax = lambda t, dim: softmax(t, dim=-2)
+    try:
+        faults.append(("softmax over queries", plain(q, k, v, tau, bias, mask)))
+    finally:
+        torch.softmax = softmax
+    return faults
+
+
+def check_k2(torch, gen, device):
+    """K2 against its plain version (f32 on the same bf16 operands) at every
+    launch shape of both served swin_unet_v2 configurations and at an odd
+    shape (B_ not a multiple of 8, hd 16), each beside the planted faults
+    that the same comparison must reject; returns the max abs error."""
+    from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
+
+    cases = [(image, window, *shape[:5]) for image, window in SWIN_CONFIGS
+             for shape in swin_launch_shapes(image, window)]
+    cases.append((None, None, 6, 5, 49, 16, 3))
+    err = 0.0
+    for image, window, b_, nh, n, hd, nw in cases:
+        args = k2_case(torch, gen, b_, nh, n, hd, nw, device)
+        got = k2.swin_window_attention(*args)
+        f32 = [args[0].float(), args[1].float(), args[2].float(), *args[3:]]
+        ref = k2.swin_window_attention_reference(*f32)
+        caught = {name: k6_reading(out, ref) for name, out in k2_faults(torch, *f32)}
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        reading = k6_reading(got, ref)
+        e = (got.float() - ref).abs().max().item()
+        where = f"{image}px window {window}" if image else "odd shape"
+        log(f"K2 {where}: B_={b_} nh={nh} N={n} hd={hd} nW={nw}: max_abs_err {e:.3e}; beyond "
+            f"output rounding {reading:.3e} of the output rms (limit {K2_SHARE:.0e}); least "
+            f"planted fault {min(caught.values()):.3e} ({min(caught, key=caught.get)})")
+        if not reading <= K2_SHARE:
+            raise AssertionError(f"K2 disagrees with its plain version: {reading}")
+        if not min(caught.values()) > K2_SHARE:
+            raise AssertionError(f"the K2 comparison passed a planted fault: {caught}")
+        err = max(err, e)
+    return err
+
+
+def sharpen_swin(torch, module, tau_range=SWIN_TAU):
+    """Sharper attention than at init (tau 1, a CPB bias of about 0.25): tau
+    drawn from U(``tau_range``) and each ``cpb.fc2`` scaled so that its CPB
+    table has std 2. Every model built from the same seed gets the same
+    values (its own CPU generator)."""
+    from unet_zoo_tpu_torch.models.swin_unet_v2 import WindowAttentionV2
+
+    lo, hi = tau_range
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, WindowAttentionV2):
+                m.tau.copy_(lo + (hi - lo) * torch.rand(m.tau.shape, generator=g))
+                m.cpb.fc2.weight.mul_(2.0 / m.cpb_bias(torch.float32).std())
+
+
+def swin_faults(torch, name, preds, x, refs, rel_l2_max):
+    """K2 inside the served bf16 model: every launch of a forward held
+    against K2's plain version on the same operands, the model's own
+    activations (k6_reading, limit K2_SHARE). Then faults planted into K2's
+    arguments, each through the real kernel on every launch that has the
+    term: q and k swapped, the bias table transposed and, in the shifted
+    blocks, the mask read by image. Each forward is read against the plain
+    path and launch by launch; every fault must fail at least one check.
+    Returns the readings."""
+    from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
+
+    kernel = k2.swin_window_attention
+    dist = lambda a, b: ((a - b).norm() / b.norm()).item()
+    mask = lambda t: torch.sigmoid(t) > 0.5
+    faults = {
+        "none": None,
+        "q and k swapped": lambda q, k, v, tau, bias, m: (k, q, v, tau, bias, m),
+        "bias transposed": lambda q, k, v, tau, bias, m: (
+            q, k, v, tau, bias.transpose(1, 2).contiguous(), m),
+        "mask by image": lambda q, k, v, tau, bias, m: (
+            q, k, v, tau, bias, None if m is None else mask_by_image(torch, m, q.shape[0])),
+    }
+
+    def checked(plant, passes):
+        def launch(*a):
+            got = kernel(*(a if plant is None else plant(*a)))
+            f32 = [a[0].float(), a[1].float(), a[2].float(), *a[3:]]
+            passes.append(k6_reading(got, k2.swin_window_attention_reference(*f32)))
+            return got
+        return launch
+
+    readings = {}
+    try:
+        for fault, plant in faults.items():
+            passes = []
+            k2.swin_window_attention = checked(plant, passes)
+            lk = preds["kernel"](x).float()
+            k2.swin_window_attention = kernel
+            r = dict(rel_l2=dist(lk, refs["plain"]),
+                     mask_agreement=(mask(lk) == mask(refs["plain"])).float().mean().item(),
+                     launch_reading_max=max(passes))
+            failed = [k for k, bad in (("rel_l2", r["rel_l2"] > rel_l2_max),
+                                       ("mask_agreement", r["mask_agreement"] < SWIN_AGREE),
+                                       ("launch_reading", r["launch_reading_max"] > K2_SHARE))
+                      if bad]
+            readings[fault] = dict(r, failed=failed)
+            log(f"{name} planted fault {fault}: rel L2 vs plain {r['rel_l2']:.3e} (<= "
+                f"{rel_l2_max:.0e}), mask agreement {r['mask_agreement']:.5f} (>= {SWIN_AGREE}), "
+                f"its {len(passes)} K2 launches against the plain version at most "
+                f"{r['launch_reading_max']:.3e} (<= {K2_SHARE:.0e}): fails {failed or 'nothing'}")
+    finally:
+        k2.swin_window_attention = kernel
+    if readings["none"]["failed"]:
+        raise AssertionError(f"{name}: K2 disagrees with its plain version in the served model")
+    passed = [f for f, r in readings.items() if f != "none" and not r["failed"]]
+    if passed:
+        raise AssertionError(f"{name}: the served-model checks passed planted faults {passed}")
+    return readings
+
+
+def serve_swin(torch, gen, device, image, window):
+    """Registry-default swin_unet_v2 at ``image`` px, window ``window``, bf16,
+    B=8, on both paths with sharpened attention: one K2 launch per block by
+    the counter and by the profiler, agreement, planted faults, rates and
+    the device-time breakdown."""
+    from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
+
+    name = f"swin_unet_v2 {image}px window {window}"
+    preds, x, launches, agreement, refs = serve_both_paths(
+        torch, gen, device, "swin_unet_v2", SERVE_BATCH, image, [(k2, "swin_window_attention")],
+        SWIN_REL_L2, SWIN_AGREE, SWIN_F32_RATIO, prepare=lambda m: sharpen_swin(torch, m),
+        window_size=window)
+    launches = launches["swin_window_attention"]
+    if launches != SWIN_LAUNCHES:
+        raise AssertionError(f"K2 ran {launches} times in {name}, expected {SWIN_LAUNCHES}")
+    faults = swin_faults(torch, name, preds, x, refs, SWIN_REL_L2)
+    events = profile_forward(torch, lambda: preds["kernel"](x))
+    seen = sum("window_attention_kernel" in e.name for e in events)
+    log(f"profiler: {seen} window_attention_kernel grids in one {name} forward")
+    if seen != SWIN_LAUNCHES:
+        raise AssertionError(f"profiler saw K2 {seen} times in {name}, expected {SWIN_LAUNCHES}")
+    rates, med, busy = time_paths(torch, name, preds, x, profile=True)
+    return dict(image=image, window=window, launches=launches, profiler_grids=seen,
+                serve_img_per_s=rates, forward_ms=med, device_busy_ms=busy,
+                planted_faults=faults, sharper=sharper_paths(torch, x, image, window),
+                **agreement)
+
+
+def sharper_paths(torch, x, image, window):
+    """Reported, no limit: the two bf16 paths and float32 compute with tau
+    from U(SWIN_TAU_SHARPER). Cosines over tau that small set near one-hot
+    attention whose choice a bf16 rounding flips, so the paths part."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.utils.serving import make_predictor
+
+    logits = {}
+    for path, kw in (("kernel", dict(dtype=torch.bfloat16)),
+                     ("plain", dict(dtype=torch.bfloat16, use_kernels=False)),
+                     ("f32", dict(use_kernels=False))):
+        model = create_model("swin_unet_v2", seed=0, image_size=image, window_size=window, **kw)
+        sharpen_swin(torch, model.module, SWIN_TAU_SHARPER)
+        logits[path] = make_predictor(model, None, "logits")(x).float()
+    dist = lambda a, b: ((logits[a] - logits[b]).norm() / logits[b].norm()).item()
+    r = dict(tau=SWIN_TAU_SHARPER, rel_l2=dist("kernel", "plain"),
+             mask_agreement=((logits["kernel"] > 0) == (logits["plain"] > 0)).float().mean().item(),
+             rel_l2_to_f32={p: dist(p, "f32") for p in ("kernel", "plain")})
+    log(f"swin_unet_v2 {image}px, tau from U{SWIN_TAU_SHARPER} (reported): rel L2 kernel vs "
+        f"plain {r['rel_l2']:.3e}, mask agreement {r['mask_agreement']:.5f}; rel L2 to f32 "
+        f"compute: kernel {r['rel_l2_to_f32']['kernel']:.3e}, plain {r['rel_l2_to_f32']['plain']:.3e}")
+    return r
+
+
+def time_k2(torch, gen, device, image, window):
+    """K2 at each launch shape of one B=8 forward: kernel, plain version,
+    bound, and the bf16 module chain it replaces (``attend``: the module
+    path from q, k, v to the attention output, CPB MLP included) on a
+    sharpened bf16 WindowAttentionV2 with bf16-rounded parameters."""
+    from unet_zoo_tpu_torch.models.swin_unet_v2 import WindowAttentionV2, _shift_attn_mask
+    from unet_zoo_tpu_torch.nn import init_weights
+    from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
+    from unet_zoo_tpu_torch.utils.serving import cast_params_for_inference
+
+    rows = []
+    for b_, nh, n, hd, nw, blocks in swin_launch_shapes(image, window):
+        w = int(round(n ** 0.5))
+        attn = WindowAttentionV2(nh * hd, (w, w), nh, dtype=torch.bfloat16, use_kernels=False)
+        init_weights(attn, torch.Generator().manual_seed(b_ + nh))
+        sharpen_swin(torch, attn)
+        attn = cast_params_for_inference(attn).to(device).eval()
+        tau, bias = attn.kernel_tables()
+        res = w * int(round(nw ** 0.5))
+        mask = (torch.from_numpy(_shift_attn_mask(res, res, w, w // 2)).to(device)
+                if nw > 1 else None)
+        q, k, v = (torch.randn(b_, n, nh, hd, generator=gen, device=device).to(torch.bfloat16)
+                   for _ in range(3))
+        qs, kt, vt = (q * attn.scale).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        with torch.inference_mode():
+            ms = cuda_ms(torch, lambda: k2.swin_window_attention(qs, kt, vt, tau, bias, mask), 20)
+            plain_ms = cuda_ms(torch, lambda: k2.swin_window_attention_reference(
+                qs, kt, vt, tau, bias, mask), 5)
+            chain_ms = cuda_ms(torch, lambda: attn.attend(q, k, v, mask), 20)
+        tc, f32, nbytes = k2_work(b_, nh, n, hd, nw)
+        bound_ms, bound_by = bound(tc, nbytes, f32)
+        rows.append(dict(image=image, window=window, windows=b_, heads=nh, tokens=n, head_dim=hd,
+                         mask_windows=nw, launches=blocks, tc_flops=tc, f32_ops=f32,
+                         bytes=nbytes, ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"K2 {image}px B_={b_} nh={nh} N={n} hd={hd} nW={nw} x{blocks}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {nbytes / ms / 1e6:.1f} GB/s)")
+    return rows
+
+
 def per_forward(rows, key):
     """A per-launch quantity summed over one forward's launches."""
     return sum(r[key] * r["launches"] for r in rows)
@@ -1407,6 +1765,7 @@ def per_forward(rows, key):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1494,7 +1853,8 @@ def main() -> int:
         + ", ".join(f"{a.time_range.elapsed_us():.1f}+{c.time_range.elapsed_us():.1f} us"
                     for a, c in zip(convt, conv3)))
     if len(convt) != len(STAGES) or len(conv3) != len(STAGES):
-        raise AssertionError("profiler did not see K1 on every decoder stage")
+        raise AssertionError(f"profiler did not see K1 on every decoder stage: {len(convt)} "
+                             f"ConvT and {len(conv3)} conv3x3 grids")
 
     # serving rate, both paths, in turns; each sample is 3 forwards back to back
     times = serve_times(torch, {"kernel": pred_k, "plain": pred_p}, x)
@@ -1562,6 +1922,15 @@ def main() -> int:
              for layers in (None, (1, 1, 1, 1))}
     axialunet_train = train_paths(torch, gen, device, "axialunet", 2, 128, 3, profile=False)
     k7_rows = time_k7(torch, gen, device)
+    torch.cuda.empty_cache()
+
+    # 11-12. swin_unet_v2: K2 checks, both configurations served at full
+    # width, K2 per launch shape
+    k2_err = check_k2(torch, gen, device)
+    swin = {f"{image}px": serve_swin(torch, gen, device, image, window)
+            for image, window in SWIN_CONFIGS}
+    k2_rows = {f"{image}px": time_k2(torch, gen, device, image, window)
+               for image, window in SWIN_CONFIGS}
 
     total = lambda key: sum(s[key] for s in stages)
     bound_ms, bound_by = bound(total("flops"), total("bytes"))
@@ -1572,6 +1941,19 @@ def main() -> int:
                       **mm_agreement)
     k6_bound = bound(0, per_forward(k6_rows, "bytes"), per_forward(k6_rows, "f32_ops"))
     k7_bound = bound(0, per_forward(k7_rows, "bytes"), per_forward(k7_rows, "f32_ops"))
+    main_k2 = k2_rows["224px"]        # the registry default: 224px, window 7
+    k2_bound = bound(per_forward(main_k2, "tc_flops"), per_forward(main_k2, "bytes"),
+                     per_forward(main_k2, "f32_ops"))
+    k2_per_config = {}
+    for key, rows in k2_rows.items():
+        b = bound(per_forward(rows, "tc_flops"), per_forward(rows, "bytes"),
+                  per_forward(rows, "f32_ops"))
+        k2_per_config[key] = dict(ms=per_forward(rows, "ms"), plain_ms=per_forward(rows, "plain_ms"),
+                                  module_chain_ms=per_forward(rows, "module_chain_ms"),
+                                  bound_ms=b[0], bound_by=b[1])
+        log(f"K2 per {key} forward: {k2_per_config[key]}")
+    log(f"profiler: {PROFILE_RETAKES[0]} traces retaken after a trace that lost records")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the kernels line")
     log(json.dumps({"kernels": [{
         "name": "fused_up_concat_conv",
         "route": "cuda",
@@ -1654,6 +2036,22 @@ def main() -> int:
         "gated_grad_noise": noise,
         "axialunet_train": axialunet_train,
         "shapes": k7_rows,
+    }, {
+        "name": "swin_window_attention",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/window_attention.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/window_attention.py:77",
+        "launches": swin["224px"]["launches"],
+        "max_abs_err": k2_err,
+        "ms": per_forward(main_k2, "ms"),
+        "plain_ms": per_forward(main_k2, "plain_ms"),
+        "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1],
+        "library_ms": None,
+        "module_chain_ms": per_forward(main_k2, "module_chain_ms"),
+        "per_config": k2_per_config,
+        "swin_unet_v2": swin,
+        "shapes": k2_rows,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

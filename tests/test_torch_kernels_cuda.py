@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K4, K5, K6, K7) against their plain PyTorch
+"""The port's CUDA kernels (K1, K2, K4, K5, K6, K7) against their plain PyTorch
 versions, and each model's kernel path against its plain path, on the card.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``: a CUDA kernel has no CPU
@@ -14,12 +14,14 @@ import torch
 from unet_zoo_tpu_torch import create_model
 from unet_zoo_tpu_torch.models.medt_net import AxialAttention
 from unet_zoo_tpu_torch.models.mmunet import MKBlock
+from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinBlockV2, WindowAttentionV2
 from unet_zoo_tpu_torch.nn import init_weights
 from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
 from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
 from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
 from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
 from unet_zoo_tpu_torch.ops.kernels import morph as k5
+from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
 from unet_zoo_tpu_torch.utils.serving import make_predictor
 
 
@@ -451,3 +453,137 @@ def test_gated_train_step_runs_k7_on_both_passes(cuda_device):
         assert all(torch.isfinite(p.grad).all() for p in model.module.parameters())
         losses[use_kernels] = metrics["loss"].item()
     assert abs(losses[None] - losses[False]) <= 2e-2 * losses[False], losses
+
+
+# K2: the error beyond the output's bf16 rounding (2^-8 |ref|) as a share of
+# the output's rms (_k6_reading; chip_smoke.py reads it alike, same limit).
+K2_SHARE = 1e-3
+
+
+def _k2_case(device, b_, nh, n, hd, nw, dtype=torch.bfloat16):
+    """q, k, v as views of one [B_, N, 3, nh, hd] projection (the model's
+    layout), with a zero q row and a zero k row; tau from U(0.005, 0.1), so
+    some entries lie below the 0.01 clip; a bias of a few units; a random
+    0 / -100 mask of nW windows (None for nW 1)."""
+    gen = torch.Generator(device=device).manual_seed(b_ + nh + n + hd + nw)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    qkv = r(b_, n, 3, nh, hd).to(dtype)
+    qkv[0, 1, 0, 0] = 0.0
+    qkv[0, 2, 1, 0] = 0.0
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    tau = 0.005 + 0.095 * torch.rand(nh, n, n, generator=gen, device=device)
+    mask = None
+    if nw > 1:
+        mask = torch.where(torch.rand(nw, n, n, generator=gen, device=device) < 0.3, -100.0, 0.0)
+    return q, k, v, tau, 3.0 * r(nh, n, n), mask
+
+
+def _k2_faults(monkeypatch, q, k, v, tau, bias, mask):
+    """K2's plain version with one fault planted each: the mask read by
+    image (b // nW) instead of by window, tau unclipped, the softmax over
+    the queries, the bias table transposed."""
+    plain = k2.swin_window_attention_reference
+    out = {"bias transposed": plain(q, k, v, tau, bias.transpose(1, 2).contiguous(), mask)}
+    if mask is not None:
+        by_image = (torch.arange(q.shape[0], device=q.device) // mask.shape[0]) % mask.shape[0]
+        out["mask by image"] = plain(q, k, v, tau, bias, mask[by_image])
+    with monkeypatch.context() as m:
+        m.setattr(k2, "_clip_tau", lambda t: t.float())
+        out["tau unclipped"] = plain(q, k, v, tau, bias, mask)
+    softmax = torch.softmax
+    with monkeypatch.context() as m:
+        m.setattr(torch, "softmax", lambda t, dim: softmax(t, dim=-2))
+        out["softmax over queries"] = plain(q, k, v, tau, bias, mask)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,nh,n,hd,nw,dtype", [
+    (512, 3, 49, 32, 64, torch.bfloat16),     # 224px stage 0, shifted (B=8)
+    (128, 6, 49, 32, 16, torch.bfloat16),     # stage 1
+    (32, 12, 49, 32, 4, torch.bfloat16),      # stage 2
+    (8, 24, 49, 32, 1, torch.bfloat16),       # stage 3: reduced window, no shift
+    (512, 3, 64, 32, 64, torch.bfloat16),     # 256px, window 8
+    (8, 24, 64, 32, 1, torch.bfloat16),
+    (6, 5, 49, 16, 3, torch.bfloat16),        # B_ not a multiple of 8, hd 16
+    (12, 2, 16, 8, 4, torch.float32),         # float32 activations
+    (4, 2, 100, 24, 2, torch.bfloat16),       # window 10: four keys per lane
+])
+def test_swin_window_attention_kernel_matches_reference(cuda_device, monkeypatch, b_, nh, n, hd,
+                                                        nw, dtype):
+    q, k, v, tau, bias, mask = _k2_case(cuda_device, b_, nh, n, hd, nw, dtype)
+    f32 = [q.float(), k.float(), v.float(), tau, bias, mask]
+    ref = k2.swin_window_attention_reference(*f32)
+    before = k2.LAUNCHES["swin_window_attention"]
+    got = k2.swin_window_attention(q, k, v, tau, bias, mask)
+    torch.cuda.synchronize()
+    assert k2.LAUNCHES["swin_window_attention"] - before == 1
+    assert got.dtype == dtype and got.shape == (b_, nh, n, hd)
+    assert got.transpose(1, 2).is_contiguous()              # token-major for the projection
+    assert _k6_reading(got, ref) <= K2_SHARE
+    for name, out in _k2_faults(monkeypatch, *f32).items():
+        assert _k6_reading(out, ref) > K2_SHARE, name
+
+
+@pytest.mark.cuda
+def test_swin_window_attention_outside_kernel_shapes_raises(cuda_device):
+    """The wrapper raises for what K2 does not take (naming use_kernels=False)
+    and launches nothing; so does a bf16 block whose window K2 does not take
+    (17 x 17 = 289 tokens), which use_kernels=False serves."""
+    q, k, v, tau, bias, _ = _k2_case(cuda_device, 2, 1, 16, 8, 1)
+    bad = [(q.half(), k.half(), v.half(), tau, bias, None),            # float16
+           (q, k, v, tau.half(), bias, None),                         # float16 tau
+           (q, k, v, tau, bias, torch.zeros(3, 16, 16, device=cuda_device)),   # nW does not divide B_
+           (q, k, v, tau[:, :8], bias, None)]                         # tau's shape
+    before = k2.LAUNCHES["swin_window_attention"]
+    for args in bad:
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            k2.swin_window_attention(*args)
+    blk = SwinBlockV2(16, (17, 17), 2, window_size=17, dtype=torch.bfloat16)
+    init_weights(blk, torch.Generator().manual_seed(0))
+    blk = blk.to(cuda_device).eval()
+    x = torch.randn(1, 17 * 17, 16, device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad(), pytest.raises(ValueError, match="use_kernels=False"):
+        blk(x)
+    assert k2.LAUNCHES["swin_window_attention"] == before
+    blk.attn.use_kernels = False
+    with torch.no_grad():
+        assert torch.isfinite(blk(x).float()).all()
+
+
+@pytest.mark.cuda
+def test_window_attention_float32_runs_kernel(cuda_device):
+    """use_kernels=True on a float32 module runs K2 in float32 and matches
+    the module path."""
+    attn = WindowAttentionV2(32, (4, 4), 4, use_kernels=True)
+    init_weights(attn, torch.Generator().manual_seed(0))
+    attn = attn.to(cuda_device).eval()
+    x = torch.randn(8, 16, 32, device=cuda_device)
+    mask = torch.where(torch.rand(4, 16, 16, device=cuda_device) < 0.3, -100.0, 0.0)
+    before = k2.LAUNCHES["swin_window_attention"]
+    with torch.no_grad():
+        got = attn(x, mask)
+        attn.use_kernels = False
+        ref = attn(x, mask)
+    assert k2.LAUNCHES["swin_window_attention"] - before == 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image,window", [(224, 7), (256, 8)])
+def test_swin_unet_v2_kernel_path_matches_plain_path(cuda_device, image, window):
+    """bf16 swin_unet_v2 (embed 48, B=2) served on both paths: K2 on all 14
+    window attentions (8 encoder, 6 decoder blocks); finite logits within
+    chip_smoke.py's limit (3e-2 rel L2) of the plain path."""
+    x = torch.randn(2, 3, image, image, generator=torch.Generator().manual_seed(2))
+    x = x.to(cuda_device)
+    preds = [make_predictor(create_model("swin_unet_v2", dtype=torch.bfloat16, image_size=image,
+                                         window_size=window, embed_dim=48, use_kernels=k),
+                            None, "logits") for k in (None, False)]
+    before = k2.LAUNCHES["swin_window_attention"]
+    got = preds[0](x).float()
+    assert k2.LAUNCHES["swin_window_attention"] - before == 14
+    ref = preds[1](x).float()
+    assert got.shape == (2, 1, image, image) and torch.isfinite(got).all()
+    assert ((got - ref).norm() / ref.norm()).item() <= 3e-2

@@ -15,6 +15,7 @@ from torch import nn
 
 from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
+from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinUNetV2
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.nn import init_weights
 
@@ -218,6 +219,24 @@ def _build_medt_logo(in_channels, num_classes, image_size, depth, dtype, pretrai
         num_classes=num_classes, in_channels=in_channels,
         img_size=image_size if image_size is not None else 128,
         groups=kw.pop("groups", 8), width_per_group=kw.pop("width_per_group", 64),
+        dtype=dtype, **kw)
+
+
+@register_model("swin_unet_v2", requires_image_size=True)
+def _build_swin_unet_v2(in_channels, num_classes, image_size, depth, dtype, **kw):
+    # the JAX registry's defaults; the same dead kwargs are accepted and dropped
+    for dead in ("depths_decoder", "use_checkpoint", "final_upsample", "norm_layer"):
+        kw.pop(dead, None)
+    return SwinUNetV2(
+        img_size=image_size, patch_size=kw.pop("patch_size", 4), in_chans=in_channels,
+        num_classes=num_classes, embed_dim=kw.pop("embed_dim", 96),
+        depths=tuple(kw.pop("depths", (2, 2, 2, 2))),
+        num_heads=tuple(kw.pop("num_heads", (3, 6, 12, 24))),
+        window_size=kw.pop("window_size", 7), mlp_ratio=kw.pop("mlp_ratio", 4.0),
+        qkv_bias=kw.pop("qkv_bias", True), qk_scale=kw.pop("qk_scale", None),
+        drop_rate=kw.pop("drop_rate", 0.0), attn_drop_rate=kw.pop("attn_drop_rate", 0.0),
+        drop_path_rate=kw.pop("drop_path_rate", 0.1), ape=kw.pop("ape", False),
+        patch_norm=kw.pop("patch_norm", True), use_mlp=kw.pop("use_mlp", False),
         dtype=dtype, **kw)
 
 

@@ -247,7 +247,9 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     A module's ``init_gain`` attribute overrides the gain (MedT's qkv
     projections draw at std sqrt(1 / fan_in), as in JAX), and a module with
     a ``draw_parameters(generator)`` method draws its own other parameters
-    (MedT's relative embeddings) when it is reached.
+    (MedT's relative embeddings, swin_unet_v2's ``absolute_pos_embed``)
+    when it is reached. Everything else keeps its construction value:
+    LayerNorm at identity, SwinV2's ``tau`` at ones, as in JAX.
     """
     for m in module.modules():
         if hasattr(m, "draw_parameters"):

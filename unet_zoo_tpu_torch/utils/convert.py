@@ -14,7 +14,10 @@ loads with ``strict=True``. It is the inverse of the JAX package's
   ``kernel.T[:, :, None]``;
 * a grouped conv keeps the conv rule: [3, 3, 2, C] -> [C, 2, 3, 3];
 * MedT's qkv Dense -> ``qkv_transform.conv`` (``Conv1d`` k=1):
-  ``kernel.T[:, :, None]``; ``relative`` and the scalar gates as they are.
+  ``kernel.T[:, :, None]``; ``relative`` and the scalar gates as they are;
+* LayerNorm: scale/bias -> weight/bias; SwinV2's ``tau`` and
+  ``absolute_pos_embed`` as they are; its ``cpb_fc1``/``cpb_fc2`` ->
+  ``cpb.fc1``/``cpb.fc2`` and ``mlp_fc1``/``mlp_fc2`` -> ``mlp.fc1``/``mlp.fc2``.
 """
 
 from __future__ import annotations
@@ -182,13 +185,72 @@ def _medt_logo(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _ln(sd, key, p):
+    sd[f"{key}.weight"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _swin_block(sd, prefix, p):
+    a = p["attn"]
+    for name, key in (("qkv", "qkv"), ("proj", "proj"), ("cpb_fc1", "cpb.fc1"),
+                      ("cpb_fc2", "cpb.fc2")):
+        _dense(sd, f"{prefix}.attn.{key}", a[name])
+    sd[f"{prefix}.attn.tau"] = _t(a["tau"])
+    _ln(sd, f"{prefix}.norm1", p["norm1"])
+    if "mlp_fc1" in p:                                   # use_mlp=True
+        _dense(sd, f"{prefix}.mlp.fc1", p["mlp_fc1"])
+        _dense(sd, f"{prefix}.mlp.fc2", p["mlp_fc2"])
+        _ln(sd, f"{prefix}.norm2", p["norm2"])
+
+
+def _swin_blocks(sd, prefix, p, name):
+    i = 0
+    while f"{name}_blk{i}" in p:
+        _swin_block(sd, f"{prefix}.blocks.{i}", p[f"{name}_blk{i}"])
+        i += 1
+
+
+def _patch_resize(sd, key, p, linear):
+    _dense(sd, f"{key}.{linear}", p[linear])
+    _ln(sd, f"{key}.norm", p["norm"])
+
+
+def _swin_unet_v2(variables) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "patch_embed.proj", p["patch_embed"])
+    if "patch_norm" in p:
+        _ln(sd, "patch_embed.norm", p["patch_norm"])
+    if "absolute_pos_embed" in p:
+        sd["absolute_pos_embed"] = _t(p["absolute_pos_embed"])
+    nl = 0
+    while f"layer{nl}_blk0" in p:
+        _swin_blocks(sd, f"layers.{nl}", p, f"layer{nl}")
+        if f"layer{nl}_downsample" in p:
+            _patch_resize(sd, f"layers.{nl}.downsample", p[f"layer{nl}_downsample"], "reduction")
+        nl += 1
+    _patch_resize(sd, "layers_up.0", p["layer_up0"], "expand")
+    for u in range(1, nl):
+        _swin_blocks(sd, f"layers_up.{u}", p, f"layer_up{u}")
+        if f"layer_up{u}_upsample" in p:
+            _patch_resize(sd, f"layers_up.{u}.upsample", p[f"layer_up{u}_upsample"], "expand")
+        _dense(sd, f"concat_back_dim.{u}", p[f"concat_back_dim{u}"])
+    _ln(sd, "norm", p["norm"])
+    _ln(sd, "norm_up", p["norm_up"])
+    _patch_resize(sd, "up", p["up"], "expand")
+    _conv(sd, "output", p["output"])
+    return sd
+
+
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "axialunet": _medt_family, "gated": _medt_family, "logo": _medt_family,
-    "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet, "unet": _unet}
+    "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet,
+    "swin_unet_v2": _swin_unet_v2, "unet": _unet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
-    """JAX variables ``{'params', 'batch_stats'}`` -> the port's ``state_dict``."""
+    """JAX variables ``{'params', 'batch_stats'}`` (``{'params'}`` alone for
+    a model without BatchNorm) -> the port's ``state_dict``."""
     name = model_name.lower()
     if name not in CONVERTERS:
         raise ValueError(f"No converter for '{model_name}'. Available: {sorted(CONVERTERS)}")
