@@ -76,7 +76,29 @@
    arguments (q and k swapped, the bias transposed, the mask read by image)
    must fail; times both paths and K2 at every launch shape against its
    bound, its plain version and the bf16 module chain it replaces.
-13. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+13. Holds K3 (``depthwise_conv2d``) against its plain version at every
+   distinct launch shape of ``unext`` and ``unext_s`` (B=8, 256px) and an odd
+   shape (odd H and W, C 20, k 5); each comparison is shown to reject planted
+   faults (the taps transposed, the halo read one pixel into the neighbouring
+   tile, the bias dropped).
+14. Serves ``unext`` and ``unext_s`` (registry defaults, bf16, B=8, 256px) on
+   both paths: K3 must run 13 and 6 times per forward, by the launch counter
+   and by the profiler; every K3 launch of the served forward is held against
+   its plain version on the model's own operands; times both paths and K3 at
+   every launch shape against its bound, its plain version, the bf16 module
+   chain it replaces and cuDNN's depthwise conv.
+15. Holds K8 (``deform_conv2d``) against its plain version at both ``wranet``
+   launch shapes and an odd shape (C 40, O 24), with offsets that reach past
+   every edge of the frame and sigmoid masks; each comparison is shown to
+   reject planted faults (corner weights' x and y swapped, no clamp to the
+   frame, the mask ignored, taps in column-major order).
+16. Serves ``wranet`` (feature_channels 128, bf16, B=8, 256px) on both paths
+   with the offset and modulator convs drawn alike off their zero init: K8
+   must run twice per forward, by the counter and by the profiler; every K8
+   launch held against its plain version on the model's operands; times both
+   paths and K8 at both launch shapes against its bound, its plain version
+   and the bf16 module chain it replaces.
+17. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -194,6 +216,40 @@ SWIN_F32_RATIO = 1.25
 # path (PERF.md)
 SWIN_TAU = (0.1, 1.0)
 SWIN_TAU_SHARPER = (0.005, 0.1)
+# unext / unext_s served at registry widths (B=8, 256px): embed dims and the
+# three stage depths; one K3 launch per MiT block, on the hidden width 4 x dim
+UNEXT_CONFIGS = {"unext": ((128, 160, 256), (3, 4, 6)), "unext_s": ((64, 128, 160), (2, 2, 2))}
+UNEXT_LAUNCHES = {name: sum(depths) for name, (_, depths) in UNEXT_CONFIGS.items()}
+# K3 and K8 against their plain versions on the same bf16 operands, both
+# rounded to bf16 once: the error beyond one bf16 ulp (2^-7 |ref|) as a share
+# of the output's rms (ulp_reading). What remains is f32 arithmetic in another
+# order; the planted faults read orders of magnitude above.
+K3_SHARE = 1e-3
+K8_SHARE = 1e-3
+# unext, kernel path vs plain path: relative L2 of the logits, mask agreement,
+# and the kernel path's distance to f32 compute at most UNEXT_F32_RATIO times
+# the plain path's. The paths differ only in the depthwise conv (K3 against
+# cuDNN's bf16 grouped conv), each rounding the f32 sums once: measured 0 (the
+# logits agree bit for bit) on the H100 (PERF.md); the limit leaves room for
+# a sum rounded the other way.
+UNEXT_REL_L2 = 1e-2
+UNEXT_AGREE = 0.99
+UNEXT_F32_RATIO = 1.25
+# wranet (feature_channels 128) at 256px: K8 in decoder_lv2 at 128x128 and
+# decoder_lv1 at 256x256, C 128 -> O 32, k 3
+WRANET_FC = 128
+WRANET_LAUNCHES = 2
+# wranet, kernel path vs plain path: the module path rounds the corner weights
+# to bf16, K8 keeps them in f32. Measured 1.110e-2, masks 0.99605, both paths
+# 0.212 from f32 compute on the H100 (PERF.md)
+WRANET_REL_L2 = 3e-2
+WRANET_AGREE = 0.99
+WRANET_F32_RATIO = 1.25
+# the offset and modulator convs of every served wranet, drawn off their zero
+# init from one seed (std = scale / sqrt(fan_in)), so that offsets reach a
+# few pixels and masks spread over (0, 1) (draw_deform_offsets)
+WRANET_OFFSET_SCALE = 2.0
+WRANET_MASK_SCALE = 1.5
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -225,6 +281,33 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters):
+    """Mean device ms of ``fn()`` over ``iters`` calls captured in one CUDA
+    graph and replayed (CUDA events around three replays): the launches'
+    host cost, which exceeds a small kernel's device time on a loaded host,
+    stays out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
 
 
 def work(b, cin, cu, cs, co, hc, wc):
@@ -1757,6 +1840,426 @@ def time_k2(torch, gen, device, image, window):
     return rows
 
 
+def ulp_reading(got, ref):
+    """K3's and K8's error against a plain version that also rounds to bf16
+    once: max over elements of (|got - ref| - 2^-7 |ref|) / rms(ref), what
+    lies beyond one bf16 ulp, as a share of the output."""
+    excess = (got.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs()
+    return (excess.max() / ref.float().pow(2).mean().sqrt()).item()
+
+
+def unext_launch_shapes(name, image=IMAGE, batch=SERVE_BATCH):
+    """K3's launch shapes in one forward of registry-default ``name``: rows of
+    (B, H, W, C, launches), C the MLP's hidden width 4 x dim at stage s's
+    resolution image / 2^(s + 2)."""
+    dims, depths = UNEXT_CONFIGS[name]
+    return [(batch, image >> (s + 2), image >> (s + 2), 4 * d, n)
+            for s, (d, n) in enumerate(zip(dims, depths))]
+
+
+def k3_work(b, h, w, c, k=3):
+    """K3: (f32 operations, least bytes): 2 k^2 operations per output
+    element; x read and the output written once (bf16), the bf16 taps and
+    bias once."""
+    return 2 * k * k * b * h * w * c, 2 * (2 * b * h * w * c + k * k * c + c)
+
+
+def k3_case(torch, gen, b, h, w, c, k, device):
+    """bf16 K3 operands: x, a [k, k, C] kernel of O(1 / k) taps, a bias."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    return (r(b, h, w, c).to(torch.bfloat16), (r(k, k, c) / k).to(torch.bfloat16),
+            r(c).to(torch.bfloat16))
+
+
+def k3_halo_displaced(torch, x, kern, bias, th=8, tw=16):
+    """K3's plain version as a kernel whose tiles (th x tw, csrc/depthwise.cu)
+    read their halo one pixel further into the neighbouring tile's interior."""
+    b, h, w, c = x.shape
+    k = kern.shape[0]
+    p = (k - 1) // 2
+
+    def source(n, t):
+        i = torch.arange(n, device=x.device)[:, None]
+        src = i + torch.arange(k, device=x.device)[None, :] - p
+        lo = (i // t) * t
+        src = torch.where(src < lo, src - 1, torch.where(src >= lo + t, src + 1, src))
+        return src.clamp(0, n - 1), (src >= 0) & (src < n)
+
+    (ry, vy), (rx, vx) = source(h, th), source(w, tw)
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    xf = x.float()
+    for dy in range(k):
+        for dx in range(k):
+            ok = (vy[:, dy][:, None] & vx[:, dx][None, :])[None, :, :, None]
+            tap = xf[:, ry[:, dy]][:, :, rx[:, dx]]
+            acc = acc + torch.where(ok, tap, 0.0) * kern[dy, dx].float()
+    return (acc + bias.float()).to(x.dtype)
+
+
+def check_k3(torch, gen, device):
+    """K3 against its plain version (the same bf16 operands) at every distinct
+    launch shape of unext and unext_s at B=8/256px and an odd shape (odd H
+    and W, C 20, k 5), each beside planted faults that the same comparison
+    must reject: the taps transposed, the halo read one pixel into the
+    neighbouring tile, the bias dropped. Returns the max abs error."""
+    from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
+
+    cases = sorted({(*row[:4], 3) for name in UNEXT_CONFIGS for row in unext_launch_shapes(name)})
+    cases.append((2, 37, 45, 20, 5))
+    err = 0.0
+    for b, h, w, c, k in cases:
+        x, kern, bias = k3_case(torch, gen, b, h, w, c, k, device)
+        got = k3.depthwise_conv2d(x, kern, bias)
+        ref = k3.depthwise_conv2d_reference(x, kern, bias)
+        faults = {"taps transposed": k3.depthwise_conv2d_reference(
+                      x, kern.transpose(0, 1).contiguous(), bias),
+                  "halo from the neighbour's interior": k3_halo_displaced(torch, x, kern, bias),
+                  "bias dropped": k3.depthwise_conv2d_reference(x, kern)}
+        caught = {name: ulp_reading(got, out) for name, out in faults.items()}
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        reading = ulp_reading(got, ref)
+        e = (got.float() - ref.float()).abs().max().item()
+        log(f"K3 [{b}, {h}, {w}, {c}] k={k}: max_abs_err {e:.3e}; beyond one bf16 ulp "
+            f"{reading:.3e} of the output rms (limit {K3_SHARE:.0e}); least planted fault "
+            f"{min(caught.values()):.3e} ({min(caught, key=caught.get)})")
+        if not reading <= K3_SHARE:
+            raise AssertionError(f"K3 disagrees with its plain version: {reading}")
+        if not min(caught.values()) > K3_SHARE:
+            raise AssertionError(f"the K3 comparison passed a planted fault: {caught}")
+        err = max(err, e)
+    return err
+
+
+def checked_launches(torch, module, attr, reference, fn):
+    """Run ``fn()`` with every launch of ``module.attr`` (a kernel wrapper)
+    also held against ``reference`` on the same operands (ulp_reading);
+    returns (fn's result, the readings)."""
+    kernel = getattr(module, attr)
+    readings = []
+
+    def launch(*a):
+        got = kernel(*a)
+        readings.append(ulp_reading(got, reference(*a)))
+        return got
+
+    setattr(module, attr, launch)
+    try:
+        return fn(), readings
+    finally:
+        setattr(module, attr, kernel)
+
+
+def serve_unext(torch, gen, device, name):
+    """Registry-default ``name`` (unext or unext_s), bf16, B=8, 256px, on both
+    paths: one K3 launch per MiT block by the counter and by the profiler,
+    every K3 launch of the served forward against its plain version,
+    agreement, rates and the device-time breakdown."""
+    from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
+
+    want = UNEXT_LAUNCHES[name]
+    preds, x, launches, agreement, _ = serve_both_paths(
+        torch, gen, device, name, SERVE_BATCH, IMAGE, [(k3, "depthwise_conv2d")],
+        UNEXT_REL_L2, UNEXT_AGREE, UNEXT_F32_RATIO)
+    launches = launches["depthwise_conv2d"]
+    if launches != want:
+        raise AssertionError(f"K3 ran {launches} times in {name}, expected {want}")
+    _, readings = checked_launches(torch, k3, "depthwise_conv2d",
+                                   k3.depthwise_conv2d_reference, lambda: preds["kernel"](x))
+    log(f"{name}: its {len(readings)} K3 launches against the plain version on the model's "
+        f"own operands: at most {max(readings):.3e} (<= {K3_SHARE:.0e})")
+    if len(readings) != want or not max(readings) <= K3_SHARE:
+        raise AssertionError(f"{name}: K3 disagrees with its plain version in the served model")
+    events = profile_forward(torch, lambda: preds["kernel"](x))
+    seen = sum("depthwise_kernel" in e.name for e in events)
+    log(f"profiler: {seen} depthwise_kernel grids in one {name} forward")
+    if seen != want:
+        raise AssertionError(f"profiler saw K3 {seen} times in {name}, expected {want}")
+    rates, med, busy = time_paths(torch, name, preds, x, profile=True)
+    return dict(launches=launches, profiler_grids=seen, launch_reading_max=max(readings),
+                serve_img_per_s=rates, forward_ms=med, device_busy_ms=busy, **agreement)
+
+
+def time_k3(torch, gen, device, name):
+    """K3 at each launch shape of one B=8 forward of ``name`` (graph_ms: each
+    launch takes less device time than its host cost): kernel, plain
+    version, bound, the bf16 module chain it replaces (``DWConv``'s module
+    path on the same [B, H, W, C] tokens) and cuDNN's depthwise conv
+    (``F.conv2d(groups=C)`` on the channels_last view: library_ms, used
+    nowhere in the port)."""
+    import torch.nn.functional as F
+
+    from unet_zoo_tpu_torch.nn.transformer import DWConv
+    from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
+
+    rows = []
+    for b, h, w, c, n in unext_launch_shapes(name):
+        x, kern, bias = k3_case(torch, gen, b, h, w, c, 3, device)
+        dw = DWConv(c, torch.bfloat16, use_kernels=False).to(device).eval()
+        with torch.no_grad():
+            dw.dwconv.weight.copy_(kern.permute(2, 0, 1)[:, None])
+            dw.dwconv.bias.copy_(bias)
+        weight, bias_l, xc = dw.dwconv.weight.to(torch.bfloat16), bias, x.permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            ms = graph_ms(torch, lambda: k3.depthwise_conv2d(x, kern, bias), 20)
+            plain_ms = graph_ms(torch, lambda: k3.depthwise_conv2d_reference(x, kern, bias), 5)
+            chain_ms = graph_ms(torch, lambda: dw(x), 20)
+            lib_ms = graph_ms(torch, lambda: F.conv2d(xc, weight, bias_l, padding=1, groups=c), 20)
+        f32, nbytes = k3_work(b, h, w, c)
+        bound_ms, bound_by = bound(0, nbytes, f32)
+        rows.append(dict(model=name, b=b, h=h, w=w, c=c, launches=n, f32_ops=f32, bytes=nbytes,
+                         ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"K3 {name} [{b}, {h}, {w}, {c}] x{n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, module "
+            f"chain {chain_ms:.4f} ms, cuDNN depthwise {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {nbytes / ms / 1e6:.1f} GB/s)")
+    return rows
+
+
+def wranet_launch_shapes(image=IMAGE, batch=SERVE_BATCH):
+    """K8's launch shapes in one forward of wranet (feature_channels 128):
+    rows of (B, H, W, C, O, launches): decoder_lv2 at image / 2, decoder_lv1
+    at image."""
+    return [(batch, image // 2, image // 2, WRANET_FC, WRANET_FC // 4, 1),
+            (batch, image, image, WRANET_FC, WRANET_FC // 4, 1)]
+
+
+def k8_work(b, h, w, c, o, k=9):
+    """K8 (stride 1, padding 1): (tensor-core FLOPs, f32 operations, least
+    bytes). The tap GEMMs are 2 K C O per pixel; the bilinear blend is 4
+    multiply-adds per channel per (pixel, tap), about 30 operations more for
+    the position and weights. Bytes: x, offset [2K] and mask [K] read once,
+    the output written once (bf16), the bf16 weight and f32 bias once."""
+    n = b * h * w
+    return (2 * n * k * c * o, n * k * (8 * c + 30),
+            2 * (n * c + n * 3 * k + n * o + k * c * o) + 4 * o)
+
+
+def k8_case(torch, gen, b, h, w, c, o, device, scale=3.0):
+    """bf16 K8 operands: offsets of std ``scale`` pixels (samples past every
+    edge of the frame), masks from a sigmoid, a weight of O(1) outputs."""
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    bf = torch.bfloat16
+    return (r(b, h, w, c).to(bf), (scale * r(b, h, w, 18)).to(bf),
+            torch.sigmoid(2.0 * r(b, h, w, 9)).to(bf), (r(3, 3, c, o) / (9 * c) ** 0.5).to(bf),
+            r(o).to(bf))
+
+
+def k8_fault_positions(torch, clamp=True, column_major=False, swap_xy=False):
+    """``ops/deform.py::sample_positions`` with one fault planted: positions
+    not clamped to the 1-pixel frame, taps in column-major order, or the
+    corner weights' x and y swapped."""
+    from unet_zoo_tpu_torch.ops.deform import Samples
+
+    def positions(h, w, offset, mask, kh, kw, stride=1, padding=1, dilation=1):
+        b, ho, wo, _ = offset.shape
+        k, dev = kh * kw, offset.device
+        off = offset.float().reshape(b, ho, wo, k, 2)
+        taps = torch.arange(k, device=dev)
+        ky, kx = (taps % kh, taps // kh) if column_major else (taps // kw, taps % kw)
+        by = (torch.arange(ho, device=dev) * stride - padding).float()
+        bx = (torch.arange(wo, device=dev) * stride - padding).float()
+        py = (by[:, None, None] + (ky * dilation).float()) + off[..., 0]
+        px = (bx[None, :, None] + (kx * dilation).float()) + off[..., 1]
+        if clamp:
+            py, px = py.clamp(-1.0, float(h)), px.clamp(-1.0, float(w))
+        py, px = py + 1.0, px + 1.0
+        y0, x0 = torch.floor(py).clamp(0, h), torch.floor(px).clamp(0, w)
+        wy1, wx1 = py - y0, px - x0
+        if swap_xy:
+            wy1, wx1 = wx1, wy1
+        m = mask.float()
+        cw = torch.stack([(1 - wy1) * (1 - wx1) * m, (1 - wy1) * wx1 * m,
+                          wy1 * (1 - wx1) * m, wy1 * wx1 * m], dim=-1)
+        idx = (y0.long() * (w + 2) + x0.long()).reshape(b, ho * wo, k)
+        return Samples(idx, cw.reshape(b, ho * wo, k, 4))
+
+    return positions
+
+
+def k8_faults(torch, x, off, m, wt, bias):
+    """K8's plain version with one fault planted each: the corner weights' x
+    and y swapped, no clamp to the frame, taps in column-major order (each
+    through ``k8_fault_positions`` in place of ``sample_positions`` for one
+    call) and the mask ignored."""
+    from unet_zoo_tpu_torch.ops.kernels import deform as k8
+
+    faults = {"mask ignored": k8.deform_conv2d_reference(x, off, torch.ones_like(m), wt, bias)}
+    real = k8.sample_positions
+    for name, kw in (("corner weights x and y swapped", dict(swap_xy=True)),
+                     ("no clamp to the frame", dict(clamp=False)),
+                     ("taps in column-major order", dict(column_major=True))):
+        k8.sample_positions = k8_fault_positions(torch, **kw)
+        try:
+            faults[name] = k8.deform_conv2d_reference(x, off, m, wt, bias)
+        finally:
+            k8.sample_positions = real
+    return faults
+
+
+def check_k8(torch, gen, device):
+    """K8 against its plain version (the same bf16 operands) at both wranet
+    launch shapes (B=8, 256px) and an odd shape (odd H and W, C 40, O 24),
+    offsets of std 3 pixels with samples past every edge and sigmoid masks,
+    each beside planted faults that the same comparison must reject.
+    Returns the max abs error."""
+    from unet_zoo_tpu_torch.ops.kernels import deform as k8
+
+    cases = [row[:5] for row in wranet_launch_shapes()] + [(2, 37, 45, 40, 24)]
+    err = 0.0
+    for b, h, w, c, o in cases:
+        args = k8_case(torch, gen, b, h, w, c, o, device)
+        got = k8.deform_conv2d(*args)
+        ref = k8.deform_conv2d_reference(*args)
+        caught = {name: ulp_reading(got, out) for name, out in k8_faults(torch, *args).items()}
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        reading = ulp_reading(got, ref)
+        e = (got.float() - ref.float()).abs().max().item()
+        off = args[1].float().reshape(b, h, w, 9, 2)
+        taps = torch.arange(9, device=device)
+        py = torch.arange(h, device=device)[:, None, None] + (taps // 3 - 1) + off[..., 0]
+        px = torch.arange(w, device=device)[None, :, None] + (taps % 3 - 1) + off[..., 1]
+        past = {edge: t.float().mean().item() for edge, t in (
+            ("top", py < -1), ("bottom", py > h), ("left", px < -1), ("right", px > w))}
+        if not min(past.values()) > 0:
+            raise AssertionError(f"K8's offsets do not reach past every edge: {past}")
+        log(f"K8 [{b}, {h}, {w}, {c}] -> {o}: max_abs_err {e:.3e}; beyond one bf16 ulp "
+            f"{reading:.3e} of the output rms (limit {K8_SHARE:.0e}); least planted fault "
+            f"{min(caught.values()):.3e} ({min(caught, key=caught.get)}); samples past the "
+            f"frame's edges: {', '.join(f'{k} {v:.4f}' for k, v in past.items())}")
+        if not reading <= K8_SHARE:
+            raise AssertionError(f"K8 disagrees with its plain version: {reading}")
+        if not min(caught.values()) > K8_SHARE:
+            raise AssertionError(f"the K8 comparison passed a planted fault: {caught}")
+        err = max(err, e)
+    return err
+
+
+def draw_deform_offsets(torch, module):
+    """The offset and modulator convs of every DeformableConv drawn off their
+    zero init (std WRANET_OFFSET_SCALE and WRANET_MASK_SCALE over
+    sqrt(fan_in), biases zero) from one seed: at init the deformable conv is
+    a plain conv times 0.5 and never exercises the gather. Every model built
+    from the same seed gets the same values (its own CPU generator)."""
+    from unet_zoo_tpu_torch.models.wranet import DeformableConv
+
+    g = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, DeformableConv):
+                for conv_m, scale in ((m.offset_conv, WRANET_OFFSET_SCALE),
+                                      (m.modulator_conv, WRANET_MASK_SCALE)):
+                    std = scale / conv_m.weight[0].numel() ** 0.5
+                    conv_m.weight.copy_(std * torch.randn(conv_m.weight.shape, generator=g))
+
+
+def deform_ranges(torch, x):
+    """The offsets' and masks' ranges in each DeformableConv of the bf16
+    wranet (seed 0, draw_deform_offsets) on ``x``, recomputed from each
+    block's input; fails if the offsets stay below a pixel or the masks near
+    0.5, where the deformable conv would not exercise the gather."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.models.wranet import DeformableConv
+    from unet_zoo_tpu_torch.nn import conv
+
+    model = create_model("wranet", dtype=torch.bfloat16, seed=0, feature_channels=WRANET_FC)
+    draw_deform_offsets(torch, model.module)
+    seen, hooks = [], []
+
+    def record(name):
+        def hook(mod, inputs, _):
+            h = inputs[0]
+            seen.append((name, "offset", conv(h, mod.offset_conv, mod.dtype).float()))
+            seen.append((name, "mask", torch.sigmoid(conv(h, mod.modulator_conv, mod.dtype)
+                                                      .float())))
+        return hook
+
+    for name, m in model.module.named_modules():
+        if isinstance(m, DeformableConv):
+            hooks.append(m.register_forward_hook(record(name)))
+    with torch.inference_mode():
+        model.module(x)
+    for h in hooks:
+        h.remove()
+    out = {}
+    for name, kind, t in seen:
+        q = torch.quantile(t.flatten()[::97], torch.tensor([0.01, 0.5, 0.99], device=t.device))
+        r = dict(min=t.min().item(), max=t.max().item(), std=t.std().item(), q01=q[0].item(),
+                 median=q[1].item(), q99=q[2].item())
+        out[f"{name} {kind}"] = r
+        log(f"wranet {name} {kind}: range [{r['min']:.3f}, {r['max']:.3f}], std {r['std']:.3f}, "
+            f"1%/50%/99% {r['q01']:.3f}/{r['median']:.3f}/{r['q99']:.3f}")
+        if kind == "offset" and not (r["std"] > 0.25 and max(-r["min"], r["max"]) > 1.0):
+            raise AssertionError(f"wranet {name}: offsets within a pixel, the gather idles: {r}")
+        if kind == "mask" and not (r["q01"] < 0.4 and r["q99"] > 0.6):
+            raise AssertionError(f"wranet {name}: masks do not spread over (0, 1): {r}")
+    if len(out) != 2 * WRANET_LAUNCHES:
+        raise AssertionError(f"wranet: offsets of {len(out) // 2} deformable convs seen")
+    return out
+
+
+def serve_wranet(torch, gen, device):
+    """wranet (feature_channels 128), bf16, B=8, 256px, on both paths with the
+    offset and modulator convs drawn alike off zero: K8 twice per forward by
+    the counter and by the profiler, every K8 launch of the served forward
+    against its plain version, agreement, rates and the device-time
+    breakdown."""
+    from unet_zoo_tpu_torch.ops.kernels import deform as k8
+
+    preds, x, launches, agreement, _ = serve_both_paths(
+        torch, gen, device, "wranet", SERVE_BATCH, IMAGE, [(k8, "deform_conv2d")], WRANET_REL_L2,
+        WRANET_AGREE, WRANET_F32_RATIO, prepare=lambda m: draw_deform_offsets(torch, m),
+        feature_channels=WRANET_FC)
+    launches = launches["deform_conv2d"]
+    if launches != WRANET_LAUNCHES:
+        raise AssertionError(f"K8 ran {launches} times in wranet, expected {WRANET_LAUNCHES}")
+    ranges = deform_ranges(torch, x)
+    _, readings = checked_launches(torch, k8, "deform_conv2d", k8.deform_conv2d_reference,
+                                   lambda: preds["kernel"](x))
+    log(f"wranet: its {len(readings)} K8 launches against the plain version on the model's "
+        f"own operands: {', '.join(f'{r:.3e}' for r in readings)} (<= {K8_SHARE:.0e})")
+    if len(readings) != WRANET_LAUNCHES or not max(readings) <= K8_SHARE:
+        raise AssertionError("wranet: K8 disagrees with its plain version in the served model")
+    events = profile_forward(torch, lambda: preds["kernel"](x))
+    seen = sum("deform_kernel" in e.name for e in events)
+    log(f"profiler: {seen} deform_kernel grids in one wranet forward")
+    if seen != WRANET_LAUNCHES:
+        raise AssertionError(f"profiler saw K8 {seen} times in wranet, expected "
+                             f"{WRANET_LAUNCHES}")
+    rates, med, busy = time_paths(torch, "wranet", preds, x, profile=True)
+    return dict(launches=launches, profiler_grids=seen, launch_readings=readings,
+                deform_ranges=ranges, serve_img_per_s=rates, forward_ms=med,
+                device_busy_ms=busy, **agreement)
+
+
+def time_k8(torch, gen, device):
+    """K8 at each launch shape of one B=8 wranet forward (graph_ms): kernel,
+    plain version, bound and the bf16 module chain it replaces
+    (``ops/deform.py::deform_conv2d`` on the same operands; the model holds
+    channels_last tensors, so neither path transposes). No PyTorch call
+    computes a deformable conv (library_ms null)."""
+    from unet_zoo_tpu_torch.ops import deform as module_deform
+    from unet_zoo_tpu_torch.ops.kernels import deform as k8
+
+    rows = []
+    for b, h, w, c, o, n in wranet_launch_shapes():
+        args = k8_case(torch, gen, b, h, w, c, o, device)
+        with torch.inference_mode():
+            ms = graph_ms(torch, lambda: k8.deform_conv2d(*args), 20)
+            plain_ms = graph_ms(torch, lambda: k8.deform_conv2d_reference(*args), 3)
+            chain_ms = graph_ms(torch, lambda: module_deform.deform_conv2d(*args), 3)
+        tc, f32, nbytes = k8_work(b, h, w, c, o)
+        bound_ms, bound_by = bound(tc, nbytes, f32)
+        rows.append(dict(b=b, h=h, w=w, c=c, o=o, launches=n, tc_flops=tc, f32_ops=f32,
+                         bytes=nbytes, ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"K8 [{b}, {h}, {w}, {c}] -> {o} x{n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"module chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{tc / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s)")
+    return rows
+
+
 def per_forward(rows, key):
     """A per-launch quantity summed over one forward's launches."""
     return sum(r[key] * r["launches"] for r in rows)
@@ -1931,6 +2434,19 @@ def main() -> int:
             for image, window in SWIN_CONFIGS}
     k2_rows = {f"{image}px": time_k2(torch, gen, device, image, window)
                for image, window in SWIN_CONFIGS}
+    torch.cuda.empty_cache()
+
+    # 13-14. unext and unext_s: K3 checks, both served at full width, K3 per
+    # launch shape
+    k3_err = check_k3(torch, gen, device)
+    unext = {name: serve_unext(torch, gen, device, name) for name in UNEXT_CONFIGS}
+    k3_rows = {name: time_k3(torch, gen, device, name) for name in UNEXT_CONFIGS}
+    torch.cuda.empty_cache()
+
+    # 15-16. wranet: K8 checks, served at full width, K8 per launch shape
+    k8_err = check_k8(torch, gen, device)
+    wranet = serve_wranet(torch, gen, device)
+    k8_rows = time_k8(torch, gen, device)
 
     total = lambda key: sum(s[key] for s in stages)
     bound_ms, bound_by = bound(total("flops"), total("bytes"))
@@ -1952,6 +2468,21 @@ def main() -> int:
                                   module_chain_ms=per_forward(rows, "module_chain_ms"),
                                   bound_ms=b[0], bound_by=b[1])
         log(f"K2 per {key} forward: {k2_per_config[key]}")
+    k3_per_config = {}
+    for name, rows in k3_rows.items():
+        b = bound(0, per_forward(rows, "bytes"), per_forward(rows, "f32_ops"))
+        k3_per_config[name] = dict(launches=unext[name]["launches"], ms=per_forward(rows, "ms"),
+                                   plain_ms=per_forward(rows, "plain_ms"),
+                                   module_chain_ms=per_forward(rows, "module_chain_ms"),
+                                   library_ms=per_forward(rows, "library_ms"),
+                                   bound_ms=b[0], bound_by=b[1])
+        log(f"K3 per {name} forward: {k3_per_config[name]}")
+    k8_bound = bound(per_forward(k8_rows, "tc_flops"), per_forward(k8_rows, "bytes"),
+                     per_forward(k8_rows, "f32_ops"))
+    log(f"K8 per wranet forward: {per_forward(k8_rows, 'ms'):.4f} ms, plain "
+        f"{per_forward(k8_rows, 'plain_ms'):.4f} ms, module chain "
+        f"{per_forward(k8_rows, 'module_chain_ms'):.4f} ms, bound {k8_bound[0]:.4f} ms "
+        f"({k8_bound[1]})")
     log(f"profiler: {PROFILE_RETAKES[0]} traces retaken after a trace that lost records")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the kernels line")
     log(json.dumps({"kernels": [{
@@ -2052,6 +2583,37 @@ def main() -> int:
         "per_config": k2_per_config,
         "swin_unet_v2": swin,
         "shapes": k2_rows,
+    }, {
+        "name": "depthwise_conv2d",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/depthwise.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/depthwise.py:66",
+        "launches": unext["unext"]["launches"],
+        "max_abs_err": k3_err,
+        "ms": k3_per_config["unext"]["ms"],
+        "plain_ms": k3_per_config["unext"]["plain_ms"],
+        "bound_ms": k3_per_config["unext"]["bound_ms"],
+        "bound_by": k3_per_config["unext"]["bound_by"],
+        "library_ms": k3_per_config["unext"]["library_ms"],
+        "module_chain_ms": k3_per_config["unext"]["module_chain_ms"],
+        "per_config": k3_per_config,
+        "unext": unext,
+        "shapes": k3_rows,
+    }, {
+        "name": "deform_conv2d",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/deform.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/deform.py:100",
+        "launches": wranet["launches"],
+        "max_abs_err": k8_err,
+        "ms": per_forward(k8_rows, "ms"),
+        "plain_ms": per_forward(k8_rows, "plain_ms"),
+        "bound_ms": k8_bound[0],
+        "bound_by": k8_bound[1],
+        "library_ms": None,
+        "module_chain_ms": per_forward(k8_rows, "module_chain_ms"),
+        "wranet": wranet,
+        "shapes": k8_rows,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

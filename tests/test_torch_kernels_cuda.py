@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K4, K5, K6, K7) against their plain PyTorch
+"""The port's CUDA kernels (K1-K8) against their plain PyTorch
 versions, and each model's kernel path against its plain path, on the card.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``: a CUDA kernel has no CPU
@@ -15,9 +15,12 @@ from unet_zoo_tpu_torch import create_model
 from unet_zoo_tpu_torch.models.medt_net import AxialAttention
 from unet_zoo_tpu_torch.models.mmunet import MKBlock
 from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinBlockV2, WindowAttentionV2
+from unet_zoo_tpu_torch.models.wranet import DeformableConv
 from unet_zoo_tpu_torch.nn import init_weights
 from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
 from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+from unet_zoo_tpu_torch.ops.kernels import deform as k8
+from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
 from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
 from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
 from unet_zoo_tpu_torch.ops.kernels import morph as k5
@@ -587,3 +590,154 @@ def test_swin_unet_v2_kernel_path_matches_plain_path(cuda_device, image, window)
     ref = preds[1](x).float()
     assert got.shape == (2, 1, image, image) and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= 3e-2
+
+
+# K3 and K8 against their plain versions on the same bf16 operands, both
+# rounded to bf16 once: the error beyond one bf16 ulp (2^-7 |ref|) as a share
+# of the output's rms (chip_smoke.py's ulp_reading, the same limit).
+K3_SHARE = K8_SHARE = 1e-3
+
+
+def _ulp_reading(got, ref):
+    excess = (got.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs()
+    return (excess.max() / ref.float().pow(2).mean().sqrt()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,k,dtype", [
+    (8, 64, 64, 512, 3, torch.bfloat16),      # unext stage 1 at 256px (B=8)
+    (8, 16, 16, 1024, 3, torch.bfloat16),     # unext stage 3
+    (2, 13, 21, 20, 5, torch.bfloat16),       # odd H, W; C not a multiple of 8; k 5
+    (1, 15, 15, 6, 7, torch.bfloat16),        # k 7
+    (1, 9, 7, 37, 3, torch.float32),          # odd C, float32
+])
+def test_depthwise_kernel_matches_reference(cuda_device, b, h, w, c, k, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(b + h + c + k)
+    r = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(dtype)
+    x, kern, bias = r(b, h, w, c), r(k, k, c) / k, r(c)
+    ref = k3.depthwise_conv2d_reference(x, kern, bias)
+    before = k3.LAUNCHES["depthwise_conv2d"]
+    got = k3.depthwise_conv2d(x, kern, bias)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES["depthwise_conv2d"] - before == 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _ulp_reading(got, ref) <= K3_SHARE
+    assert _ulp_reading(k3.depthwise_conv2d(x, kern), k3.depthwise_conv2d_reference(x, kern)
+                        ) <= K3_SHARE
+    for fault in (k3.depthwise_conv2d_reference(x, kern.transpose(0, 1).contiguous(), bias),
+                  k3.depthwise_conv2d_reference(x, kern)):
+        assert _ulp_reading(got, fault) > K3_SHARE
+
+
+@pytest.mark.cuda
+def test_depthwise_outside_kernel_shapes_raises(cuda_device):
+    x = torch.zeros(1, 8, 8, 16, device=cuda_device, dtype=torch.bfloat16)
+    kern = torch.zeros(3, 3, 16, device=cuda_device, dtype=torch.bfloat16)
+    before = k3.LAUNCHES["depthwise_conv2d"]
+    for args in ((x.half(), kern.half(), None),                               # float16
+                 (x, torch.zeros(9, 9, 16, device=cuda_device, dtype=torch.bfloat16), None),
+                 (x, kern.float(), None),                                     # mixed types
+                 (x.transpose(1, 2), kern, None)):                            # not contiguous
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            k3.depthwise_conv2d(*args)
+    assert k3.LAUNCHES["depthwise_conv2d"] == before
+
+
+# unext / wranet, kernel path vs plain path (bf16 logits, relative L2), the
+# limits chip_smoke.py holds the full-width forwards to
+UNEXT_REL_L2, WRANET_REL_L2 = 1e-2, 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,launches", [("unext_s", 6), ("unext", 13)])
+def test_unext_kernel_path_matches_plain_path(cuda_device, name, launches):
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    preds = [make_predictor(create_model(name, dtype=torch.bfloat16, use_kernels=k), None,
+                            "logits") for k in (None, False)]
+    before = k3.LAUNCHES["depthwise_conv2d"]
+    got = preds[0](x).float()
+    assert k3.LAUNCHES["depthwise_conv2d"] - before == launches
+    ref = preds[1](x).float()
+    assert got.shape == (2, 1, 64, 64) and torch.isfinite(got).all()
+    assert ((got - ref).norm() / ref.norm()).item() <= UNEXT_REL_L2
+
+
+def _deform_case(device, b, h, w, c, o, scale=3.0, seed=0):
+    """bf16 operands: offsets of std ``scale`` pixels (samples past every
+    edge), sigmoid masks."""
+    gen = torch.Generator(device=device).manual_seed(seed + b + h + c + o)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device)
+    bf = torch.bfloat16
+    return (r(b, h, w, c).to(bf), (scale * r(b, h, w, 18)).to(bf),
+            torch.sigmoid(2 * r(b, h, w, 9)).to(bf), (r(3, 3, c, o) / (9 * c) ** 0.5).to(bf),
+            r(o).to(bf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,o", [
+    (8, 128, 128, 128, 32),     # wranet's decoder_lv2 at 256px (B=8)
+    (2, 17, 13, 40, 24),        # odd H, W; C 40, O 24
+    (1, 9, 11, 20, 5),          # C not a multiple of 8, odd O
+    (1, 6, 7, 128, 100),        # O 100: the 128-column accumulator
+])
+def test_deform_kernel_matches_reference(cuda_device, b, h, w, c, o):
+    x, off, m, wt, bias = _deform_case(cuda_device, b, h, w, c, o)
+    ref = k8.deform_conv2d_reference(x, off, m, wt, bias)
+    before = k8.LAUNCHES["deform_conv2d"]
+    got = k8.deform_conv2d(x, off, m, wt, bias)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["deform_conv2d"] - before == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, o)
+    assert _ulp_reading(got, ref) <= K8_SHARE
+    for fault in (k8.deform_conv2d_reference(x, off, torch.ones_like(m), wt, bias),
+                  k8.deform_conv2d_reference(x, off, m, wt)):
+        assert _ulp_reading(got, fault) > K8_SHARE
+
+
+@pytest.mark.cuda
+def test_deform_outside_kernel_shapes_raises(cuda_device):
+    """The wrapper raises for what K8 does not take (naming use_kernels=False)
+    and launches nothing; a float32 DeformableConv with use_kernels=True
+    raises, and use_kernels=False serves it."""
+    x, off, m, wt, bias = _deform_case(cuda_device, 1, 8, 8, 16, 8)
+    before = k8.LAUNCHES["deform_conv2d"]
+    for args in ((x.float(), off, m, wt, bias),                      # float32 x
+                 (x, off, m, torch.zeros(3, 3, 16, 200, device=cuda_device,
+                                         dtype=torch.bfloat16), None),   # O above 128
+                 (x, off[..., :16], m, wt, bias)):                   # offset's taps
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            k8.deform_conv2d(*args)
+    dc = DeformableConv(16, 8, use_bias=True, use_kernels=True).to(cuda_device).eval()
+    xc = torch.randn(1, 16, 8, 8, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad(), pytest.raises(ValueError, match="use_kernels=False"):
+        dc(xc)
+    assert k8.LAUNCHES["deform_conv2d"] == before
+    dc.use_kernels = False
+    with torch.no_grad():
+        assert torch.isfinite(dc(xc)).all()
+
+
+@pytest.mark.cuda
+def test_wranet_kernel_path_matches_plain_path(cuda_device):
+    """bf16 wranet (registry width, B=2, 64px) with its offset and modulator
+    convs drawn off zero on both paths: K8 twice per forward; logits within
+    chip_smoke.py's limit of the plain path."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    preds = []
+    for k in (None, False):
+        model = create_model("wranet", dtype=torch.bfloat16, use_kernels=k)
+        g = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            for mod in model.module.modules():
+                if isinstance(mod, DeformableConv):
+                    for conv_m, std in ((mod.offset_conv, 3.0), (mod.modulator_conv, 1.5)):
+                        fan_in = conv_m.weight[0].numel()
+                        conv_m.weight.copy_(std / fan_in ** 0.5 * torch.randn(
+                            conv_m.weight.shape, generator=g))
+        preds.append(make_predictor(model, None, "logits"))
+    before = k8.LAUNCHES["deform_conv2d"]
+    got = preds[0](x).float()
+    assert k8.LAUNCHES["deform_conv2d"] - before == 2
+    ref = preds[1](x).float()
+    assert got.shape == (2, 1, 64, 64) and torch.isfinite(got).all()
+    assert ((got - ref).norm() / ref.norm()).item() <= WRANET_REL_L2

@@ -131,7 +131,7 @@ def test_registry_surface():
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
     assert list_models() == ["axialunet", "gated", "logo", "medt", "medt_logo", "mmunet",
-                             "swin_unet_v2", "unet"]
+                             "swin_unet_v2", "unet", "unext", "unext_s", "wranet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)

@@ -17,6 +17,8 @@ from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
 from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinUNetV2
 from unet_zoo_tpu_torch.models.unet import UNet
+from unet_zoo_tpu_torch.models.unext import UNext
+from unet_zoo_tpu_torch.models.wranet import WRANet
 from unet_zoo_tpu_torch.nn import init_weights
 
 
@@ -238,6 +240,47 @@ def _build_swin_unet_v2(in_channels, num_classes, image_size, depth, dtype, **kw
         drop_path_rate=kw.pop("drop_path_rate", 0.1), ape=kw.pop("ape", False),
         patch_norm=kw.pop("patch_norm", True), use_mlp=kw.pop("use_mlp", False),
         dtype=dtype, **kw)
+
+
+def _build_unext_family(small, in_channels, num_classes, dtype, kw):
+    # the JAX registry's defaults: unext_s pins its widths and depths and
+    # drops the user's; unext keeps the user's (three stages are used)
+    if small:
+        defaults = dict(embed_dims=(64, 128, 160), num_heads=(1, 2, 4), mlp_ratios=(4, 4, 4),
+                        depths=(2, 2, 2), sr_ratios=(8, 4, 2))
+        for k in defaults:
+            kw.pop(k, None)
+    else:
+        defaults = dict(
+            embed_dims=kw.pop("embed_dims", None) or (128, 160, 256),
+            num_heads=kw.pop("num_heads", None) or (1, 2, 4, 8),
+            mlp_ratios=kw.pop("mlp_ratios", None) or (4, 4, 4, 4),
+            depths=kw.pop("depths", None) or (3, 4, 6, 3),
+            sr_ratios=kw.pop("sr_ratios", None) or (8, 4, 2, 1),
+        )
+    kw.pop("norm_layer", None)  # accepted and dropped: LayerNorm is fixed
+    return UNext(
+        in_channels=in_channels, num_classes=num_classes,
+        qkv_bias=kw.pop("qkv_bias", False), qk_scale=kw.pop("qk_scale", None),
+        drop_rate=kw.pop("drop_rate", 0.0), attn_drop_rate=kw.pop("attn_drop_rate", 0.0),
+        drop_path_rate=kw.pop("drop_path_rate", 0.0), dtype=dtype,
+        **{k: tuple(v) for k, v in defaults.items()}, **kw)
+
+
+@register_model("unext")
+def _build_unext(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return _build_unext_family(False, in_channels, num_classes, dtype, kw)
+
+
+@register_model("unext_s")
+def _build_unext_s(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return _build_unext_family(True, in_channels, num_classes, dtype, kw)
+
+
+@register_model("wranet")
+def _build_wranet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return WRANet(in_channels=in_channels, num_classes=num_classes,
+                  feature_channels=kw.pop("feature_channels", 128), dtype=dtype, **kw)
 
 
 __all__ = [

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_zoo_tpu_torch.nn import conv
-from unet_zoo_tpu_torch.nn.transformer import DropPath, dropout
+from unet_zoo_tpu_torch.nn.transformer import DropPath, dropout, layer_norm, linear
 from unet_zoo_tpu_torch.ops.kernels import use_kernel
 from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
 
@@ -89,14 +89,6 @@ def window_reverse(windows: torch.Tensor, window: int, h: int, w: int) -> torch.
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
 
 
-def _linear(x: torch.Tensor, m: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x, m.weight.to(dtype), None if m.bias is None else m.bias.to(dtype))
-
-
-def _layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
-    return F.layer_norm(x, m.normalized_shape, m.weight.to(x.dtype), m.bias.to(x.dtype), m.eps)
-
-
 class _CPB(nn.Module):
     """The continuous position bias MLP's two layers (``cpb.fc1``, ``cpb.fc2``)."""
 
@@ -132,8 +124,8 @@ class WindowAttentionV2(nn.Module):
 
     def cpb_bias(self, dtype: torch.dtype) -> torch.Tensor:
         """The CPB MLP on the window's coordinates in ``dtype``: [nh, N, N]."""
-        h = torch.relu(_linear(self.coords.to(dtype), self.cpb.fc1, dtype))
-        return _linear(h, self.cpb.fc2, dtype).permute(2, 0, 1)
+        h = torch.relu(linear(self.coords.to(dtype), self.cpb.fc1, dtype))
+        return linear(h, self.cpb.fc2, dtype).permute(2, 0, 1)
 
     @torch.no_grad()
     def kernel_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -148,7 +140,7 @@ class WindowAttentionV2(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b_, n, c = x.shape
-        qkv = _linear(x, self.qkv, self.dtype).reshape(b_, n, 3, self.num_heads, -1)
+        qkv = linear(x, self.qkv, self.dtype).reshape(b_, n, 3, self.num_heads, -1)
         q, k, v = qkv.unbind(2)                                   # [B_, N, nh, hd]
         if self.kernel_path(x):
             tau, bias = self._frozen if self._frozen is not None else self.kernel_tables()
@@ -157,7 +149,7 @@ class WindowAttentionV2(nn.Module):
             out = out.transpose(1, 2).reshape(b_, n, c)
         else:
             out = self.attend(q, k, v, mask, generator)
-        out = _linear(out, self.proj, self.dtype)
+        out = linear(out, self.proj, self.dtype)
         return dropout(out, self.proj_drop, self.training, generator)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,13 +223,13 @@ class SwinBlockV2(nn.Module):
         xs = window_reverse(attn_out, window, h, w)
         if shift > 0:
             xs = torch.roll(xs, (shift, shift), dims=(1, 2))
-        x = x + self.drop_path(_layer_norm(xs.reshape(b, l, c), self.norm1), generator)
+        x = x + self.drop_path(layer_norm(xs.reshape(b, l, c), self.norm1), generator)
         if self.use_mlp:
             dt, training = self.dtype, self.training
-            m = F.gelu(_linear(x, self.mlp.fc1, dt))
+            m = F.gelu(linear(x, self.mlp.fc1, dt))
             m = dropout(m, self.drop, training, generator)
-            m = dropout(_linear(m, self.mlp.fc2, dt), self.drop, training, generator)
-            x = x + self.drop_path(_layer_norm(m, self.norm2), generator)
+            m = dropout(linear(m, self.mlp.fc2, dt), self.drop, training, generator)
+            x = x + self.drop_path(layer_norm(m, self.norm2), generator)
         return x
 
 
@@ -258,7 +250,7 @@ class PatchMerging(nn.Module):
         xs = x.reshape(b, h, w, c)
         xs = torch.cat([xs[:, 0::2, 0::2], xs[:, 1::2, 0::2], xs[:, 0::2, 1::2],
                         xs[:, 1::2, 1::2]], dim=-1).reshape(b, -1, 4 * c)
-        return _linear(_layer_norm(xs, self.norm), self.reduction, self.dtype)
+        return linear(layer_norm(xs, self.norm), self.reduction, self.dtype)
 
 
 def _depth_to_space(x: torch.Tensor, h: int, w: int, p: int) -> torch.Tensor:
@@ -281,8 +273,8 @@ class PatchExpand(nn.Module):
         self.norm = nn.LayerNorm(dim // 2, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _depth_to_space(_linear(x, self.expand, self.dtype), *self.input_resolution, 2)
-        return _layer_norm(x, self.norm)
+        x = _depth_to_space(linear(x, self.expand, self.dtype), *self.input_resolution, 2)
+        return layer_norm(x, self.norm)
 
 
 class FinalPatchExpandX4(nn.Module):
@@ -301,10 +293,10 @@ class FinalPatchExpandX4(nn.Module):
 
     def forward(self, x: torch.Tensor, defer_rearrange: bool = False) -> torch.Tensor:
         b, l, c = x.shape
-        x = _linear(x, self.expand, self.dtype)
+        x = linear(x, self.expand, self.dtype)
         if defer_rearrange:
-            return _layer_norm(x.reshape(b, l, 16, c), self.norm)
-        return _layer_norm(_depth_to_space(x, *self.input_resolution, 4), self.norm)
+            return layer_norm(x.reshape(b, l, 16, c), self.norm)
+        return layer_norm(_depth_to_space(x, *self.input_resolution, 4), self.norm)
 
 
 class BasicLayer(nn.Module):
@@ -410,7 +402,7 @@ class SwinUNetV2(nn.Module):
         b = h.shape[0]
         h = h.permute(0, 2, 3, 1).reshape(b, pr * pr, e)
         if hasattr(self.patch_embed, "norm"):
-            h = _layer_norm(h, self.patch_embed.norm)
+            h = layer_norm(h, self.patch_embed.norm)
         if hasattr(self, "absolute_pos_embed"):
             h = h + self.absolute_pos_embed.to(dt)
         h = dropout(h, self.drop_rate, self.training, generator)
@@ -421,16 +413,16 @@ class SwinUNetV2(nn.Module):
             h = layer.run_blocks(h, generator)
             if hasattr(layer, "downsample"):
                 h = layer.downsample(h)
-        h = _layer_norm(h, self.norm)
+        h = layer_norm(h, self.norm)
         for ui, layer in enumerate(self.layers_up):
             if ui == 0:
                 h = layer(h)
                 continue
             h = torch.cat([h, skips[len(skips) - 1 - ui]], dim=-1)
-            h = layer.run_blocks(_linear(h, self.concat_back_dim[ui], dt), generator)
+            h = layer.run_blocks(linear(h, self.concat_back_dim[ui], dt), generator)
             if hasattr(layer, "upsample"):
                 h = layer.upsample(h)
-        h = _layer_norm(h, self.norm_up)
+        h = layer_norm(h, self.norm_up)
 
         # The 1x1 head acts per final pixel: in eval it runs before the 4x4
         # depth-to-space (the JAX package's head-commute), so only the

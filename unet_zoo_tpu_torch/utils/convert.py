@@ -15,6 +15,10 @@ loads with ``strict=True``. It is the inverse of the JAX package's
 * a grouped conv keeps the conv rule: [3, 3, 2, C] -> [C, 2, 3, 3];
 * MedT's qkv Dense -> ``qkv_transform.conv`` (``Conv1d`` k=1):
   ``kernel.T[:, :, None]``; ``relative`` and the scalar gates as they are;
+* UNext: ``DWConv_0.dwconv`` -> ``mlp.dwconv.dwconv`` (the grouped conv rule),
+  ``attn.sr_norm`` -> ``attn.norm``;
+* WRANet: ``alpha`` [1, 1, 1, C] -> [1, C, 1, 1]; the deformable weight
+  [k, k, C, O] (HWIO) -> ``rdb.convs.0.conv.weight`` [O, C, k, k];
 * LayerNorm: scale/bias -> weight/bias; SwinV2's ``tau`` and
   ``absolute_pos_embed`` as they are; its ``cpb_fc1``/``cpb_fc2`` ->
   ``cpb.fc1``/``cpb.fc2`` and ``mlp_fc1``/``mlp_fc2`` -> ``mlp.fc1``/``mlp.fc2``.
@@ -242,10 +246,75 @@ def _swin_unet_v2(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _unext(variables) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for s in (1, 2, 3):
+        _conv(sd, f"patch_embed{s}.proj", p[f"patch_embed{s}"]["proj"])
+        _ln(sd, f"patch_embed{s}.norm", p[f"patch_embed{s}"]["norm"])
+        i = 0
+        while f"block{s}_{i}" in p:
+            blk, t = p[f"block{s}_{i}"], f"block{s}.{i}"
+            _ln(sd, f"{t}.norm1", blk["norm1"])
+            _ln(sd, f"{t}.norm2", blk["norm2"])
+            for name in ("q", "kv", "proj"):
+                _dense(sd, f"{t}.attn.{name}", blk["attn"][name])
+            if "sr" in blk["attn"]:
+                _conv(sd, f"{t}.attn.sr", blk["attn"]["sr"])
+                _ln(sd, f"{t}.attn.norm", blk["attn"]["sr_norm"])
+            _dense(sd, f"{t}.mlp.fc1", blk["mlp"]["fc1"])
+            _conv(sd, f"{t}.mlp.dwconv.dwconv", blk["mlp"]["DWConv_0"]["dwconv"])
+            _dense(sd, f"{t}.mlp.fc2", blk["mlp"]["fc2"])
+            i += 1
+        _ln(sd, f"norm{s}", p[f"norm{s}"])
+    for d in (1, 2, 3):
+        _conv(sd, f"decoder_level{d}", p[f"decoder_level{d}"])
+    _conv(sd, "final_conv", p["final_conv"])
+    return sd
+
+
+def _wranet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "convblock_1.0", p["stem1"])
+    _conv(sd, "convblock_1.1", p["stem2"])
+    for e in (1, 2, 3):
+        wp, t = p[f"enc{e}_wrarb"], f"encoder_block_{e}.lite_wragb"
+        for si, nb in enumerate((1, 2, 3, 4)):
+            for bi in range(nb):
+                _conv(sd, f"{t}.streams.{si}.{bi}.dw_conv", wp[f"stream{si}_b{bi}"]["dw"])
+                _conv(sd, f"{t}.streams.{si}.{bi}.conv_1x1", wp[f"stream{si}_b{bi}"]["pw"])
+        _conv(sd, f"{t}.project.0", wp["project"]["Conv_0"])
+        _conv(sd, f"{t}.ag.0", wp["ag0"])
+        _conv(sd, f"{t}.ag.2", wp["ag1"])
+        sd[f"{t}.alpha"] = _t(np.transpose(np.asarray(wp["alpha"]), (0, 3, 1, 2)))
+        _conv(sd, f"encoder_block_{e}.conv_3x3.0", p[f"enc{e}_conv"]["Conv_0"])
+    _conv(sd, "down1", p["down1"])
+    _conv(sd, "down2", p["down2"])
+    for lv in (2, 1):
+        t = f"decoder_lv{lv}"
+        dp, ds = p[t], s[t]
+        _conv(sd, f"{t}.pixelshuffle_block.0", dp["ps_conv"])
+        _conv(sd, f"{t}.conv_3x3_last.0", dp["conv_3x3_last"]["Conv_0"])
+        _bn(sd, f"{t}.conv_3x3_last.1", dp["conv_3x3_last"]["BatchNorm_0"],
+            ds["conv_3x3_last"]["BatchNorm_0"])
+        deform = dp["rdb"]["deform"]
+        _conv(sd, f"{t}.rdb.convs.0.offset_conv", deform["offset_conv"])
+        _conv(sd, f"{t}.rdb.convs.0.modulator_conv", deform["modulator_conv"])
+        _conv(sd, f"{t}.rdb.convs.0.conv", {"kernel": deform["weight"],
+                                            **({"bias": deform["bias"]} if "bias" in deform
+                                               else {})})
+        _conv(sd, f"{t}.rdb.last_conv", dp["rdb"]["last_conv"])
+    for i in (1, 2, 3):
+        _conv(sd, f"last_conv.{i - 1}", p[f"last{i}"])
+    return sd
+
+
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "axialunet": _medt_family, "gated": _medt_family, "logo": _medt_family,
     "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet,
-    "swin_unet_v2": _swin_unet_v2, "unet": _unet}
+    "swin_unet_v2": _swin_unet_v2, "unet": _unet, "unext": _unext, "unext_s": _unext,
+    "wranet": _wranet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
