@@ -51,10 +51,12 @@
    step, by the launch counters and by the profiler; gradients and running
    statistics of the two paths compared; the loss must fall over 10 steps
    on both; train img/s, peak memory, device busy time; every K7 launch of
-   a step held against the plain version on the model's own operands and
-   incoming gradients; every axis pass of a step run again on its own
-   operands, the train kernel chain and the bf16 module chain each held
-   against the float32 module chain (outputs, gradients, running
+   one step from the seeded weights (a fresh copy of the model, so the
+   recorded state is the same in every run) held against the plain version
+   on the model's own operands and incoming gradients; every axis pass of
+   that step run again on its own operands and a seeded incoming gradient,
+   the train kernel chain and the bf16 module chain each held against the
+   float32 module chain (outputs, gradients, running
    statistics), with planted faults that must fail. Where the whole
    model's bf16 gradient stands: float32 on bf16-rounded weights and both
    bf16 paths against float32, at registry depth and at layers (1, 1, 1,
@@ -98,7 +100,26 @@
    launch held against its plain version on the model's operands; times both
    paths and K8 at both launch shapes against its bound, its plain version
    and the bf16 module chain it replaces.
-17. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+17. Holds P2's int8 conv (``int8_conv3x3``, the implicit-GEMM int8 conv of
+   int8 serving) against its plain version, bit for bit, at every launch shape
+   of the served ``unet_tpu`` and ``unet`` and at odd shapes (Ci 3 and 20,
+   odd H and W, stride 2 on an odd size); each comparison is shown to reject
+   planted faults (the taps transposed, the stride ignored, a per-tensor
+   weight scale, the bias dropped).
+18. Calibrates and serves ``unet_tpu`` (registry widths, bf16, bf16-rounded
+   weights) and ``unet`` (float32, the README's int8 recipe) at B=8, 256px
+   three ways: float, int8 on the kernel path, int8 on the plain path. The
+   int8 conv must run 17 and 18 times per forward and K1 never, by counter
+   and by profiler; every int8 launch of the served forward is held against
+   its plain version; the paths' logits and masks, and int8 against float
+   (JAX's bars); img/s, device-time breakdowns, and the int8 conv at every
+   launch shape against its bound, its plain version and cuDNN's bf16 conv.
+19. P2's GEMM at 4096^3 on its probe's path: s8 bit for bit against
+   ``torch._int_mm``, bf16 against float32; rates against the bounds and the
+   library calls, and the int8/bf16 ratio.
+20. P1's row gather at its probe's shape, bit for bit against
+   ``index_select``, timed by CUDA graph replay against its bytes bound.
+21. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -114,6 +135,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
+PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 SERVE_BATCH = 8
@@ -181,10 +203,10 @@ K7_OUTPUTS = ("sv", "sve", "mu", "var", "d_q", "d_k", "d_qg", "d_kg", "d_v", "d_
 # K7's four grids, each launched once per positional axis pass of a train step
 K7_GRIDS = ("axial_train_stats", "axial_train_fwd", "axial_train_b1", "axial_train_b2")
 TRAIN_STEPS = 10
-# An axis pass of the trained model run again on its own bf16 operands and
-# incoming gradient (check_train_blocks): the parameters whose gradients are
-# read. bn_similarity.bias has an exactly zero gradient (softmax shift
-# invariance). The gates' gradients are zero but for BatchNorm's eps, and so
+# An axis pass of a step from the seeded weights run again on its own bf16
+# operands and incoming gradient (check_train_blocks): the parameters whose
+# gradients are read. bn_similarity.bias has an exactly zero gradient (softmax
+# shift invariance). The gates' gradients are zero but for BatchNorm's eps, and so
 # are bn_qkv.weight's on the v channels, and at gp 2 on all of them: each
 # scales channels whose scale a train-mode BatchNorm normalises away. Their
 # bf16 and float32 readings are both noise, so they are left out.
@@ -250,6 +272,21 @@ WRANET_F32_RATIO = 1.25
 # few pixels and masks spread over (0, 1) (draw_deform_offsets)
 WRANET_OFFSET_SCALE = 2.0
 WRANET_MASK_SCALE = 1.5
+# int8 serving: unet_tpu at the registry widths (17 gated convs) in
+# bf16 with bf16-rounded weights, as bench.py times it; unet (18 gated convs)
+# in float32 with float32 weights, the README's recipe, where K1 stays off
+# (float32 activations), so the kernel and the plain path quantise the same
+# convs.
+UNET_TPU_WIDTHS = (128, 256, 512, 512)
+INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18}
+# int8 kernel path against the int8 plain path (the same integer sums and
+# epilogue: expected bit for bit), and int8 against the float predictor of
+# the same type: JAX's own bars (tests/test_quant.py:57-60)
+INT8_PATHS_REL_L2, INT8_PATHS_AGREE = 1e-3, 0.99
+INT8_FLOAT_REL_L2, INT8_FLOAT_AGREE = 0.10, 0.95
+# P2's GEMM at the probe's default shape, P1's gather at its probe's shape
+GEMM_SIZE = 4096
+GATHER_ROWS, GATHER_C, GATHER_N = 4096, 128, 4096
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -320,11 +357,12 @@ def work(b, cin, cu, cs, co, hc, wc):
     return flops, nbytes
 
 
-def bound(flops, nbytes, f32_ops=0):
+def bound(flops, nbytes, f32_ops=0, int8_ops=0):
     """(ms, what bounds it): the least time the card could take for the work.
-    ``flops`` run on the bf16 tensor cores, ``f32_ops`` on the CUDA cores;
-    the two units overlap, so the slower of them bounds the operations."""
-    t_ops = max(flops / PEAK_BF16_FLOPS, f32_ops / PEAK_F32_FLOPS)
+    ``flops`` run on the bf16 tensor cores, ``int8_ops`` on the int8 tensor
+    cores, ``f32_ops`` on the CUDA cores; the units overlap, so the slowest
+    of them bounds the operations."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, int8_ops / PEAK_INT8_OPS, f32_ops / PEAK_F32_FLOPS)
     t_bytes = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -1155,9 +1193,9 @@ def train_paths(torch, gen, device, name, batch, image, steps, profile):
     (reported). Then ``steps`` - 1 steps of each, in turns, timed; the loss
     must fall on both paths when ``steps`` >= 10. With ``profile``, one
     traced step of each path (K7's grids by name, device busy time, idle
-    share) and one step whose every K7 launch is held against the plain
-    version, and whose every axis pass is held against float32
-    (check_train_blocks)."""
+    share) and one step from the seeded weights, on a fresh copy of the
+    model, whose every K7 launch is held against the plain version, and whose
+    every axis pass is held against float32 (check_train_blocks)."""
     from unet_zoo_tpu_torch import create_model
     from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
     from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
@@ -1242,12 +1280,21 @@ def train_paths(torch, gen, device, name, batch, image, steps, profile):
     if counts != dict.fromkeys(K7_GRIDS, passes):
         raise AssertionError(f"profiler saw K7 grids {counts}, expected {passes} each")
 
+    # The recorded step is one kernel-path step from the seeded initial
+    # weights, on a fresh copy of the model, not a step of the model trained
+    # above: K7's backward sums with atomics, so a state reached by many steps
+    # differs from run to run, and so did the axis-pass readings (the bf16
+    # module chain read 2.751e-2 and 6.419e-2 on one code). The seed and the
+    # batch fix every recorded state and projection, and recording_blocks
+    # draws each pass's incoming gradient from a seed.
+    fresh = create_model(name, dtype=torch.bfloat16, seed=0, image_size=image)
+    fresh_state, fresh_step = create_train_state(fresh), make_train_step(fresh)
     readings, records = [], []
     kernel = k7.fused_axial_train
     k7.fused_axial_train = checked_k7(torch, readings)
-    blocks = recording_blocks(torch, models["kernel"].module, records)
+    blocks = recording_blocks(torch, fresh.module, records)
     try:
-        step["kernel"](states["kernel"], images, masks)
+        fresh_step(fresh_state, images, masks)
         torch.cuda.synchronize()
     finally:
         k7.fused_axial_train = kernel
@@ -1339,12 +1386,29 @@ def grad_noise(torch, device, batch, image, layers=None):
     return out
 
 
+def seeded_gradient(torch, g, seed):
+    """A gradient drawn from ``seed`` in ``g``'s shape, type and device, at
+    ``g``'s scale (its rms rounded to a power of two, so the last bits of
+    ``g`` do not reach it)."""
+    import math
+
+    rms = g.float().pow(2).mean().sqrt().item()
+    scale = 2.0 ** round(math.log2(rms)) if rms > 0 else 1.0
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    return (torch.randn(g.shape, generator=gen, device=g.device) * scale).to(g.dtype)
+
+
 def recording_blocks(torch, module, records):
     """Has every positional AxialAttention of ``module`` append to
     ``records``, at each train pass, a copy of itself as it was before the
-    pass (weights and running statistics), its bf16 projections and the
-    gradient that reaches its output. Returns the blocks; ``del
-    block.train_core`` undoes it."""
+    pass (weights and running statistics), its bf16 projections and an
+    incoming gradient drawn from the pass's index at the scale of the one
+    that reaches its output (seeded_gradient). The gradient that reaches it
+    carries the last bits of the atomic sums in the backward of later layers
+    (K7's, the bilinear upsample's), and with them the check's readings
+    moved by 5% between two runs; a seeded one makes the operands of every
+    pass the same in every run. Returns the blocks; ``del block.train_core``
+    undoes it."""
     import copy
 
     from unet_zoo_tpu_torch.models.medt_net import AxialAttention
@@ -1355,7 +1419,9 @@ def recording_blocks(torch, module, records):
             rec = dict(block=copy.deepcopy(attn), qkv=qkv.detach())
             del rec["block"].train_core
             out = core(qkv)
-            out.register_hook(lambda g: rec.__setitem__("grad", g.detach()))
+            seed = len(records)
+            out.register_hook(
+                lambda g: rec.__setitem__("grad", seeded_gradient(torch, g.detach(), seed)))
             records.append(rec)
             return out
 
@@ -1453,7 +1519,8 @@ def block_readings(torch, got, ref):
 
 def check_train_blocks(torch, name, records):
     """Every positional axis pass of one train step, run again from its
-    recorded state on its own bf16 projections and incoming gradient: the
+    recorded state on its own bf16 projections and seeded incoming gradient
+    (recording_blocks): the
     train kernel chain (``train_core``, K7) and the bf16 module chain
     (``core``) against the float32 module chain (block_readings): the
     output, the gradients of the projections and of BLOCK_PARAMS, and the
@@ -2260,6 +2327,345 @@ def time_k8(torch, gen, device):
     return rows
 
 
+def int8_launch_shapes(name, image=IMAGE, batch=SERVE_BATCH):
+    """The int8 conv's launch shapes in one forward of ``name`` as served here
+    (unet 64 -> 1024 channels; unet_tpu at UNET_TPU_WIDTHS, the stem to
+    image / 4): rows of (B, H, W, Ci, Co, stride, launches), H and W the
+    conv's input, in the order of first launch."""
+    convs = []
+    if name == "unet":
+        chans, cin, size = (64, 128, 256, 512), 3, image
+        for c in chans:
+            convs += [(size, cin, c, 1), (size, c, c, 1)]
+            cin, size = c, size // 2
+        convs += [(size, 512, 1024, 1), (size, 1024, 1024, 1)]
+        for c in reversed(chans):
+            size *= 2
+            convs += [(size, 2 * c, c, 1), (size, c, c, 1)]
+    else:
+        w, size = UNET_TPU_WIDTHS, image // 4
+        for i in range(3):
+            convs += [(size, w[i], w[i], 1)] * 2 + [(size, w[i], w[i + 1], 2)]
+            size //= 2
+        convs += [(size, w[3], w[3], 1)] * 2
+        for i in (2, 1, 0):
+            size *= 2
+            convs += [(size, w[i + 1] + w[i], w[i], 1), (size, w[i], w[i], 1)]
+    counts = {}
+    for c in convs:
+        counts[c] = counts.get(c, 0) + 1
+    return [(batch, s, s, ci, co, st, n) for (s, ci, co, st), n in counts.items()]
+
+
+def int8_conv_work(b, h, w, ci, co, stride, out_bytes):
+    """P2's conv: (int8 operations, least bytes): 2 * 9 Ci multiply-adds per
+    output element; xq read once, the int8 weights, scale and bias once, the
+    output written once."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    m = b * ho * wo
+    return 2 * m * co * 9 * ci, b * h * w * ci + 9 * ci * co + 8 * co + out_bytes * m * co
+
+
+def int8_conv_case(torch, gen, b, h, w, ci, co, device):
+    """Random int8 operands over the whole range, the OIHW weights, a
+    per-channel scale of calibrated size (s_x * s_w ~ 1e-4) and a bias."""
+    r8 = lambda *s: torch.randint(-127, 128, s, generator=gen, device=device, dtype=torch.int8)
+    scale = 1e-4 * (0.5 + torch.rand(co, generator=gen, device=device))
+    return r8(b, h, w, ci), r8(co, ci, 3, 3), scale, 0.1 * torch.randn(co, generator=gen,
+                                                                          device=device)
+
+
+def int8_faults(torch, xq, wq, scale, bias, stride, dtype):
+    """P2's plain version with a fault planted each, on one image: the taps
+    transposed, the stride ignored (each output read the input as at stride
+    1), a per-tensor weight scale instead of the per-channel one, the bias
+    dropped."""
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+
+    ref = lambda w_, sc, bi, st: p2.int8_conv3x3_reference(xq, p2.pack_conv_weight(w_), sc, bi,
+                                                            st, dtype)
+    faults = {"taps transposed": ref(wq.transpose(2, 3).contiguous(), scale, bias, stride),
+              "per-tensor s_w": ref(wq, torch.full_like(scale, scale.max().item()), bias, stride),
+              "bias dropped": ref(wq, scale, None, stride)}
+    if stride == 2:
+        ho, wo = (xq.shape[1] - 1) // 2 + 1, (xq.shape[2] - 1) // 2 + 1
+        faults["stride ignored"] = ref(wq, scale, bias, 1)[:, :ho, :wo]
+    return faults
+
+
+def check_int8_conv(torch, gen, device):
+    """P2's int8 conv against its plain version, bit for bit, at every
+    distinct launch shape of the served unet_tpu (bf16 out) and unet (float32
+    out) at B=8/256px and at odd shapes (Ci 3 and 20, odd H and W, stride 2
+    on an odd size, Co not a multiple of the tile); the comparison is shown
+    to reject planted faults (int8_faults) on the first image of each shape.
+    Returns the max abs error (0 when every launch agrees bit for bit)."""
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+
+    cases = [(*row[:6], torch.bfloat16) for row in int8_launch_shapes("unet_tpu")]
+    cases += [(*row[:6], torch.float32) for row in int8_launch_shapes("unet")]
+    cases += [(2, 37, 45, 3, 24, 1, torch.bfloat16), (1, 33, 29, 20, 40, 2, torch.float32),
+              (2, 31, 31, 48, 130, 2, torch.bfloat16)]
+    err = 0.0
+    for b, h, w, ci, co, stride, dtype in cases:
+        xq, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, device)
+        wp = p2.pack_conv_weight(wq)
+        got = p2.int8_conv3x3(xq, wp, scale, bias, stride, dtype)
+        ref = p2.int8_conv3x3_reference(xq, wp, scale, bias, stride, dtype)
+        faults = int8_faults(torch, xq[:1], wq, scale, bias, stride, dtype)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got.float()).all()
+        rms = ref.float().pow(2).mean().sqrt().item()
+        e = (got.float() - ref.float()).abs().max().item()
+        caught = {k: (got[:1].float() - f.float()).abs().max().item() / rms
+                  for k, f in faults.items()}
+        log(f"P2 conv [{b}, {h}, {w}, {ci}] -> {co} stride {stride} {str(dtype)[6:]}: "
+            f"max_abs_err {e:.3e} (bit for bit: {torch.equal(got, ref)}); least planted fault "
+            f"{min(caught.values()):.3e} of the output rms ({min(caught, key=caught.get)})")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"the int8 conv kernel disagrees with its plain version: {e}")
+        if not min(caught.values()) > 0:
+            raise AssertionError(f"the int8 conv comparison passed a planted fault: {caught}")
+        err = max(err, e)
+    return err
+
+
+def checked_int8_launches(torch, fn):
+    """Run ``fn()`` with every int8 conv launch also held against the plain
+    version on its own operands (bit for bit); returns (fn's result, launch
+    shapes as int8_launch_shapes rows without counts, mismatching launches)."""
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+
+    kernel, shapes, bad = p2.int8_conv3x3, [], []
+
+    def launch(xq, wp, scale, bias, stride, dtype):
+        got = kernel(xq, wp, scale, bias, stride, dtype)
+        shapes.append((*xq.shape, wp.shape[0], stride))
+        if not torch.equal(got, p2.int8_conv3x3_reference(xq, wp, scale, bias, stride, dtype)):
+            bad.append(shapes[-1])
+        return got
+
+    p2.int8_conv3x3 = launch
+    try:
+        return fn(), shapes, bad
+    finally:
+        p2.int8_conv3x3 = kernel
+
+
+def serve_int8(torch, gen, device, name):
+    """``name`` calibrated on two seeded batches and served three ways at
+    B=8/256px: float, int8 on the kernel path, int8 on the plain path (unet
+    also in bf16 float, its K1 path). The int8 conv must run
+    INT8_LAUNCHES[name] times per forward by counter and by profiler, and K1
+    never; every launch of a served forward is held against the plain version
+    on its own operands; the paths' logits and masks are compared, and int8
+    against float; img/s (the plain int8 path, f64 on the card, timed over
+    one forward) and device-time breakdowns."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+    from unet_zoo_tpu_torch.utils.serving import calibrate_int8, make_predictor
+
+    tpu = name == "unet_tpu"
+    dtype, want = (torch.bfloat16 if tpu else torch.float32), INT8_LAUNCHES[name]
+    kern = create_model(name, dtype=dtype, seed=0)
+    plain = create_model(name, dtype=dtype, seed=0, use_kernels=False)
+    log(f"{name} ({str(dtype)[6:]}): {sum(p.numel() for p in kern.module.parameters()) / 1e6:.2f}"
+        " M parameters")
+    batches = [torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
+               for _ in range(2)]
+    stats = calibrate_int8(kern, batches)
+    if len(stats) != want:
+        raise AssertionError(f"{name}: {len(stats)} calibrated convs, expected {want}")
+    x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
+    preds = {"float": make_predictor(kern, None, "logits", cast_bf16=tpu),
+             "int8 kernel": make_predictor(kern, None, "logits", cast_bf16=tpu, quant=stats),
+             "int8 plain": make_predictor(plain, None, "logits", cast_bf16=tpu, quant=stats)}
+    if not tpu:
+        preds["bf16 float"] = make_predictor(create_model(name, dtype=torch.bfloat16, seed=0),
+                                             None, "logits")
+
+    p2.LAUNCHES["int8_conv3x3"], k1.LAUNCHES["fused_up_concat_conv"] = 0, 0
+    lk = preds["int8 kernel"](x)
+    torch.cuda.synchronize()
+    launches, k1_launches = p2.LAUNCHES["int8_conv3x3"], k1.LAUNCHES["fused_up_concat_conv"]
+    log(f"main path: int8 conv {launches} launches, K1 {k1_launches} in one int8 {name} forward")
+    if launches != want or k1_launches:
+        raise AssertionError(f"{name}: int8 conv ran {launches} times (K1 {k1_launches}), "
+                             f"expected {want} (K1 0)")
+    lp, lf = preds["int8 plain"](x), preds["float"](x)
+    torch.cuda.synchronize()
+    for t in (lk, lp, lf):
+        assert t.shape == (SERVE_BATCH, 1, IMAGE, IMAGE) and torch.isfinite(t).all()
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    agree = lambda a, b: ((a > 0) == (b > 0)).float().mean().item()
+    readings = dict(paths_rel_l2=rel(lk, lp), paths_mask_agreement=agree(lk, lp),
+                    paths_bit_for_bit=torch.equal(lk, lp), int8_vs_float_rel_l2=rel(lk, lf),
+                    int8_vs_float_mask_agreement=agree(lk, lf))
+    log(f"serve {name} int8: logits std {lf.std().item():.4f}; kernel vs plain path rel L2 "
+        f"{readings['paths_rel_l2']:.3e} (<= {INT8_PATHS_REL_L2:.0e}), masks "
+        f"{readings['paths_mask_agreement']:.5f} (>= {INT8_PATHS_AGREE}), bit for bit "
+        f"{readings['paths_bit_for_bit']}; int8 vs float rel L2 "
+        f"{readings['int8_vs_float_rel_l2']:.3e} (< {INT8_FLOAT_REL_L2}), masks "
+        f"{readings['int8_vs_float_mask_agreement']:.5f} (>= {INT8_FLOAT_AGREE})")
+    if not (readings["paths_rel_l2"] <= INT8_PATHS_REL_L2
+            and readings["paths_mask_agreement"] >= INT8_PATHS_AGREE):
+        raise AssertionError(f"{name}: the int8 kernel path disagrees with the plain path")
+    if not (readings["int8_vs_float_rel_l2"] < INT8_FLOAT_REL_L2
+            and readings["int8_vs_float_mask_agreement"] >= INT8_FLOAT_AGREE):
+        raise AssertionError(f"{name}: int8 serving strays from float beyond JAX's bars")
+
+    _, shapes, bad = checked_int8_launches(torch, lambda: preds["int8 kernel"](x))
+    expected = sorted(r[:6] for r in int8_launch_shapes(name) for _ in range(r[6]))
+    log(f"{name}: its {len(shapes)} int8 conv launches against the plain version on their own "
+        f"operands: {len(shapes) - len(bad)} bit for bit")
+    if bad or len(shapes) != want or sorted(shapes) != expected:
+        raise AssertionError(f"{name}: int8 launches {shapes}, mismatching {bad}")
+    events = profile_forward(torch, lambda: preds["int8 kernel"](x))
+    seen = sum("int8_conv_kernel" in e.name for e in events)
+    seen_k1 = sum("fused_up_gemm" in e.name for e in events)
+    log(f"profiler: {seen} int8_conv_kernel grids, {seen_k1} K1 grids in one int8 {name} forward")
+    if seen != want or seen_k1:
+        raise AssertionError(f"profiler saw the int8 conv {seen} times (K1 {seen_k1}) in {name}")
+
+    timed = {k: v for k, v in preds.items() if k != "int8 plain"}
+    times = serve_times(torch, timed, x)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    med["int8 plain"] = cuda_ms(torch, lambda: preds["int8 plain"](x), 1)
+    rates = {k: SERVE_BATCH / (m / 1e3) for k, m in med.items()}
+    for path in med:
+        log(f"serve {name} B={SERVE_BATCH} {IMAGE}px, {path}: {rates[path]:.1f} img/s "
+            f"(forward {med[path]:.4f} ms)")
+    busy = {path: breakdown(torch, f"{name} {path}", lambda: preds[path](x), med[path])
+            for path in ("float", "int8 kernel")}
+    return dict(launches=launches, k1_launches=k1_launches, profiler_grids=seen,
+                launches_bit_for_bit=len(shapes) - len(bad), serve_img_per_s=rates,
+                forward_ms=med, device_busy_ms=busy,
+                idle_share={p: 1 - busy[p] / med[p] for p in busy}, **readings)
+
+
+def time_int8_conv(torch, gen, device, name):
+    """P2's conv at each launch shape of one B=8 forward of ``name``: kernel,
+    plain version (float64 on the card), bound (int8 operations), and cuDNN's
+    bf16 conv of the same shape (a yardstick of what int8 saves; no PyTorch
+    call computes the int8 conv, so library_ms is null)."""
+    import torch.nn.functional as F
+
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+
+    dtype = torch.bfloat16 if name == "unet_tpu" else torch.float32
+    rows = []
+    for b, h, w, ci, co, stride, n in int8_launch_shapes(name):
+        xq, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, device)
+        wp = p2.pack_conv_weight(wq)
+        xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bb = bias.to(torch.bfloat16)
+        ms = cuda_ms(torch, lambda: p2.int8_conv3x3(xq, wp, scale, bias, stride, dtype), 20)
+        plain_ms = cuda_ms(torch, lambda: p2.int8_conv3x3_reference(xq, wp, scale, bias, stride,
+                                                                     dtype), 2)
+        cudnn_ms = cuda_ms(torch, lambda: F.conv2d(xb, wb, bb, stride=stride, padding=1), 20)
+        ops, nbytes = int8_conv_work(b, h, w, ci, co, stride, 2 if dtype == torch.bfloat16 else 4)
+        bound_ms, bound_by = bound(0, nbytes, int8_ops=ops)
+        rows.append(dict(model=name, b=b, h=h, w=w, ci=ci, co=co, stride=stride, launches=n,
+                         int8_ops=ops, bytes=nbytes, ms=ms, plain_ms=plain_ms,
+                         cudnn_bf16_ms=cudnn_ms, bound_ms=bound_ms, bound_by=bound_by))
+        log(f"P2 conv {name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} x{n}: {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s, {bound_ms / ms:.3f} of its bound {bound_ms:.4f} ms, "
+            f"{bound_by}), plain {plain_ms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
+    return rows
+
+
+def check_gemm(torch, gen, device):
+    """P2's GEMM at M = N = K = GEMM_SIZE: s8 bit for bit against
+    ``torch._int_mm``, bf16 against the float32 product (1e-5 sqrt(K) of the
+    output rms), each beside a planted fault (B read as [K, N]); then the
+    probe's own path (``probes.int8_matmul``, 20 timed launches of each type)
+    with the launch counter set to 0 just before it; kernel, plain version,
+    library call and bound of each type."""
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+    from unet_zoo_tpu_torch.probes import int8_matmul as probe
+
+    n = GEMM_SIZE
+    a8, b8 = probe.operands(n, n, n, torch.int8, 7, device)
+    a16, b16 = probe.operands(n, n, n, torch.bfloat16, 8, device)
+    got8, lib8 = p2.matmul(a8, b8), torch._int_mm(a8, b8.t())
+    got16, ref16 = p2.matmul(a16, b16), p2.matmul_reference(a16, b16)
+    torch.cuda.synchronize()
+    exact = torch.equal(got8, lib8)
+    err16 = (got16 - ref16).abs().max().item()
+    lim16 = 1e-5 * n ** 0.5 * ref16.pow(2).mean().sqrt().item()
+    fault8 = not torch.equal(got8, torch._int_mm(a8, b8))
+    fault16 = (got16 - p2.matmul_reference(a16, b16.t().contiguous())).abs().max().item()
+    log(f"P2 GEMM {n}^3: s8 bit for bit against torch._int_mm: {exact} (fault B as [K, N] "
+        f"caught: {fault8}); bf16 max_abs_err {err16:.3e} (limit {lim16:.3e}; fault "
+        f"{fault16:.3e})")
+    if not (exact and fault8 and err16 <= lim16 < fault16):
+        raise AssertionError("the GEMM kernel disagrees with its plain version or library call")
+
+    p2.LAUNCHES["matmul"] = 0
+    probe_s = {"bf16": probe.bench_case("hopper bf16xbf16->f32", n, n, n, torch.bfloat16, 20,
+                                        (128, 128), device),
+               "s8": probe.bench_case("hopper s8xs8->s32   ", n, n, n, torch.int8, 20,
+                                      (128, 128), device)}
+    launches = p2.LAUNCHES["matmul"]
+    out = dict(launches=launches, s8_bit_for_bit=exact, bf16_max_abs_err=err16)
+    for key, a, b, lib in (("s8", a8, b8, lambda: torch._int_mm(a8, b8.t())),
+                           ("bf16", a16, b16, lambda: torch.matmul(a16, b16.t()))):
+        ms = cuda_ms(torch, lambda: p2.matmul(a, b), 20)
+        plain_ms = cuda_ms(torch, lambda: p2.matmul_reference(a, b), 3)
+        lib_ms = cuda_ms(torch, lib, 20)
+        ops = 2 * n ** 3
+        nbytes = 2 * n * n * a.element_size() + 4 * n * n
+        bound_ms, bound_by = bound(ops if key == "bf16" else 0, nbytes,
+                                   int8_ops=ops if key == "s8" else 0)
+        out[key] = dict(ms=ms, probe_ms=1e3 * probe_s[key] / 20, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        tera_per_s=ops / ms / 1e9, library_tera_per_s=ops / lib_ms / 1e9)
+        log(f"P2 GEMM {key} {n}^3: {ms:.4f} ms ({ops / ms / 1e9:.1f} T/s, {bound_ms / ms:.3f} of "
+            f"its bound {bound_ms:.4f} ms), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+            f"({ops / lib_ms / 1e9:.1f} T/s)")
+    out["int8_over_bf16"] = out["bf16"]["ms"] / out["s8"]["ms"]
+    out["library_int8_over_bf16"] = out["bf16"]["library_ms"] / out["s8"]["library_ms"]
+    log(f"P2 GEMM: int8 / bf16 rate {out['int8_over_bf16']:.3f}x (library "
+        f"{out['library_int8_over_bf16']:.3f}x); {launches} launches on the probe's path")
+    return out
+
+
+def check_gather(torch, gen, device):
+    """P1 at the probe's shape: the probe's own path (``probes.gather``,
+    kernel variant) with the launch counter set to 0 just before it, bit for
+    bit against index_select on fresh indices beside a planted fault (each
+    index one row off), and timed by CUDA graph replay against the bytes
+    bound and index_select (the plain version and the library call)."""
+    from unet_zoo_tpu_torch.ops.kernels import row_gather as p1
+    from unet_zoo_tpu_torch.probes import gather as probe
+
+    p1.LAUNCHES["row_gather"] = 0
+    probed = probe.run("kernel", GATHER_N, device)
+    launches = p1.LAUNCHES["row_gather"]
+    tab = torch.randn(GATHER_ROWS, GATHER_C, generator=gen, device=device)
+    idx = torch.randint(0, GATHER_ROWS, (GATHER_N,), generator=gen, device=device,
+                        dtype=torch.int32)
+    got, ref = p1.row_gather(tab, idx), p1.row_gather_reference(tab, idx)
+    fault = p1.row_gather_reference(tab, (idx + 1) % GATHER_ROWS)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, ref) and probed["max_abs_err"] == 0
+    log(f"P1 gather [{GATHER_ROWS}, {GATHER_C}] x {GATHER_N}: bit for bit {exact}, planted fault "
+        f"caught {not torch.equal(got, fault)}; {launches} launches on the probe's path")
+    if not exact or torch.equal(got, fault):
+        raise AssertionError("the row gather kernel disagrees with index_select")
+    ms = graph_ms(torch, lambda: p1.row_gather(tab, idx), 20)
+    plain_ms = graph_ms(torch, lambda: p1.row_gather_reference(tab, idx), 20)
+    nbytes = 2 * GATHER_N * GATHER_C * 4 + 4 * GATHER_N
+    bound_ms, bound_by = bound(0, nbytes)
+    log(f"P1 gather: {ms:.5f} ms ({nbytes / ms / 1e6:.1f} GB/s, {bound_ms / ms:.3f} of its bound "
+        f"{bound_ms:.5f} ms), index_select {plain_ms:.5f} ms")
+    return dict(launches=launches, max_abs_err=(got - ref).abs().max().item(), ms=ms,
+                plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, probe=probed)
+
+
 def per_forward(rows, key):
     """A per-launch quantity summed over one forward's launches."""
     return sum(r[key] * r["launches"] for r in rows)
@@ -2448,6 +2854,25 @@ def main() -> int:
     wranet = serve_wranet(torch, gen, device)
     k8_rows = time_k8(torch, gen, device)
 
+    # 17-20. int8 serving through P2's conv (unet_tpu, unet), P2's GEMM and
+    # P1's gather on their probes' paths
+    p2_conv_err = check_int8_conv(torch, gen, device)
+    int8_serving = {name: serve_int8(torch, gen, device, name) for name in INT8_LAUNCHES}
+    p2_rows = {name: time_int8_conv(torch, gen, device, name) for name in INT8_LAUNCHES}
+    torch.cuda.empty_cache()
+    gemm = check_gemm(torch, gen, device)
+    gather = check_gather(torch, gen, device)
+
+    p2_per_model = {}
+    for name, rows in p2_rows.items():
+        b = bound(0, per_forward(rows, "bytes"), int8_ops=per_forward(rows, "int8_ops"))
+        p2_per_model[name] = dict(launches=int8_serving[name]["launches"],
+                                  ms=per_forward(rows, "ms"), plain_ms=per_forward(rows, "plain_ms"),
+                                  cudnn_bf16_ms=per_forward(rows, "cudnn_bf16_ms"),
+                                  int8_ops=per_forward(rows, "int8_ops"), bound_ms=b[0],
+                                  bound_by=b[1])
+        log(f"P2 conv per {name} forward: {p2_per_model[name]}")
+
     total = lambda key: sum(s[key] for s in stages)
     bound_ms, bound_by = bound(total("flops"), total("bytes"))
     k4_bound = bound(per_forward(k4_rows, "tc_flops"), per_forward(k4_rows, "bytes"),
@@ -2614,6 +3039,48 @@ def main() -> int:
         "module_chain_ms": per_forward(k8_rows, "module_chain_ms"),
         "wranet": wranet,
         "shapes": k8_rows,
+    }, {
+        "name": "int8_conv3x3",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/int8_gemm.cu",
+        "replaces": "_probe_int8_mosaic.py:34",
+        "launches": int8_serving["unet_tpu"]["launches"],
+        "max_abs_err": p2_conv_err,
+        "ms": p2_per_model["unet_tpu"]["ms"],
+        "plain_ms": p2_per_model["unet_tpu"]["plain_ms"],
+        "bound_ms": p2_per_model["unet_tpu"]["bound_ms"],
+        "bound_by": p2_per_model["unet_tpu"]["bound_by"],
+        "library_ms": None,
+        "cudnn_bf16_ms": p2_per_model["unet_tpu"]["cudnn_bf16_ms"],
+        "per_model": p2_per_model,
+        "serving": int8_serving,
+        "shapes": p2_rows,
+    }, {
+        "name": "matmul",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/int8_gemm.cu",
+        "replaces": "_probe_int8_mosaic.py:34",
+        "launches": gemm["launches"],
+        "max_abs_err": 0.0 if gemm["s8_bit_for_bit"] else None,
+        "ms": gemm["s8"]["ms"],
+        "plain_ms": gemm["s8"]["plain_ms"],
+        "bound_ms": gemm["s8"]["bound_ms"],
+        "bound_by": gemm["s8"]["bound_by"],
+        "library_ms": gemm["s8"]["library_ms"],
+        "gemm": gemm,
+    }, {
+        "name": "row_gather",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/ops/kernels/csrc/row_gather.cu",
+        "replaces": "_probe_gather.py:44",
+        "launches": gather["launches"],
+        "max_abs_err": gather["max_abs_err"],
+        "ms": gather["ms"],
+        "plain_ms": gather["plain_ms"],
+        "bound_ms": gather["bound_ms"],
+        "bound_by": gather["bound_by"],
+        "library_ms": gather["library_ms"],
+        "probe": gather["probe"],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

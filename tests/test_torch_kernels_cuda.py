@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K8) against their plain PyTorch
+"""The port's CUDA kernels (K1-K8, P1, P2) against their plain PyTorch
 versions, and each model's kernel path against its plain path, on the card.
 
 These need an NVIDIA GPU (sm_90a) and ``nvcc``: a CUDA kernel has no CPU
@@ -18,6 +18,9 @@ from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinBlockV2, WindowAttentionV
 from unet_zoo_tpu_torch.models.wranet import DeformableConv
 from unet_zoo_tpu_torch.nn import init_weights
 from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+from unet_zoo_tpu_torch.ops.kernels import row_gather as p1
 from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
 from unet_zoo_tpu_torch.ops.kernels import deform as k8
 from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
@@ -25,7 +28,7 @@ from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
 from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
 from unet_zoo_tpu_torch.ops.kernels import morph as k5
 from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
-from unet_zoo_tpu_torch.utils.serving import make_predictor
+from unet_zoo_tpu_torch.utils.serving import calibrate_int8, make_predictor
 
 
 @pytest.fixture
@@ -741,3 +744,126 @@ def test_wranet_kernel_path_matches_plain_path(cuda_device):
     ref = preds[1](x).float()
     assert got.shape == (2, 1, 64, 64) and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= WRANET_REL_L2
+
+
+# P2, the int8 conv: the integer sums are exact and the epilogue rounds as
+# the plain version does, so kernel and plain version agree bit for bit.
+def _int8_conv_case(device, b, h, w, ci, co, seed=0, bias=True):
+    gen = torch.Generator(device=device).manual_seed(seed + b + h + ci + co)
+    xq = torch.randint(-127, 128, (b, h, w, ci), generator=gen, device=device,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (co, ci, 3, 3), generator=gen, device=device,
+                       dtype=torch.int8)
+    scale = torch.rand(co, generator=gen, device=device) * 1e-4
+    bvec = torch.randn(co, generator=gen, device=device) if bias else None
+    return xq, p2.pack_conv_weight(wq), scale, bvec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co,stride,dtype", [
+    (2, 64, 64, 128, 128, 1, torch.bfloat16),     # unet_tpu enc0 (B=2)
+    (2, 64, 64, 128, 256, 2, torch.bfloat16),     # unet_tpu down0
+    (2, 16, 16, 1024, 512, 1, torch.bfloat16),    # unet_tpu dec2, K = 9216
+    (2, 256, 256, 3, 64, 1, torch.float32),       # unet's first conv: Ci 3, K 27
+    (2, 128, 128, 128, 64, 1, torch.float32),     # unet up_convolution_4 (Co 64 tile)
+    (1, 17, 13, 20, 24, 1, torch.float32),        # odd H, W; Ci 20 (byte loader); Co 24
+    (1, 17, 15, 48, 40, 2, torch.bfloat16),       # stride 2 on an odd size
+    (3, 9, 7, 32, 130, 2, torch.float32),         # ragged N tile, odd Ho/Wo
+])
+def test_int8_conv_kernel_matches_reference(cuda_device, b, h, w, ci, co, stride, dtype):
+    xq, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co)
+    before = p2.LAUNCHES["int8_conv3x3"]
+    got = p2.int8_conv3x3(xq, wp, scale, bias, stride, dtype)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES["int8_conv3x3"] - before == 1
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, ho, wo, co)
+    assert torch.equal(got, p2.int8_conv3x3_reference(xq, wp, scale, bias, stride, dtype))
+    assert torch.equal(p2.int8_conv3x3(xq, wp, scale, None, stride, dtype),
+                       p2.int8_conv3x3_reference(xq, wp, scale, None, stride, dtype))
+    for fault in (p2.int8_conv3x3_reference(xq, wp, scale, None, stride, dtype),
+                  p2.int8_conv3x3_reference(xq, wp, scale.flip(0), bias, stride, dtype)):
+        assert not torch.equal(got, fault)
+
+
+@pytest.mark.cuda
+def test_int8_conv_outside_kernel_shapes_raises(cuda_device):
+    xq, wp, scale, bias = _int8_conv_case(cuda_device, 1, 8, 8, 16, 8)
+    before = p2.LAUNCHES["int8_conv3x3"]
+    for args in ((xq.float(), wp, scale, bias, 1, torch.float32),          # not int8
+                 (xq, wp, scale, bias, 3, torch.float32),                  # stride 3
+                 (xq, wp[:, :100].contiguous(), scale, bias, 1, torch.float32),  # unpacked
+                 (xq, wp, scale.double(), bias, 1, torch.float32),
+                 (xq, wp, scale, bias, 1, torch.float16)):
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            p2.int8_conv3x3(*args)
+    assert p2.LAUNCHES["int8_conv3x3"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,tile", [
+    (512, 384, 1024, (128, 128)),
+    (300, 200, 96, (128, 128)),       # ragged M and N
+    (256, 64, 4096, (256, 64)),
+])
+def test_gemm_kernel_matches_reference(cuda_device, m, n, k, tile):
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
+    a8 = torch.randint(-127, 128, (m, k), generator=gen, device=cuda_device, dtype=torch.int8)
+    b8 = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device, dtype=torch.int8)
+    before = p2.LAUNCHES["matmul"]
+    got = p2.matmul(a8, b8, tile)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES["matmul"] - before == 1
+    assert got.dtype == torch.int32 and torch.equal(got, p2.matmul_reference(a8, b8))
+    a16 = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    b16 = torch.randn(n, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got, ref = p2.matmul(a16, b16, tile), p2.matmul_reference(a16, b16)
+    assert got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= 1e-5 * k ** 0.5 * ref.pow(2).mean().sqrt().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c,n", [(4096, 128, 4096), (100, 20, 333), (7, 4, 1)])
+def test_row_gather_kernel_matches_reference(cuda_device, rows, c, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + c)
+    tab = torch.randn(rows, c, generator=gen, device=cuda_device)
+    idx = torch.randint(0, rows, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
+    before = p1.LAUNCHES["row_gather"]
+    got = p1.row_gather(tab, idx)
+    torch.cuda.synchronize()
+    assert p1.LAUNCHES["row_gather"] - before == 1
+    assert torch.equal(got, p1.row_gather_reference(tab, idx))
+
+
+@pytest.mark.cuda
+def test_new_sources_build_without_spills(cuda_device):
+    """ptxas's register and spill report for the P1 and P2 sources."""
+    build.build_all()
+    for stem in ("int8_gemm", "row_gather"):
+        log = (build.BUILD_DIR / f"{stem}.log").read_text()
+        assert "registers" in log
+        assert all(" 0 bytes spill stores" in line for line in log.splitlines()
+                   if "spill stores" in line), log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,launches", [("unet_tpu", torch.bfloat16, 17),
+                                                 ("unet", torch.float32, 18)])
+def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
+    """Calibrated int8 serving (B=2, 64px): the int8 conv kernel on every
+    gated conv, K1 not at all in the float32 unet; the kernel path's logits
+    equal the plain path's bit for bit (same integer sums, same epilogue)."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    kw = {"widths": (32, 64, 64, 64)} if name == "unet_tpu" else {}
+    preds = []
+    for k in (None, False):
+        model = create_model(name, dtype=dtype, use_kernels=k, **kw)
+        stats = calibrate_int8(model, [x])
+        preds.append(make_predictor(model, None, "logits", cast_bf16=dtype == torch.bfloat16,
+                                    quant=stats))
+    before = p2.LAUNCHES["int8_conv3x3"], k1.LAUNCHES["fused_up_concat_conv"]
+    got = preds[0](x)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES["int8_conv3x3"] - before[0] == launches
+    assert k1.LAUNCHES["fused_up_concat_conv"] == before[1]
+    assert torch.isfinite(got).all() and torch.equal(got, preds[1](x))

@@ -109,7 +109,10 @@ def test_resize_bilinear_matches_jax(hw, size, align_corners):
 
 def test_import_leaves_jax_out():
     code = ("import sys, unet_zoo_tpu_torch, unet_zoo_tpu_torch.utils.serving, "
-            "unet_zoo_tpu_torch.utils.convert; "
+            "unet_zoo_tpu_torch.utils.convert, unet_zoo_tpu_torch.ops.quant, "
+            "unet_zoo_tpu_torch.ops.kernels.int8_gemm, unet_zoo_tpu_torch.ops.kernels.row_gather, "
+            "unet_zoo_tpu_torch.models.unet_tpu, unet_zoo_tpu_torch.probes.int8_matmul, "
+            "unet_zoo_tpu_torch.probes.gather; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'unet_zoo_tpu') if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -131,7 +134,7 @@ def test_registry_surface():
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
     assert list_models() == ["axialunet", "gated", "logo", "medt", "medt_logo", "mmunet",
-                             "swin_unet_v2", "unet", "unext", "unext_s", "wranet"]
+                             "swin_unet_v2", "unet", "unet_tpu", "unext", "unext_s", "wranet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)
@@ -140,7 +143,9 @@ def test_registry_surface():
     assert (mm.in_channels, mm.num_classes, mm.image_size) == (3, 2, None)
     assert mm.module.up5.conv[0].use_kernels is True and mm.module.up1.use_kernels is True
     assert mm.module.first_down[0].out_channels == 16 and mm.module.down3[0].out_channels == 128
-    for name, model in (("unet", m), ("mmunet", mm)):
+    tp = create_model("unet_tpu", device="cpu", widths=(16, 32, 32, 32), use_pallas=False)
+    assert tp.module.enc0.use_kernels is False and tp.module.down2.use_kernels is False
+    for name, model in (("unet", m), ("mmunet", mm), ("unet_tpu", tp)):
         jax_spec = JAX_REGISTRY[name]
         assert (model.spec.requires_image_size, model.spec.default_image_size) == (
             jax_spec.requires_image_size, jax_spec.default_image_size)

@@ -17,6 +17,7 @@ from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
 from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinUNetV2
 from unet_zoo_tpu_torch.models.unet import UNet
+from unet_zoo_tpu_torch.models.unet_tpu import UNetTPU
 from unet_zoo_tpu_torch.models.unext import UNext
 from unet_zoo_tpu_torch.models.wranet import WRANet
 from unet_zoo_tpu_torch.nn import init_weights
@@ -163,6 +164,13 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
 @register_model("unet")
 def _build_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
     return UNet(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
+
+
+@register_model("unet_tpu")
+def _build_unet_tpu(in_channels, num_classes, image_size, depth, dtype, **kw):
+    # the JAX registry's defaults (unet_zoo_tpu/models/__init__.py:359-371)
+    return UNetTPU(in_channels=in_channels, num_classes=num_classes,
+                   widths=tuple(kw.pop("widths", (128, 256, 512, 512))), dtype=dtype, **kw)
 
 
 @register_model("mmunet")

@@ -1,6 +1,8 @@
 """Classic UNet: four down and four up stages, 64 -> 1024 channels, DoubleConv
 units, max-pool downsampling, transposed-conv upsampling with pad-to-match
-skip concat. Counterpart of ``unet_zoo_tpu/models/unet.py``."""
+skip concat. Counterpart of ``unet_zoo_tpu/models/unet.py``. Its 18
+convolutions in DoubleConv units are int8-gated (``nn/blocks.py``);
+``use_kernels`` steers K1 in the decoder and the int8 conv kernel."""
 
 from __future__ import annotations
 
@@ -18,11 +20,11 @@ class UNet(nn.Module):
                  use_kernels: Optional[bool] = None):
         super().__init__()
         self.dtype = dtype
-        self.down_convolution_1 = DownSample(in_channels, 64, dtype)
-        self.down_convolution_2 = DownSample(64, 128, dtype)
-        self.down_convolution_3 = DownSample(128, 256, dtype)
-        self.down_convolution_4 = DownSample(256, 512, dtype)
-        self.bottle_neck = DoubleConv(512, 1024, dtype)
+        self.down_convolution_1 = DownSample(in_channels, 64, dtype, use_kernels)
+        self.down_convolution_2 = DownSample(64, 128, dtype, use_kernels)
+        self.down_convolution_3 = DownSample(128, 256, dtype, use_kernels)
+        self.down_convolution_4 = DownSample(256, 512, dtype, use_kernels)
+        self.bottle_neck = DoubleConv(512, 1024, dtype, use_kernels)
         self.up_convolution_1 = UpSampleUNet(1024, 512, dtype, use_kernels)
         self.up_convolution_2 = UpSampleUNet(512, 256, dtype, use_kernels)
         self.up_convolution_3 = UpSampleUNet(256, 128, dtype, use_kernels)

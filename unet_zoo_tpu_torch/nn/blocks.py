@@ -14,18 +14,28 @@ Train-mode BatchNorm (:func:`batch_norm`) follows Flax, not
 ``nn.BatchNorm2d``: it normalises with the biased batch variance and
 updates ``running_var`` with the biased one too (decay 0.9, i.e. torch
 momentum 0.1), where ``F.batch_norm`` would update it with the unbiased.
+
+Every :func:`conv_norm_act` conv is int8-gated, as the JAX package's
+``conv_maybe_int8`` (``nn/blocks.py:104-141``): inside
+:func:`recording_conv_inputs` it records ``max |x|`` of its input in float32
+(calibration); in eval, once :func:`attach_int8` has given it quantised
+weights (``conv.int8``, an attribute outside the ``state_dict``, as JAX keeps
+the ``quant`` collection apart from the float parameters), it runs int8.
+Training ignores them. K1's fused decoder stage reads the float weights and
+ignores them too, as ``UpSampleUNet._fused`` does in JAX.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import contextlib
+from typing import Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match
-from unet_zoo_tpu_torch.ops.kernels import use_kernel
+from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, quant
+from unet_zoo_tpu_torch.ops.kernels import int8_gemm, use_kernel
 from unet_zoo_tpu_torch.ops.kernels.fused_up import (
     fold_conv_bn,
     fused_up_concat_conv,
@@ -75,23 +85,117 @@ def update_running_stats(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor) -
         bn.num_batches_tracked.add_(1)
 
 
+class Int8Conv(NamedTuple):
+    """A gated conv's int8 serving weights, quantised once (:func:`prepare_int8_conv`)."""
+
+    wp: torch.Tensor              # [Co, Kpad] int8 (int8_gemm.pack_conv_weight)
+    s_x: torch.Tensor             # 0-dim float32 activation scale
+    scale: torch.Tensor           # [Co] float32, s_x * s_w
+    bias: Optional[torch.Tensor]  # [Co] float32
+    stride: int
+
+
+def prepare_int8_conv(conv_m: nn.Conv2d, absmax: torch.Tensor) -> Int8Conv:
+    """Quantise ``conv_m``'s weight (as served: already bf16-rounded by a
+    bf16 cast) per output channel and take the activation scale from the
+    calibrated ``absmax``."""
+    if (conv_m.kernel_size != (3, 3) or conv_m.padding != (1, 1) or conv_m.groups != 1
+            or conv_m.dilation != (1, 1) or conv_m.stride[0] != conv_m.stride[1]):
+        raise ValueError(f"the int8 conv takes 3x3 convs with padding 1, not {conv_m}")
+    k = conv_m.weight.detach()
+    s_w = quant.weight_scale(k)
+    s_x = quant.activation_scale(absmax.detach().to(k.device))
+    bias = None if conv_m.bias is None else conv_m.bias.detach().float().contiguous()
+    return Int8Conv(int8_gemm.pack_conv_weight(quant.quantize_weight(k, s_w)), s_x,
+                    (s_x * s_w).contiguous(), bias, conv_m.stride[0])
+
+
+def int8_conv(x: torch.Tensor, q: Int8Conv, dtype: torch.dtype,
+              use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """The int8 conv of NCHW ``x`` (``_QuantConv``): ``x`` quantised per
+    tensor by an ATen pass, the int8 conv, dequantised and rounded to
+    ``dtype``. With ``use_kernels`` None the kernel (P2) takes any CUDA
+    input, float32 or bfloat16, since its arithmetic is integer; ``False``
+    runs the plain version, as ``True`` does on the CPU."""
+    xq = quant.quantize_activation(x, q.s_x).permute(0, 2, 3, 1)
+    if use_kernel(use_kernels, False, x, dtypes=(torch.float32, torch.bfloat16)):
+        y = int8_gemm.int8_conv3x3(xq.contiguous(), q.wp, q.scale, q.bias, q.stride, dtype)
+    else:
+        y = int8_gemm.int8_conv3x3_reference(xq, q.wp, q.scale, q.bias, q.stride, dtype)
+    return y.permute(0, 3, 1, 2)
+
+
+# The calibration record ({conv module: max |x| so far}) while
+# recording_conv_inputs is open, else None.
+_RECORD: Optional[Dict[nn.Module, torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def recording_conv_inputs() -> Iterator[Dict[nn.Module, torch.Tensor]]:
+    """Within, every :func:`conv_norm_act` conv records ``max |x|`` of its
+    input in float32 into the yielded dict (the maximum over the forwards)."""
+    global _RECORD
+    saved, _RECORD = _RECORD, {}
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = saved
+
+
+def attach_int8(module: nn.Module, stats: Mapping[str, torch.Tensor]) -> None:
+    """Quantise each conv named in ``stats`` ({module name: calibrated
+    absmax}, from ``utils.serving.calibrate_int8``) once, from its current
+    weights: its eval forwards then run int8."""
+    for name, absmax in stats.items():
+        conv_m = module.get_submodule(name)
+        if not isinstance(conv_m, nn.Conv2d):
+            raise ValueError(f"{name} is a {type(conv_m).__name__}, not an int8-gated conv")
+        conv_m.int8 = prepare_int8_conv(conv_m, torch.as_tensor(absmax, dtype=torch.float32))
+
+
 def conv_norm_act(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``).
+                  dtype: torch.dtype, use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``), the conv
+    int8-gated (module docstring; ``use_kernels`` as :func:`int8_conv`).
 
     A function over the two modules rather than a module of its own, so
     that ``DoubleConv`` keeps the original zoo's flat ``conv_op`` indices.
     """
-    return torch.relu(batch_norm(conv(x, conv_m, dtype), bn))
+    if _RECORD is not None:
+        m = x.detach().float().abs().amax()
+        prev = _RECORD.get(conv_m)
+        _RECORD[conv_m] = m if prev is None else torch.maximum(prev, m)
+    q = getattr(conv_m, "int8", None)
+    if q is not None and not conv_m.training:
+        y = int8_conv(x, q, dtype, use_kernels)
+    else:
+        y = conv(x, conv_m, dtype)
+    return torch.relu(batch_norm(y, bn))
+
+
+class ConvNormAct(nn.Module):
+    """One conv(3x3, stride, padding 1) -> BN -> ReLU block, int8-gated."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=1)
+        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_norm_act(x, self.conv, self.bn, self.dtype, self.use_kernels)
 
 
 class DoubleConv(nn.Module):
-    """(conv3x3 -> BN -> ReLU) x 2."""
+    """(conv3x3 -> BN -> ReLU) x 2, both convs int8-gated."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
         super().__init__()
         self.dtype = dtype
+        self.use_kernels = use_kernels
         self.conv_op = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, padding=1),
             nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
@@ -103,17 +207,17 @@ class DoubleConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         op = self.conv_op
-        x = conv_norm_act(x, op[0], op[1], self.dtype)
-        return conv_norm_act(x, op[3], op[4], self.dtype)
+        x = conv_norm_act(x, op[0], op[1], self.dtype, self.use_kernels)
+        return conv_norm_act(x, op[3], op[4], self.dtype, self.use_kernels)
 
 
 class DownSample(nn.Module):
     """UNet encoder stage: DoubleConv then 2x2 max pool; returns (skip, pooled)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
         super().__init__()
-        self.conv = DoubleConv(in_channels, out_channels, dtype)
+        self.conv = DoubleConv(in_channels, out_channels, dtype, use_kernels)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         down = self.conv(x)
@@ -172,7 +276,7 @@ class UpSampleUNet(nn.Module):
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.up = TransposedUp(in_channels, in_channels // 2, dtype)
-        self.conv = DoubleConv(in_channels, out_channels, dtype)
+        self.conv = DoubleConv(in_channels, out_channels, dtype, use_kernels)
         self._frozen: Optional[KernelWeights] = None
 
     def kernel_path(self, x: torch.Tensor, skip: torch.Tensor) -> bool:

@@ -2,6 +2,7 @@
 
 from unet_zoo_tpu_torch.ops.padding import pad_to_match
 from unet_zoo_tpu_torch.ops.pooling import avg_pool2d, max_pool2d
-from unet_zoo_tpu_torch.ops.resize import resize_bilinear
+from unet_zoo_tpu_torch.ops.resize import resize_bilinear, resize_nearest, upsample2x_nearest
 
-__all__ = ["avg_pool2d", "max_pool2d", "pad_to_match", "resize_bilinear"]
+__all__ = ["avg_pool2d", "max_pool2d", "pad_to_match", "resize_bilinear", "resize_nearest",
+           "upsample2x_nearest"]

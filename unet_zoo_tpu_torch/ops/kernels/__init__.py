@@ -6,25 +6,28 @@ is built on its first launch (``build.py``).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 
 def use_kernel(use_kernels: Optional[bool], training: bool, x: torch.Tensor,
-               fits: bool = True, trains: bool = False) -> bool:
+               fits: bool = True, trains: bool = False,
+               dtypes: Tuple[torch.dtype, ...] = (torch.bfloat16,)) -> bool:
     """Whether a block runs its kernel on ``x``, the rule every model shares.
 
-    ``use_kernels`` ``None`` runs it for bfloat16 CUDA activations; ``True``
-    on any device, which on the CPU means its plain version; ``False``
-    never. In training only a block with a train-mode kernel (``trains``:
-    MedT's positional axis passes, K7) takes its kernel; every other block
-    trains on its module path. ``fits`` is the block's shape gate: a block
-    whose shape the kernel does not take runs its module path (a block with
-    no gate leaves it True and lets the kernel's wrapper raise).
+    ``use_kernels`` ``None`` runs it for CUDA activations of a type in
+    ``dtypes`` (bfloat16, the kernels' type; the int8 conv, whose arithmetic
+    is integer, takes float32 too); ``True`` on any device, which on the CPU
+    means its plain version; ``False`` never. In training only a block with a
+    train-mode kernel (``trains``: MedT's positional axis passes, K7) takes
+    its kernel; every other block trains on its module path. ``fits`` is the
+    block's shape gate: a block whose shape the kernel does not take runs its
+    module path (a block with no gate leaves it True and lets the kernel's
+    wrapper raise).
     """
     if use_kernels is False or not fits or (training and not trains):
         return False
     if use_kernels is None:
-        return x.is_cuda and x.dtype == torch.bfloat16
+        return x.is_cuda and x.dtype in dtypes
     return True

@@ -21,7 +21,16 @@ loads with ``strict=True``. It is the inverse of the JAX package's
   [k, k, C, O] (HWIO) -> ``rdb.convs.0.conv.weight`` [O, C, k, k];
 * LayerNorm: scale/bias -> weight/bias; SwinV2's ``tau`` and
   ``absolute_pos_embed`` as they are; its ``cpb_fc1``/``cpb_fc2`` ->
-  ``cpb.fc1``/``cpb.fc2`` and ``mlp_fc1``/``mlp_fc2`` -> ``mlp.fc1``/``mlp.fc2``.
+  ``cpb.fc1``/``cpb.fc2`` and ``mlp_fc1``/``mlp_fc2`` -> ``mlp.fc1``/``mlp.fc2``;
+* unet_tpu: the JAX names kept (``stem``, ``stem_bn``, ``enc{i}``,
+  ``down{i}``, ``bottleneck``, ``dec{i}``, ``head_dts``/``head``); a
+  ``ConvNormAct``'s ``Conv_0``/``BatchNorm_0`` -> ``conv``/``bn``.
+
+``quant_from_jax(model_name, quant)`` takes the ``quant`` collection that the
+JAX package's ``calibrate_int8`` adds (each gated conv's ``in_absmax``) and
+returns the port's int8 statistics, ``{conv module name: absmax}``, as
+``utils.serving.calibrate_int8`` returns them, so both sides serve the same
+calibrated int8 model.
 """
 
 from __future__ import annotations
@@ -76,6 +85,21 @@ def _unet(variables) -> Dict[str, torch.Tensor]:
         _double_conv(sd, f"up_convolution_{i + 1}.conv.conv_op",
                      up_p["DoubleConv_0"], up_s["DoubleConv_0"])
     _conv(sd, "out.conv", p["OutConv_0"]["Conv_0"])
+    return sd
+
+
+def _unet_tpu(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "stem", p["stem"])
+    _bn(sd, "stem_bn", p["stem_bn"], s["stem_bn"])
+    for name in p:
+        if name.startswith(("enc", "dec")) or name == "bottleneck":
+            _double_conv(sd, f"{name}.conv_op", p[name], s[name])
+        elif name.startswith("down"):
+            _conv(sd, f"{name}.conv", p[name]["Conv_0"])
+            _bn(sd, f"{name}.bn", p[name]["BatchNorm_0"], s[name]["BatchNorm_0"])
+    _conv(sd, "head_dts" if "head_dts" in p else "head", p.get("head_dts", p.get("head")))
     return sd
 
 
@@ -313,8 +337,8 @@ def _wranet(variables) -> Dict[str, torch.Tensor]:
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "axialunet": _medt_family, "gated": _medt_family, "logo": _medt_family,
     "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet,
-    "swin_unet_v2": _swin_unet_v2, "unet": _unet, "unext": _unext, "unext_s": _unext,
-    "wranet": _wranet}
+    "swin_unet_v2": _swin_unet_v2, "unet": _unet, "unet_tpu": _unet_tpu, "unext": _unext,
+    "unext_s": _unext, "wranet": _wranet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
@@ -324,3 +348,49 @@ def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
     if name not in CONVERTERS:
         raise ValueError(f"No converter for '{model_name}'. Available: {sorted(CONVERTERS)}")
     return CONVERTERS[name](variables)
+
+
+def _absmax(out, key, q):
+    if "in_absmax" in q:
+        out[key] = _t(q["in_absmax"]).reshape(())
+
+
+def _double_conv_quant(out, prefix, q):
+    for i, idx in enumerate((0, 3)):
+        _absmax(out, f"{prefix}.{idx}", q.get(f"ConvNormAct_{i}", {}))
+
+
+def _unet_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(4):
+        _double_conv_quant(out, f"down_convolution_{i + 1}.conv.conv_op",
+                           q.get(f"DownSample_{i}", {}).get("DoubleConv_0", {}))
+        _double_conv_quant(out, f"up_convolution_{i + 1}.conv.conv_op",
+                           q.get(f"UpSampleUNet_{i}", {}).get("DoubleConv_0", {}))
+    _double_conv_quant(out, "bottle_neck.conv_op", q.get("DoubleConv_0", {}))
+    return out
+
+
+def _unet_tpu_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in q.items():
+        if name.startswith("down"):
+            _absmax(out, f"{name}.conv", sub)
+        else:
+            _double_conv_quant(out, f"{name}.conv_op", sub)
+    return out
+
+
+QUANT_CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
+    "unet": _unet_quant, "unet_tpu": _unet_tpu_quant}
+
+
+def quant_from_jax(model_name: str, quant) -> Dict[str, torch.Tensor]:
+    """The JAX ``quant`` collection (``variables['quant']`` after
+    ``calibrate_int8``) -> the port's int8 statistics {conv name: absmax}.
+    A conv the JAX forward did not reach (a fused decoder stage) has none."""
+    name = model_name.lower()
+    if name not in QUANT_CONVERTERS:
+        raise ValueError(f"No int8 converter for '{model_name}'. "
+                         f"Available: {sorted(QUANT_CONVERTERS)}")
+    return QUANT_CONVERTERS[name](quant)

@@ -2,19 +2,21 @@
 
 ``make_predictor`` builds a predictor for a trained model: parameters
 rounded to bfloat16 (batch statistics stay float32), the decoder's kernel
-weights folded and packed once, and optional sigmoid/threshold and flip
-test-time augmentation. Counterpart of ``unet_zoo_tpu/utils/serving.py``.
+weights folded and packed once, optionally int8 convs from the statistics of
+``calibrate_int8``, and optional sigmoid/threshold and flip test-time
+augmentation. Counterpart of ``unet_zoo_tpu/utils/serving.py``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Mapping, Optional
+from typing import Callable, Dict, Iterable, Mapping, Optional
 
 import torch
 from torch import nn
 
 from unet_zoo_tpu_torch.models import ZooModel
+from unet_zoo_tpu_torch.nn import attach_int8, recording_conv_inputs
 
 _OUTPUTS = ("logits", "probs", "mask")
 
@@ -34,6 +36,43 @@ def cast_params_for_inference(module: nn.Module, dtype=torch.bfloat16) -> nn.Mod
     return out
 
 
+def calibrate_int8(model: ZooModel, batches: Iterable[torch.Tensor],
+                   state: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """Post-training-quantisation calibration for int8 serving (counterpart
+    of ``unet_zoo_tpu/utils/serving.py:32-63``).
+
+    Runs eval forwards of the float module path (no kernels, no int8) over
+    ``batches`` (NCHW images) with ``state`` (default: the module's own
+    weights), records each int8-gated conv's input absmax in float32 and
+    takes the maximum across batches. Returns ``{conv module name: absmax}``
+    (0-dim float32 tensors), the statistics ``make_predictor(quant=...)``
+    serves int8 with; the float ``state_dict`` is untouched.
+    """
+    net = copy.deepcopy(model.module).eval()
+    if state is not None:
+        net.load_state_dict(state, strict=True)
+    for m in net.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = False
+        if hasattr(m, "int8"):
+            del m.int8
+    device = next(net.parameters()).device
+    names = {m: n for n, m in net.named_modules()}
+    stats: Optional[Dict[str, torch.Tensor]] = None
+    for x in batches:
+        with torch.inference_mode(), recording_conv_inputs() as rec:
+            net(x.to(device=device, memory_format=torch.channels_last))
+        if not rec:
+            raise ValueError(
+                f"model '{model.name}' has no quantizable convs (none of "
+                "its compute routes through the int8-gated conv blocks)")
+        got = {names[m]: v for m, v in rec.items()}
+        stats = got if stats is None else {k: torch.maximum(stats[k], v) for k, v in got.items()}
+    if stats is None:
+        raise ValueError("calibrate_int8 needs at least one batch")
+    return stats
+
+
 def make_predictor(
     model: ZooModel,
     state: Optional[Mapping[str, torch.Tensor]] = None,
@@ -41,6 +80,7 @@ def make_predictor(
     threshold: float = 0.5,
     cast_bf16: bool = True,
     tta: bool = False,
+    quant: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``predict(images [B, C, H, W]) -> main output`` closure.
 
@@ -49,8 +89,11 @@ def make_predictor(
     ``'probs'`` the sigmoid probabilities (float32), ``'logits'`` raw
     logits. ``tta=True`` averages probabilities over the four H/V flips
     (each un-flipped first), run as one 4x batch; it rejects ``'logits'``.
-    The predictor works on a frozen copy of the module: later changes to
-    ``model`` do not reach it.
+    ``quant`` (from :func:`calibrate_int8`) serves those convs int8: their
+    served weights (bf16-rounded when ``cast_bf16``) are quantised once,
+    here, as JAX folds them into the program at trace time. The predictor
+    works on a frozen copy of the module: later changes to ``model`` do not
+    reach it.
     """
     if output not in _OUTPUTS:
         raise ValueError(f"output must be one of {_OUTPUTS}, got {output!r}")
@@ -64,6 +107,8 @@ def make_predictor(
     for m in net.modules():
         if hasattr(m, "freeze_kernel_weights"):
             m.freeze_kernel_weights()
+    if quant is not None:
+        attach_int8(net, quant)
     device = next(net.parameters()).device
 
     @torch.inference_mode()
