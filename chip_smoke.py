@@ -101,11 +101,13 @@
    paths and K8 at both launch shapes against its bound, its plain version
    and the bf16 module chain it replaces.
 17. Holds P2's int8 conv (``int8_conv3x3``, the implicit-GEMM int8 conv of
-   int8 serving) against its plain version, bit for bit, at every launch shape
-   of the served ``unet_tpu`` and ``unet`` and at odd shapes (Ci 3 and 20,
-   odd H and W, stride 2 on an odd size); each comparison is shown to reject
-   planted faults (the taps transposed, the stride ignored, a per-tensor
-   weight scale, the bias dropped).
+   int8 serving, which quantises its float x as it loads it) against its
+   plain version, bit for bit, at every launch shape of the served
+   ``unet_tpu`` (bf16 x) and ``unet`` (float32 x), split K included, and at
+   odd shapes (Ci 3 and 20, odd H and W, stride 2 on an odd size), with x on
+   exact half-way points of x / s_x and beyond +-127 s_x; each comparison is
+   shown to reject planted faults (the taps transposed, the stride ignored,
+   a per-tensor weight scale, the bias dropped, ties rounded away from 0).
 18. Calibrates and serves ``unet_tpu`` (registry widths, bf16, bf16-rounded
    weights) and ``unet`` (float32, the README's int8 recipe) at B=8, 256px
    three ways: float, int8 on the kernel path, int8 on the plain path. The
@@ -114,13 +116,20 @@
    its plain version; the paths' logits and masks, and int8 against float
    (JAX's bars); img/s, device-time breakdowns, and the int8 conv at every
    launch shape against its bound, its plain version and cuDNN's bf16 conv.
+   The int8 kernel path's profiled forward must hold no round kernel and no
+   more divide or clamp kernels than the float path's: x is quantised inside
+   P2's conv.
 19. P2's GEMM at 4096^3 on its probe's path: s8 bit for bit against
-   ``torch._int_mm``, bf16 against float32; rates against the bounds and the
-   library calls, and the int8/bf16 ratio.
+   ``torch._int_mm``, bf16 against float32, and at ragged shapes with K 64,
+   128 and 4096; rates against the bounds and the library calls, and the
+   int8/bf16 ratio. The built P2 library must hold wgmma instructions
+   (``IGMMA`` and ``HGMMA`` in ``cuobjdump -sass``).
 20. P1's row gather at its probe's shape, bit for bit against
    ``index_select``, timed by CUDA graph replay against its bytes bound.
 21. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
+
+Steps 17-20 run right after step 4.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the repository; it imports nothing of JAX.
@@ -284,8 +293,9 @@ INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18}
 # the same type: JAX's own bars (tests/test_quant.py:57-60)
 INT8_PATHS_REL_L2, INT8_PATHS_AGREE = 1e-3, 0.99
 INT8_FLOAT_REL_L2, INT8_FLOAT_AGREE = 0.10, 0.95
-# P2's GEMM at the probe's default shape, P1's gather at its probe's shape
+# P2's GEMM at the probe's default shape and tile, P1's gather at its probe's shape
 GEMM_SIZE = 4096
+GEMM_TILE = (128, 256)
 GATHER_ROWS, GATHER_C, GATHER_N = 4096, 128, 4096
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
@@ -388,14 +398,17 @@ def morph_work(b, c, h, w, k, repeat):
 def trace_once(torch, fn):
     """Device events of one traced call of ``fn`` (synchronised), without
     the ranges of user annotations (such as ``Optimizer.step``), which span
-    kernels already counted."""
+    kernels already counted. A short spin kernel opens each trace and is left
+    out: the profiler often lost the first kernel of a trace (the int8
+    float32 unet's first conv, 17 P2 grids seen of 18 launched)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+            and not getattr(e, "is_user_annotation", False) and "spin_kernel" not in e.name]
 
 
 def profile_forward(torch, fn):
@@ -2332,74 +2345,79 @@ def int8_launch_shapes(name, image=IMAGE, batch=SERVE_BATCH):
     (unet 64 -> 1024 channels; unet_tpu at UNET_TPU_WIDTHS, the stem to
     image / 4): rows of (B, H, W, Ci, Co, stride, launches), H and W the
     conv's input, in the order of first launch."""
-    convs = []
-    if name == "unet":
-        chans, cin, size = (64, 128, 256, 512), 3, image
-        for c in chans:
-            convs += [(size, cin, c, 1), (size, c, c, 1)]
-            cin, size = c, size // 2
-        convs += [(size, 512, 1024, 1), (size, 1024, 1024, 1)]
-        for c in reversed(chans):
-            size *= 2
-            convs += [(size, 2 * c, c, 1), (size, c, c, 1)]
-    else:
-        w, size = UNET_TPU_WIDTHS, image // 4
-        for i in range(3):
-            convs += [(size, w[i], w[i], 1)] * 2 + [(size, w[i], w[i + 1], 2)]
-            size //= 2
-        convs += [(size, w[3], w[3], 1)] * 2
-        for i in (2, 1, 0):
-            size *= 2
-            convs += [(size, w[i + 1] + w[i], w[i], 1), (size, w[i], w[i], 1)]
-    counts = {}
-    for c in convs:
-        counts[c] = counts.get(c, 0) + 1
-    return [(batch, s, s, ci, co, st, n) for (s, ci, co, st), n in counts.items()]
+    from unet_zoo_tpu_torch.probes import int8_conv_plan
+
+    return int8_conv_plan.launch_shapes(name, image, batch, UNET_TPU_WIDTHS)
 
 
-def int8_conv_work(b, h, w, ci, co, stride, out_bytes):
+def int8_conv_work(b, h, w, ci, co, stride, out_bytes, x_bytes=1):
     """P2's conv: (int8 operations, least bytes): 2 * 9 Ci multiply-adds per
-    output element; xq read once, the int8 weights, scale and bias once, the
-    output written once."""
+    output element; x read once (``x_bytes`` an element: the float x the
+    kernel quantises), the int8 weights, scale and bias once, the output
+    written once. The quantisation's divisions are not counted."""
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     m = b * ho * wo
-    return 2 * m * co * 9 * ci, b * h * w * ci + 9 * ci * co + 8 * co + out_bytes * m * co
+    return (2 * m * co * 9 * ci,
+            x_bytes * b * h * w * ci + 9 * ci * co + 8 * co + out_bytes * m * co)
 
 
-def int8_conv_case(torch, gen, b, h, w, ci, co, device):
-    """Random int8 operands over the whole range, the OIHW weights, a
-    per-channel scale of calibrated size (s_x * s_w ~ 1e-4) and a bias."""
-    r8 = lambda *s: torch.randint(-127, 128, s, generator=gen, device=device, dtype=torch.int8)
+def int8_conv_case(torch, gen, b, h, w, ci, co, xdtype, device):
+    """A float x of type ``xdtype`` (NHWC) with s_x = 2^-3, so that x / s_x
+    is exact: a tenth of x on half-way points (n + 1/2) s_x, which round half
+    to even, a twentieth at +-200 s_x, which clamp, the rest normal at 40 s_x;
+    int8 OIHW weights over the whole range, a per-channel scale of calibrated
+    size (s_x * s_w ~ 1e-4) and a bias."""
+    s_x = torch.tensor(0.125, device=device)
+    x = torch.randn(b, h, w, ci, generator=gen, device=device) * 40 * s_x
+    spots = torch.rand(b, h, w, ci, generator=gen, device=device)
+    half = (torch.randint(-127, 127, (b, h, w, ci), generator=gen, device=device) + 0.5) * s_x
+    x = torch.where(spots < 0.1, half, x)
+    x = torch.where(spots > 0.95, torch.sign(x) * 200 * s_x, x).to(xdtype)
+    wq = torch.randint(-127, 128, (co, ci, 3, 3), generator=gen, device=device, dtype=torch.int8)
     scale = 1e-4 * (0.5 + torch.rand(co, generator=gen, device=device))
-    return r8(b, h, w, ci), r8(co, ci, 3, 3), scale, 0.1 * torch.randn(co, generator=gen,
-                                                                          device=device)
+    return x, s_x, wq, scale, 0.1 * torch.randn(co, generator=gen, device=device)
 
 
-def int8_faults(torch, xq, wq, scale, bias, stride, dtype):
+def int8_timing_case(torch, gen, b, h, w, ci, co, xdtype, device):
+    """int8_conv_case with the x a served conv sees: a ReLU output (half of
+    it 0) of type ``xdtype``, s_x calibrated from its absmax; no value is
+    planted on a half-way point."""
+    from unet_zoo_tpu_torch.ops import quant
+
+    _, _, wq, scale, bias = int8_conv_case(torch, gen, 1, 1, 1, ci, co, xdtype, device)
+    x = torch.relu(torch.randn(b, h, w, ci, generator=gen, device=device)).to(xdtype)
+    return x, quant.activation_scale(x.float().abs().amax()), wq, scale, bias
+
+
+def int8_faults(torch, x, s_x, wq, scale, bias, stride, dtype):
     """P2's plain version with a fault planted each, on one image: the taps
     transposed, the stride ignored (each output read the input as at stride
     1), a per-tensor weight scale instead of the per-channel one, the bias
-    dropped."""
+    dropped, x quantised with ties rounded away from zero."""
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
 
-    ref = lambda w_, sc, bi, st: p2.int8_conv3x3_reference(xq, p2.pack_conv_weight(w_), sc, bi,
-                                                            st, dtype)
+    ref = lambda w_, sc, bi, st, x_=x, s_=s_x: p2.int8_conv3x3_reference(
+        x_, s_, p2.pack_conv_weight(w_), sc, bi, st, dtype)
+    t = x.float() / s_x
+    ties_away = torch.clamp(torch.trunc(t + 0.5 * torch.sign(t)), -127, 127)
     faults = {"taps transposed": ref(wq.transpose(2, 3).contiguous(), scale, bias, stride),
               "per-tensor s_w": ref(wq, torch.full_like(scale, scale.max().item()), bias, stride),
-              "bias dropped": ref(wq, scale, None, stride)}
+              "bias dropped": ref(wq, scale, None, stride),
+              "ties away from 0": ref(wq, scale, bias, stride, ties_away, torch.ones_like(s_x))}
     if stride == 2:
-        ho, wo = (xq.shape[1] - 1) // 2 + 1, (xq.shape[2] - 1) // 2 + 1
+        ho, wo = (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1
         faults["stride ignored"] = ref(wq, scale, bias, 1)[:, :ho, :wo]
     return faults
 
 
 def check_int8_conv(torch, gen, device):
     """P2's int8 conv against its plain version, bit for bit, at every
-    distinct launch shape of the served unet_tpu (bf16 out) and unet (float32
-    out) at B=8/256px and at odd shapes (Ci 3 and 20, odd H and W, stride 2
-    on an odd size, Co not a multiple of the tile); the comparison is shown
-    to reject planted faults (int8_faults) on the first image of each shape.
-    Returns the max abs error (0 when every launch agrees bit for bit)."""
+    distinct launch shape of the served unet_tpu (bf16 x and out) and unet
+    (float32) at B=8/256px and at odd shapes (Ci 3 and 20, odd H and W,
+    stride 2 on an odd size, Co not a multiple of the tile), x drawn by
+    int8_conv_case; the comparison is shown to reject planted faults
+    (int8_faults) on the first image of each shape. Returns the max abs error
+    (0 when every launch agrees bit for bit)."""
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
 
     cases = [(*row[:6], torch.bfloat16) for row in int8_launch_shapes("unet_tpu")]
@@ -2408,19 +2426,21 @@ def check_int8_conv(torch, gen, device):
               (2, 31, 31, 48, 130, 2, torch.bfloat16)]
     err = 0.0
     for b, h, w, ci, co, stride, dtype in cases:
-        xq, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, device)
+        x, s_x, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, dtype, device)
         wp = p2.pack_conv_weight(wq)
-        got = p2.int8_conv3x3(xq, wp, scale, bias, stride, dtype)
-        ref = p2.int8_conv3x3_reference(xq, wp, scale, bias, stride, dtype)
-        faults = int8_faults(torch, xq[:1], wq, scale, bias, stride, dtype)
+        got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
+        ref = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype)
+        faults = int8_faults(torch, x[:1], s_x, wq, scale, bias, stride, dtype)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got.float()).all()
         rms = ref.float().pow(2).mean().sqrt().item()
         e = (got.float() - ref.float()).abs().max().item()
         caught = {k: (got[:1].float() - f.float()).abs().max().item() / rms
                   for k, f in faults.items()}
-        log(f"P2 conv [{b}, {h}, {w}, {ci}] -> {co} stride {stride} {str(dtype)[6:]}: "
-            f"max_abs_err {e:.3e} (bit for bit: {torch.equal(got, ref)}); least planted fault "
+        plan = p2.conv_plan(b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1), co, wp.shape[1])
+        log(f"P2 conv [{b}, {h}, {w}, {ci}] -> {co} stride {stride} {str(dtype)[6:]} (tile "
+            f"{plan[0]} x {plan[1]}, K split {plan[2]}): max_abs_err {e:.3e} (bit for bit: "
+            f"{torch.equal(got, ref)}); least planted fault "
             f"{min(caught.values()):.3e} of the output rms ({min(caught, key=caught.get)})")
         if not torch.equal(got, ref):
             raise AssertionError(f"the int8 conv kernel disagrees with its plain version: {e}")
@@ -2433,21 +2453,25 @@ def check_int8_conv(torch, gen, device):
 def checked_int8_launches(torch, fn):
     """Run ``fn()`` with every int8 conv launch also held against the plain
     version on its own operands (bit for bit); returns (fn's result, launch
-    shapes as int8_launch_shapes rows without counts, mismatching launches)."""
+    shapes as int8_launch_shapes rows without counts, mismatching launches,
+    launches whose x was not channels-last and was copied)."""
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
 
-    kernel, shapes, bad = p2.int8_conv3x3, [], []
+    kernel, shapes, bad, copied = p2.int8_conv3x3, [], [], []
 
-    def launch(xq, wp, scale, bias, stride, dtype):
-        got = kernel(xq, wp, scale, bias, stride, dtype)
-        shapes.append((*xq.shape, wp.shape[0], stride))
-        if not torch.equal(got, p2.int8_conv3x3_reference(xq, wp, scale, bias, stride, dtype)):
+    def launch(x, s_x, wp, scale, bias, stride, dtype):
+        got = kernel(x, s_x, wp, scale, bias, stride, dtype)
+        shapes.append((*x.shape, wp.shape[0], stride))
+        if not x.is_contiguous():
+            copied.append(shapes[-1])
+        ref = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype)
+        if not torch.equal(got, ref):
             bad.append(shapes[-1])
         return got
 
     p2.int8_conv3x3 = launch
     try:
-        return fn(), shapes, bad
+        return fn(), shapes, bad, copied
     finally:
         p2.int8_conv3x3 = kernel
 
@@ -2515,18 +2539,43 @@ def serve_int8(torch, gen, device, name):
             and readings["int8_vs_float_mask_agreement"] >= INT8_FLOAT_AGREE):
         raise AssertionError(f"{name}: int8 serving strays from float beyond JAX's bars")
 
-    _, shapes, bad = checked_int8_launches(torch, lambda: preds["int8 kernel"](x))
+    _, shapes, bad, copied = checked_int8_launches(torch, lambda: preds["int8 kernel"](x))
     expected = sorted(r[:6] for r in int8_launch_shapes(name) for _ in range(r[6]))
     log(f"{name}: its {len(shapes)} int8 conv launches against the plain version on their own "
-        f"operands: {len(shapes) - len(bad)} bit for bit")
+        f"operands: {len(shapes) - len(bad)} bit for bit; x copied to channels-last for "
+        f"{len(copied)}: {copied}")
     if bad or len(shapes) != want or sorted(shapes) != expected:
         raise AssertionError(f"{name}: int8 launches {shapes}, mismatching {bad}")
     events = profile_forward(torch, lambda: preds["int8 kernel"](x))
-    seen = sum("int8_conv_kernel" in e.name for e in events)
+    seen = sum("p2_kernel" in e.name for e in events)
+    for _ in range(PROFILE_TRIES - 1):
+        if seen == want:
+            break
+        # two traces in a row can lose the same record (seen once on unet)
+        log(f"profiler: {seen} P2 conv grids against {want} launches; tracing again")
+        PROFILE_RETAKES[0] += 1
+        events = profile_forward(torch, lambda: preds["int8 kernel"](x))
+        seen = sum("p2_kernel" in e.name for e in events)
     seen_k1 = sum("fused_up_gemm" in e.name for e in events)
-    log(f"profiler: {seen} int8_conv_kernel grids, {seen_k1} K1 grids in one int8 {name} forward")
+    log(f"profiler: {seen} P2 conv grids, {seen_k1} K1 grids in one int8 {name} forward")
     if seen != want or seen_k1:
-        raise AssertionError(f"profiler saw the int8 conv {seen} times (K1 {seen_k1}) in {name}")
+        grids = {}
+        for e in events:
+            grids[e.name[:60]] = grids.get(e.name[:60], 0) + 1
+        raise AssertionError(f"profiler saw the int8 conv {seen} times (K1 {seen_k1}) in {name}: "
+                             f"{grids}")
+    # x is quantised inside P2's conv: no ATen round, and no divide or clamp
+    # pass beyond what the float path launches
+    quant_passes = {}
+    for path, evs in (("int8 kernel", events),
+                      ("float", profile_forward(torch, lambda: preds["float"](x)))):
+        quant_passes[path] = {op: sum(op in e.name.lower() for e in evs)
+                              for op in ("round", "div", "clamp")}
+    log(f"profiler: round/div/clamp kernels per forward {quant_passes}")
+    qi, qf = quant_passes["int8 kernel"], quant_passes["float"]
+    if qi["round"] or qi["div"] > qf["div"] or qi["clamp"] > qf["clamp"]:
+        raise AssertionError(f"{name}: the int8 path still quantises x outside the kernel: "
+                             f"{quant_passes}")
 
     timed = {k: v for k, v in preds.items() if k != "int8 plain"}
     times = serve_times(torch, timed, x)
@@ -2539,16 +2588,24 @@ def serve_int8(torch, gen, device, name):
     busy = {path: breakdown(torch, f"{name} {path}", lambda: preds[path](x), med[path])
             for path in ("float", "int8 kernel")}
     return dict(launches=launches, k1_launches=k1_launches, profiler_grids=seen,
-                launches_bit_for_bit=len(shapes) - len(bad), serve_img_per_s=rates,
+                launches_bit_for_bit=len(shapes) - len(bad), x_copied=copied,
+                quant_passes=quant_passes, serve_img_per_s=rates,
                 forward_ms=med, device_busy_ms=busy,
                 idle_share={p: 1 - busy[p] / med[p] for p in busy}, **readings)
 
 
 def time_int8_conv(torch, gen, device, name):
-    """P2's conv at each launch shape of one B=8 forward of ``name``: kernel,
-    plain version (float64 on the card), bound (int8 operations), and cuDNN's
-    bf16 conv of the same shape (a yardstick of what int8 saves; no PyTorch
-    call computes the int8 conv, so library_ms is null)."""
+    """P2's conv at each launch shape of one B=8 forward of ``name``, from the
+    float x it quantises (bf16 for unet_tpu, float32 for unet; drawn by
+    int8_timing_case, as a served conv sees it): kernel and cuDNN by CUDA
+    graph replay (``graph_ms``: a launch's host cost, 20-70 us through the
+    wrapper, exceeds the small shapes' device time), plain
+    version (float64 on the card), bound (int8 operations), and cuDNN's bf16
+    conv of the same shape (a yardstick of what int8 saves; no PyTorch call
+    computes the int8 conv, so library_ms is null); the plan (tile, splits)
+    and the host's cost of one launch through the wrapper (the mean of 200
+    back-to-back calls, queued behind a spin of the device so that none
+    waits on it)."""
     import torch.nn.functional as F
 
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
@@ -2556,32 +2613,50 @@ def time_int8_conv(torch, gen, device, name):
     dtype = torch.bfloat16 if name == "unet_tpu" else torch.float32
     rows = []
     for b, h, w, ci, co, stride, n in int8_launch_shapes(name):
-        xq, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, device)
+        x, s_x, wq, scale, bias = int8_timing_case(torch, gen, b, h, w, ci, co, dtype, device)
         wp = p2.pack_conv_weight(wq)
-        xb = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         bb = bias.to(torch.bfloat16)
-        ms = cuda_ms(torch, lambda: p2.int8_conv3x3(xq, wp, scale, bias, stride, dtype), 20)
-        plain_ms = cuda_ms(torch, lambda: p2.int8_conv3x3_reference(xq, wp, scale, bias, stride,
-                                                                     dtype), 2)
-        cudnn_ms = cuda_ms(torch, lambda: F.conv2d(xb, wb, bb, stride=stride, padding=1), 20)
-        ops, nbytes = int8_conv_work(b, h, w, ci, co, stride, 2 if dtype == torch.bfloat16 else 4)
+        ms = graph_ms(torch, lambda: p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype), 20)
+        plain_ms = cuda_ms(torch, lambda: p2.int8_conv3x3_reference(x, s_x, wp, scale, bias,
+                                                                     stride, dtype), 2)
+        cudnn_ms = graph_ms(torch, lambda: F.conv2d(xb, wb, bb, stride=stride, padding=1), 20)
+        ops, nbytes = int8_conv_work(b, h, w, ci, co, stride, 2 if dtype == torch.bfloat16 else 4,
+                                     x.element_size())
         bound_ms, bound_by = bound(0, nbytes, int8_ops=ops)
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        plan = p2.conv_plan(b * ho * wo, co, wp.shape[1])
         rows.append(dict(model=name, b=b, h=h, w=w, ci=ci, co=co, stride=stride, launches=n,
-                         int8_ops=ops, bytes=nbytes, ms=ms, plain_ms=plain_ms,
-                         cudnn_bf16_ms=cudnn_ms, bound_ms=bound_ms, bound_by=bound_by))
-        log(f"P2 conv {name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} x{n}: {ms:.4f} ms "
-            f"({ops / ms / 1e9:.1f} TOP/s, {bound_ms / ms:.3f} of its bound {bound_ms:.4f} ms, "
-            f"{bound_by}), plain {plain_ms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
-    return rows
+                         tile=plan[:2], splits=plan[2], int8_ops=ops, bytes=nbytes, ms=ms,
+                         plain_ms=plain_ms, cudnn_bf16_ms=cudnn_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        log(f"P2 conv {name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} x{n} (tile {plan[0]} x "
+            f"{plan[1]}, K split {plan[2]}): {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, "
+            f"{bound_ms / ms:.3f} of its bound {bound_ms:.4f} ms, {bound_by}), plain "
+            f"{plain_ms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
+    b, h, w, ci, co, stride, _ = int8_launch_shapes(name)[-1]
+    x, s_x, wq, scale, bias = int8_timing_case(torch, gen, b, h, w, ci, co, dtype, device)
+    wp = p2.pack_conv_weight(wq)
+    p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"P2 conv {name}: {host_us:.1f} us of host time a launch through the wrapper")
+    return rows, host_us
 
 
 def check_gemm(torch, gen, device):
     """P2's GEMM at M = N = K = GEMM_SIZE: s8 bit for bit against
     ``torch._int_mm``, bf16 against the float32 product (1e-5 sqrt(K) of the
-    output rms), each beside a planted fault (B read as [K, N]); then the
-    probe's own path (``probes.int8_matmul``, 20 timed launches of each type)
-    with the launch counter set to 0 just before it; kernel, plain version,
+    output rms), each beside a planted fault (B read as [K, N]), and both
+    at ragged shapes; then the probe's own path (``probes.int8_matmul``, 20
+    timed launches of each type) with the launch counter set to 0 just
+    before it; kernel (at GEMM_TILE and at every tile), plain version,
     library call and bound of each type."""
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
     from unet_zoo_tpu_torch.probes import int8_matmul as probe
@@ -2589,8 +2664,8 @@ def check_gemm(torch, gen, device):
     n = GEMM_SIZE
     a8, b8 = probe.operands(n, n, n, torch.int8, 7, device)
     a16, b16 = probe.operands(n, n, n, torch.bfloat16, 8, device)
-    got8, lib8 = p2.matmul(a8, b8), torch._int_mm(a8, b8.t())
-    got16, ref16 = p2.matmul(a16, b16), p2.matmul_reference(a16, b16)
+    got8, lib8 = p2.matmul(a8, b8, GEMM_TILE), torch._int_mm(a8, b8.t())
+    got16, ref16 = p2.matmul(a16, b16, GEMM_TILE), p2.matmul_reference(a16, b16)
     torch.cuda.synchronize()
     exact = torch.equal(got8, lib8)
     err16 = (got16 - ref16).abs().max().item()
@@ -2602,29 +2677,44 @@ def check_gemm(torch, gen, device):
         f"{fault16:.3e})")
     if not (exact and fault8 and err16 <= lim16 < fault16):
         raise AssertionError("the GEMM kernel disagrees with its plain version or library call")
+    for m, nn, k in ((300, 200, 64), (300, 200, 128), (131, 1000, 4096)):
+        for tile in p2.GEMM_TILES:
+            a, b = probe.operands(m, nn, k, torch.int8, m + k, device)
+            if not torch.equal(p2.matmul(a, b, tile), torch._int_mm(a, b.t())):
+                raise AssertionError(f"the s8 GEMM kernel disagrees at {m, nn, k}, tile {tile}")
+            a, b = probe.operands(m, nn, k, torch.bfloat16, m + k, device)
+            ref = p2.matmul_reference(a, b)
+            e = (p2.matmul(a, b, tile) - ref).abs().max().item()
+            if not e <= 1e-5 * k ** 0.5 * ref.pow(2).mean().sqrt().item():
+                raise AssertionError(f"the bf16 GEMM kernel disagrees at {m, nn, k}: {e}")
+    log(f"P2 GEMM: s8 bit for bit and bf16 within its limit at [300, 200] K 64 and 128, "
+        f"[131, 1000] K 4096, tiles {p2.GEMM_TILES}")
 
     p2.LAUNCHES["matmul"] = 0
     probe_s = {"bf16": probe.bench_case("hopper bf16xbf16->f32", n, n, n, torch.bfloat16, 20,
-                                        (128, 128), device),
+                                        GEMM_TILE, device),
                "s8": probe.bench_case("hopper s8xs8->s32   ", n, n, n, torch.int8, 20,
-                                      (128, 128), device)}
+                                      GEMM_TILE, device)}
     launches = p2.LAUNCHES["matmul"]
     out = dict(launches=launches, s8_bit_for_bit=exact, bf16_max_abs_err=err16)
     for key, a, b, lib in (("s8", a8, b8, lambda: torch._int_mm(a8, b8.t())),
                            ("bf16", a16, b16, lambda: torch.matmul(a16, b16.t()))):
-        ms = cuda_ms(torch, lambda: p2.matmul(a, b), 20)
+        ms = cuda_ms(torch, lambda: p2.matmul(a, b, GEMM_TILE), 20)
         plain_ms = cuda_ms(torch, lambda: p2.matmul_reference(a, b), 3)
         lib_ms = cuda_ms(torch, lib, 20)
         ops = 2 * n ** 3
         nbytes = 2 * n * n * a.element_size() + 4 * n * n
         bound_ms, bound_by = bound(ops if key == "bf16" else 0, nbytes,
                                    int8_ops=ops if key == "s8" else 0)
+        tile_ms = {f"{bm}x{bn}": cuda_ms(torch, lambda: p2.matmul(a, b, (bm, bn)), 20)
+                   for bm, bn in p2.GEMM_TILES}
         out[key] = dict(ms=ms, probe_ms=1e3 * probe_s[key] / 20, plain_ms=plain_ms,
                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
-                        tera_per_s=ops / ms / 1e9, library_tera_per_s=ops / lib_ms / 1e9)
+                        tera_per_s=ops / ms / 1e9, library_tera_per_s=ops / lib_ms / 1e9,
+                        tile_ms=tile_ms)
         log(f"P2 GEMM {key} {n}^3: {ms:.4f} ms ({ops / ms / 1e9:.1f} T/s, {bound_ms / ms:.3f} of "
             f"its bound {bound_ms:.4f} ms), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-            f"({ops / lib_ms / 1e9:.1f} T/s)")
+            f"({ops / lib_ms / 1e9:.1f} T/s); by tile {tile_ms}")
     out["int8_over_bf16"] = out["bf16"]["ms"] / out["s8"]["ms"]
     out["library_int8_over_bf16"] = out["bf16"]["library_ms"] / out["s8"]["library_ms"]
     log(f"P2 GEMM: int8 / bf16 rate {out['int8_over_bf16']:.3f}x (library "
@@ -2664,6 +2754,18 @@ def check_gather(torch, gen, device):
     return dict(launches=launches, max_abs_err=(got - ref).abs().max().item(), ms=ms,
                 plain_ms=plain_ms, library_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes=nbytes, probe=probed)
+
+
+def wgmma_counts(build):
+    """Counts of the int8 (IGMMA) and bf16 (HGMMA) wgmma instructions in
+    ``cuobjdump -sass`` of the built P2 library."""
+    import os
+
+    lib = build.build_all()["int8_gemm"]
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return {op: sum(op in line for line in sass.splitlines()) for op in ("IGMMA", "HGMMA")}
 
 
 def per_forward(rows, key):
@@ -2807,6 +2909,18 @@ def main() -> int:
             f"plain {plain_ms:.4f} ms, cuDNN chain {chain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
 
+    # 17-20. int8 serving through P2's conv (unet_tpu, unet), P2's GEMM and
+    # P1's gather on their probes' paths, run here, early: late in the run the
+    # profiler kept losing one P2 grid of the float32 unet's trace, which
+    # traces of the same forward in a fresh process hold
+    p2_conv_err = check_int8_conv(torch, gen, device)
+    int8_serving = {name: serve_int8(torch, gen, device, name) for name in INT8_LAUNCHES}
+    p2_timed = {name: time_int8_conv(torch, gen, device, name) for name in INT8_LAUNCHES}
+    p2_rows = {name: rows for name, (rows, _) in p2_timed.items()}
+    torch.cuda.empty_cache()
+    gemm = check_gemm(torch, gen, device)
+    gather = check_gather(torch, gen, device)
+
     # 5-6. mmunet: K4 and K5 checks, serving, per-shape timings
     k4_err, k5_err = check_k4_k5(torch, gen, device)
     mm_launches, mm_rates, mm_med, mm_busy, mm_agreement = serve_mmunet(torch, gen, device)
@@ -2854,15 +2968,6 @@ def main() -> int:
     wranet = serve_wranet(torch, gen, device)
     k8_rows = time_k8(torch, gen, device)
 
-    # 17-20. int8 serving through P2's conv (unet_tpu, unet), P2's GEMM and
-    # P1's gather on their probes' paths
-    p2_conv_err = check_int8_conv(torch, gen, device)
-    int8_serving = {name: serve_int8(torch, gen, device, name) for name in INT8_LAUNCHES}
-    p2_rows = {name: time_int8_conv(torch, gen, device, name) for name in INT8_LAUNCHES}
-    torch.cuda.empty_cache()
-    gemm = check_gemm(torch, gen, device)
-    gather = check_gather(torch, gen, device)
-
     p2_per_model = {}
     for name, rows in p2_rows.items():
         b = bound(0, per_forward(rows, "bytes"), int8_ops=per_forward(rows, "int8_ops"))
@@ -2870,7 +2975,7 @@ def main() -> int:
                                   ms=per_forward(rows, "ms"), plain_ms=per_forward(rows, "plain_ms"),
                                   cudnn_bf16_ms=per_forward(rows, "cudnn_bf16_ms"),
                                   int8_ops=per_forward(rows, "int8_ops"), bound_ms=b[0],
-                                  bound_by=b[1])
+                                  bound_by=b[1], host_us_per_launch=p2_timed[name][1])
         log(f"P2 conv per {name} forward: {p2_per_model[name]}")
 
     total = lambda key: sum(s[key] for s in stages)
@@ -2908,6 +3013,10 @@ def main() -> int:
         f"{per_forward(k8_rows, 'plain_ms'):.4f} ms, module chain "
         f"{per_forward(k8_rows, 'module_chain_ms'):.4f} ms, bound {k8_bound[0]:.4f} ms "
         f"({k8_bound[1]})")
+    gmma = wgmma_counts(build)
+    log(f"P2: {gmma} wgmma instructions in cuobjdump -sass of the built int8_gemm library")
+    if not (gmma["IGMMA"] and gmma["HGMMA"]):
+        raise AssertionError(f"the built P2 library holds no wgmma of a type: {gmma}")
     log(f"profiler: {PROFILE_RETAKES[0]} traces retaken after a trace that lost records")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the kernels line")
     log(json.dumps({"kernels": [{
@@ -3052,6 +3161,7 @@ def main() -> int:
         "bound_by": p2_per_model["unet_tpu"]["bound_by"],
         "library_ms": None,
         "cudnn_bf16_ms": p2_per_model["unet_tpu"]["cudnn_bf16_ms"],
+        "sass_wgmma": gmma,
         "per_model": p2_per_model,
         "serving": int8_serving,
         "shapes": p2_rows,

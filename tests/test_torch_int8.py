@@ -135,8 +135,165 @@ def test_plain_int8_conv_matches_jax_exactly(stride, ci, h, w, co):
     wp = p2.pack_conv_weight(wq)
     assert wp.shape == (co, -(-9 * ci // 64) * 64) and not wp[:, 9 * ci:].any()
     ones = torch.ones(co)
-    acc = p2.int8_conv3x3_reference(torch.from_numpy(x), wp, ones, None, stride, torch.float32)
+    acc = p2.int8_conv3x3_reference(torch.from_numpy(x).float(), torch.tensor(1.0), wp, ones,
+                                    None, stride, torch.float32)
     np.testing.assert_array_equal(acc.numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("ci", [3, 20, 64, 128, 384])
+def test_pack_conv_weight_round_trip(ci):
+    """pack_conv_weight's K order: (ky, kx, ci), or for Ci a multiple of 128
+    (channel block, ky, kx, ci in the block), one tap of one block per
+    128-byte K stage of the kernel; unpack_conv_weight inverts it."""
+    rng = np.random.default_rng(ci)
+    w = torch.from_numpy(rng.integers(-127, 128, (5, ci, 3, 3)).astype(np.int8))
+    wp = p2.pack_conv_weight(w)
+    assert wp.shape == (5, -(-9 * ci // p2.K_ALIGN) * p2.K_ALIGN) and not wp[:, 9 * ci:].any()
+    assert torch.equal(p2.unpack_conv_weight(wp, ci), w)
+    for kt in range(9 * ci // p2.K_STAGE if ci % p2.K_STAGE == 0 else 0):
+        block, tap = divmod(kt, 9)
+        assert torch.equal(wp[:, kt * p2.K_STAGE:(kt + 1) * p2.K_STAGE],
+                           w[:, block * p2.K_STAGE:(block + 1) * p2.K_STAGE, tap // 3, tap % 3])
+
+
+# The kernel's plain version takes the float activation and s_x, as the
+# kernel does (it quantises x as it loads it). s_x = 2^-3 (absmax 15.875)
+# puts (n + 1/2) s_x exactly on half-way points of x / s_x, which round half
+# to even; 3.7 is a scale with no such points. Values beyond 127 s_x clamp.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("absmax", [15.875, 3.7])
+def test_int8_conv_reference_matches_jax_quant_conv(dtype, stride, absmax):
+    """``int8_conv3x3_reference(x, s_x, ...)`` against JAX's ``_QuantConv``
+    (``unet_zoo_tpu/nn/blocks.py:82-101``, applied op by op) on the same
+    float x, kernel, bias and absmax: equal in every bit."""
+    from unet_zoo_tpu.nn.blocks import _QuantConv
+
+    ci, co, h, w = 16, 24, 9, 7
+    rng = np.random.default_rng(int(absmax * 10) + stride)
+    s_x = np.float32(absmax) / np.float32(127.0)
+    x = (rng.standard_normal((2, h, w, ci)) * absmax / 2).astype(np.float32)
+    spots = rng.random(x.shape)
+    x = np.where(spots < 0.2, (rng.integers(-127, 127, x.shape) + 0.5) * s_x, x)
+    x = np.where(spots > 0.95, rng.choice([-1.0, 1.0], x.shape) * 200 * s_x, x)
+    x = x.astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    if dtype == torch.bfloat16:
+        x = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    k = (rng.standard_normal((3, 3, ci, co)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal(co) * 0.1).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdt)
+    if absmax == 15.875:
+        assert (np.asarray(xj.astype(jnp.float32)) / s_x % 1 == 0.5).mean() > 0.1
+    assert (np.abs(x) > 127.5 * s_x).mean() > 0.02
+    want = np.asarray(_QuantConv(co, strides=stride, dtype=jdt).apply(
+        {"params": {"kernel": jnp.asarray(k), "bias": jnp.asarray(bias)}}, xj,
+        jnp.float32(absmax)).astype(jnp.float32))
+
+    kt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
+    s_w = quant.weight_scale(kt)
+    st = quant.activation_scale(torch.tensor(absmax, dtype=torch.float32))
+    wp = p2.pack_conv_weight(quant.quantize_weight(kt, s_w))
+    xt = torch.from_numpy(x).to(dtype)
+    got = p2.int8_conv3x3_reference(xt, st, wp, st * s_w, torch.from_numpy(bias), stride, dtype)
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    # through the wrapper on the CPU: the plain version
+    torch.testing.assert_close(p2.int8_conv3x3(xt, st, wp, st * s_w, torch.from_numpy(bias),
+                                               stride, dtype), got, rtol=0, atol=0)
+
+
+def _fma32(a, b, c):
+    """rn(a * b + c) in float32, one rounding (a float32 product is exact in
+    float64, and so is its sum with c at the magnitudes used here)."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def test_kernel_quantisation_rule_is_the_true_division():
+    """The conv kernel's producer (``csrc/int8_gemm.cu::quick``/``exact``/``NEAR``)
+    rounds the exact product x * rn(1 / s_x) by fma'ing it onto 1.5 2^23,
+    clamps, and takes the true quotient only where the product lies within
+    2^-14 of a half-integer; in float32 arithmetic that rule gives
+    clip(round(x / s_x)) exactly, on random scales and values, exact
+    half-way points, zeros, clamped and huge values."""
+    rng = np.random.default_rng(11)
+    n = 1 << 20
+    s = (np.exp(rng.uniform(-9, 3, n)) / 127).astype(np.float32)
+    x = (rng.standard_normal(n) * rng.choice([1, 50, 300], n) * s).astype(np.float32)
+    half = ((rng.integers(-200, 200, n) + 0.5) * s).astype(np.float32)
+    x = np.where(rng.random(n) < 0.3, half, x)
+    x[:1000] = 0
+    x[1000:2000] = (rng.standard_normal(1000) * 1e30).astype(np.float32)
+    rounder = np.float32(1.5 * 2 ** 23)
+    r = np.float32(1) / s
+    with np.errstate(over="ignore", invalid="ignore"):
+        q = np.float32(x / s)                                   # the true quotient
+        z = _fma32(x, r, np.full(n, rounder))
+        d = _fma32(x, r, -(z - rounder))
+    near = np.abs(d) >= np.float32(0.5 - 2.0 ** -14)
+    z = np.clip(z, rounder - 127, rounder + 127).astype(np.float32)
+    assert 0 < near.mean() < 0.5
+    quick = (z.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    want = np.clip(np.rint(q), -127, 127).astype(np.int8)
+    got = np.where(near, want, quick)       # exact(): the true quotient where near
+    np.testing.assert_array_equal(got, want)
+
+
+# --- the conv kernel's launch plan (a plain function the CPU reaches) ---------
+
+
+def _served_conv_shapes():
+    import chip_smoke
+
+    return [(name, row) for name in ("unet_tpu", "unet")
+            for row in chip_smoke.int8_launch_shapes(name)]
+
+
+@pytest.mark.parametrize("name,row", _served_conv_shapes())
+def test_conv_plan_fills_the_card(name, row):
+    """Every int8 conv launch shape of unet_tpu and unet at B=8/256px gets
+    at least one block per SM (132), or as many as its K has stages; no split
+    is left without K; the tile is one the kernel takes."""
+    b, h, w, ci, co, stride, _ = row
+    m = b * p2.conv_out_size(h, stride) * p2.conv_out_size(w, stride)
+    kpad = -(-9 * ci // p2.K_ALIGN) * p2.K_ALIGN
+    bm, bn, splits = p2.conv_plan(m, co, kpad)
+    assert bm == p2.BM and bn in p2.TILE_N
+    stages = -(-kpad // p2.K_STAGE)
+    tiles = -(-m // bm) * -(-co // bn)
+    assert tiles * splits >= min(p2.SMS, tiles * stages)
+    assert 1 <= splits <= stages
+    bounds = [z * stages // splits for z in range(splits + 1)]   # the kernel's K ranges
+    assert all(hi > lo for lo, hi in zip(bounds, bounds[1:]))
+
+
+@pytest.mark.parametrize("name,row", _served_conv_shapes())
+def test_conv_plan_probe_times_the_plan(name, row):
+    """The plan probe's launches at a served shape include conv_plan's own,
+    which has the least modelled cost of them."""
+    from unet_zoo_tpu_torch.probes import int8_conv_plan
+
+    b, h, w, ci, co, stride, _ = row
+    m = b * p2.conv_out_size(h, stride) * p2.conv_out_size(w, stride)
+    kpad = -(-9 * ci // p2.K_ALIGN) * p2.K_ALIGN
+    bm, bn, splits = p2.conv_plan(m, co, kpad)
+    timed = int8_conv_plan.candidates(m, co, kpad)
+    assert (bn, splits) in timed
+    assert all(p2.plan_cost(m, co, kpad, bn, splits) <= p2.plan_cost(m, co, kpad, *c)
+               for c in timed)
+
+
+@pytest.mark.parametrize("m,n,kbytes", [(512, 512, 4608), (1, 1, 64), (100, 130, 192),
+                                        (524288, 64, 64), (70, 600, 9216)])
+def test_conv_plan_edges(m, n, kbytes):
+    """Odd shapes: tiny grids take every stage a split; N between tile
+    widths; a split never outnumbers K's stages."""
+    bm, bn, splits = p2.conv_plan(m, n, kbytes)
+    stages = -(-kbytes // p2.K_STAGE)
+    tiles = -(-m // bm) * -(-n // bn)
+    assert bn in p2.TILE_N and 1 <= splits <= stages
+    assert tiles * splits >= min(p2.SMS, tiles * stages)
+    assert bn == p2.TILE_N[0] or n > bn // 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -496,3 +653,8 @@ def test_probe_clis_run_the_plain_versions(capsys):
     assert "s8xs8->s32" in out and "int8 vs bf16 ratio" in out and "max_err=0.00e+00" in out
     with pytest.raises(SystemExit):
         int8_matmul.main(["--bm", "512", "--device", "cpu"])
+    from unet_zoo_tpu_torch.probes import int8_conv_plan, medt_paths
+
+    for card_only in (int8_conv_plan, medt_paths):   # they time or compare on the card
+        with pytest.raises(SystemExit, match="CUDA is not available"):
+            card_only.main([])

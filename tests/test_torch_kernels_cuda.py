@@ -746,65 +746,130 @@ def test_wranet_kernel_path_matches_plain_path(cuda_device):
     assert ((got - ref).norm() / ref.norm()).item() <= WRANET_REL_L2
 
 
-# P2, the int8 conv: the integer sums are exact and the epilogue rounds as
+# P2, the int8 conv: x is quantised inside the kernel by a true division and
+# rounding half to even, the integer sums are exact and the epilogue rounds as
 # the plain version does, so kernel and plain version agree bit for bit.
-def _int8_conv_case(device, b, h, w, ci, co, seed=0, bias=True):
+# s_x = 2^-3 puts a tenth of x on exact half-way points of x / s_x, and a
+# twentieth beyond +-127 s_x, where it clamps.
+def _int8_conv_case(device, b, h, w, ci, co, dtype, seed=0, bias=True):
     gen = torch.Generator(device=device).manual_seed(seed + b + h + ci + co)
-    xq = torch.randint(-127, 128, (b, h, w, ci), generator=gen, device=device,
-                       dtype=torch.int8)
+    s_x = torch.tensor(0.125, device=device)
+    x = torch.randn(b, h, w, ci, generator=gen, device=device) * 40 * s_x
+    spots = torch.rand(b, h, w, ci, generator=gen, device=device)
+    half = (torch.randint(-127, 127, (b, h, w, ci), generator=gen, device=device) + 0.5) * s_x
+    x = torch.where(spots < 0.1, half, x)
+    x = torch.where(spots > 0.95, torch.sign(x) * 200 * s_x, x).to(dtype)
     wq = torch.randint(-127, 128, (co, ci, 3, 3), generator=gen, device=device,
                        dtype=torch.int8)
     scale = torch.rand(co, generator=gen, device=device) * 1e-4
     bvec = torch.randn(co, generator=gen, device=device) if bias else None
-    return xq, p2.pack_conv_weight(wq), scale, bvec
+    return x, s_x, p2.pack_conv_weight(wq), scale, bvec
+
+
+def _ties_away(x, s_x):
+    """x quantised with ties rounded away from zero (a planted fault)."""
+    t = x.float() / s_x
+    return torch.clamp(torch.trunc(t + 0.5 * torch.sign(t)), -127, 127)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,ci,co,stride,dtype", [
     (2, 64, 64, 128, 128, 1, torch.bfloat16),     # unet_tpu enc0 (B=2)
     (2, 64, 64, 128, 256, 2, torch.bfloat16),     # unet_tpu down0
-    (2, 16, 16, 1024, 512, 1, torch.bfloat16),    # unet_tpu dec2, K = 9216
+    (2, 16, 16, 1024, 512, 1, torch.bfloat16),    # unet_tpu dec2, K = 9216, K split
+    (8, 8, 8, 512, 512, 1, torch.bfloat16),       # unet_tpu bottleneck, K split 12 ways
     (2, 256, 256, 3, 64, 1, torch.float32),       # unet's first conv: Ci 3, K 27
     (2, 128, 128, 128, 64, 1, torch.float32),     # unet up_convolution_4 (Co 64 tile)
-    (1, 17, 13, 20, 24, 1, torch.float32),        # odd H, W; Ci 20 (byte loader); Co 24
+    (1, 17, 13, 20, 24, 1, torch.float32),        # odd H, W; Ci 20 (element loader); Co 24
     (1, 17, 15, 48, 40, 2, torch.bfloat16),       # stride 2 on an odd size
     (3, 9, 7, 32, 130, 2, torch.float32),         # ragged N tile, odd Ho/Wo
+    (2, 32, 32, 16, 24, 1, torch.float32),        # halo, Ci 16: 8 taps a stage
+    (2, 32, 32, 32, 40, 1, torch.bfloat16),       # halo, Ci 32: 4 taps a stage
+    (2, 64, 64, 64, 64, 1, torch.float32),        # halo, Ci 64: 2 taps a stage
 ])
-def test_int8_conv_kernel_matches_reference(cuda_device, b, h, w, ci, co, stride, dtype):
-    xq, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co)
+def test_int8_conv_kernel_matches_reference(cuda_device, xdtype, b, h, w, ci, co, stride, dtype):
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, xdtype)
     before = p2.LAUNCHES["int8_conv3x3"]
-    got = p2.int8_conv3x3(xq, wp, scale, bias, stride, dtype)
+    got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
     torch.cuda.synchronize()
     assert p2.LAUNCHES["int8_conv3x3"] - before == 1
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     assert got.dtype == dtype and tuple(got.shape) == (b, ho, wo, co)
-    assert torch.equal(got, p2.int8_conv3x3_reference(xq, wp, scale, bias, stride, dtype))
-    assert torch.equal(p2.int8_conv3x3(xq, wp, scale, None, stride, dtype),
-                       p2.int8_conv3x3_reference(xq, wp, scale, None, stride, dtype))
-    for fault in (p2.int8_conv3x3_reference(xq, wp, scale, None, stride, dtype),
-                  p2.int8_conv3x3_reference(xq, wp, scale.flip(0), bias, stride, dtype)):
+    assert torch.equal(got, p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype))
+    assert torch.equal(p2.int8_conv3x3(x, s_x, wp, scale, None, stride, dtype),
+                       p2.int8_conv3x3_reference(x, s_x, wp, scale, None, stride, dtype))
+    one = torch.ones((), device=cuda_device)
+    for fault in (p2.int8_conv3x3_reference(x, s_x, wp, scale, None, stride, dtype),
+                  p2.int8_conv3x3_reference(x, s_x, wp, scale.flip(0), bias, stride, dtype),
+                  p2.int8_conv3x3_reference(_ties_away(x, s_x), one, wp, scale, bias, stride,
+                                            dtype)):
         assert not torch.equal(got, fault)
 
 
 @pytest.mark.cuda
+def test_int8_conv_splits_k_and_copies_strided_x(cuda_device):
+    """A shape the plan splits: the counters are all 0 again after the
+    launch, and a second launch agrees; an NCHW-contiguous x is copied once
+    (X_COPIES) and gives the same result."""
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, 8, 8, 8, 512, 512, torch.bfloat16)
+    assert p2.conv_plan(8 * 8 * 8, 512, wp.shape[1])[2] > 1
+    first = p2.int8_conv3x3(x, s_x, wp, scale, bias, 1, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert not p2._COUNTERS[x.device, torch.cuda.current_stream().cuda_stream].any()
+    copies = p2.X_COPIES["int8_conv3x3"]
+    strided = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not strided.is_contiguous()
+    assert torch.equal(p2.int8_conv3x3(strided, s_x, wp, scale, bias, 1, torch.bfloat16), first)
+    assert p2.X_COPIES["int8_conv3x3"] == copies + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co,stride", [
+    (8, 8, 8, 512, 512, 1),       # unet_tpu bottleneck: 36 K stages
+    (2, 32, 32, 64, 200, 1),      # halo producer, ragged N
+    (1, 17, 15, 48, 40, 2),       # per-tap gather, stride 2
+])
+def test_int8_conv_every_plan_agrees(cuda_device, b, h, w, ci, co, stride):
+    """Every block tile width, with K unsplit, split two ways and split
+    into single stages, gives the plan's result bit for bit."""
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, torch.bfloat16)
+    want = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, torch.bfloat16)
+    stages = -(-wp.shape[1] // p2.K_STAGE)
+    for bn in p2.TILE_N:
+        for splits in sorted({1, min(2, stages), stages}):
+            got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, torch.bfloat16,
+                                  plan=(p2.BM, bn, splits))
+            assert torch.equal(got, want), (bn, splits)
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, torch.bfloat16,
+                        plan=(p2.BM, 96, 1))
+
+
+@pytest.mark.cuda
 def test_int8_conv_outside_kernel_shapes_raises(cuda_device):
-    xq, wp, scale, bias = _int8_conv_case(cuda_device, 1, 8, 8, 16, 8)
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, 1, 8, 8, 16, 8, torch.float32)
     before = p2.LAUNCHES["int8_conv3x3"]
-    for args in ((xq.float(), wp, scale, bias, 1, torch.float32),          # not int8
-                 (xq, wp, scale, bias, 3, torch.float32),                  # stride 3
-                 (xq, wp[:, :100].contiguous(), scale, bias, 1, torch.float32),  # unpacked
-                 (xq, wp, scale.double(), bias, 1, torch.float32),
-                 (xq, wp, scale, bias, 1, torch.float16)):
+    for args in ((x.half(), s_x, wp, scale, bias, 1, torch.float32),             # float16 x
+                 (x.to(torch.int8), s_x, wp, scale, bias, 1, torch.float32),    # int8 x
+                 (x, s_x.double(), wp, scale, bias, 1, torch.float32),
+                 (x, s_x, wp, scale, bias, 3, torch.float32),                   # stride 3
+                 (x, s_x, wp[:, :100].contiguous(), scale, bias, 1, torch.float32),  # unpacked
+                 (x, s_x, wp, scale.double(), bias, 1, torch.float32),
+                 (x, s_x, wp, scale, bias, 1, torch.float16)):
         with pytest.raises(ValueError, match="use_kernels=False"):
             p2.int8_conv3x3(*args)
     assert p2.LAUNCHES["int8_conv3x3"] == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,k,tile", [
-    (512, 384, 1024, (128, 128)),
-    (300, 200, 96, (128, 128)),       # ragged M and N
-    (256, 64, 4096, (256, 64)),
+@pytest.mark.parametrize("tile", p2.GEMM_TILES)
+@pytest.mark.parametrize("m,n,k", [
+    (512, 384, 1024),
+    (300, 200, 64),       # ragged M and N, K one half-stage (s8)
+    (300, 200, 128),
+    (131, 1000, 4096),
+    (1, 8, 4096),
 ])
 def test_gemm_kernel_matches_reference(cuda_device, m, n, k, tile):
     gen = torch.Generator(device=cuda_device).manual_seed(m + n + k)
@@ -815,11 +880,15 @@ def test_gemm_kernel_matches_reference(cuda_device, m, n, k, tile):
     torch.cuda.synchronize()
     assert p2.LAUNCHES["matmul"] - before == 1
     assert got.dtype == torch.int32 and torch.equal(got, p2.matmul_reference(a8, b8))
+    if m > 16 and n % 8 == 0:
+        assert torch.equal(got, torch._int_mm(a8, b8.t()))
     a16 = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
     b16 = torch.randn(n, k, generator=gen, device=cuda_device).to(torch.bfloat16)
     got, ref = p2.matmul(a16, b16, tile), p2.matmul_reference(a16, b16)
     assert got.dtype == torch.float32
     assert (got - ref).abs().max().item() <= 1e-5 * k ** 0.5 * ref.pow(2).mean().sqrt().item()
+    fault = p2.matmul_reference(a16, b16.roll(1, 0))
+    assert (got - fault).abs().max().item() > 1e-5 * k ** 0.5 * ref.pow(2).mean().sqrt().item()
 
 
 @pytest.mark.cuda

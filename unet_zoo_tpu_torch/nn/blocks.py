@@ -113,15 +113,16 @@ def prepare_int8_conv(conv_m: nn.Conv2d, absmax: torch.Tensor) -> Int8Conv:
 def int8_conv(x: torch.Tensor, q: Int8Conv, dtype: torch.dtype,
               use_kernels: Optional[bool] = None) -> torch.Tensor:
     """The int8 conv of NCHW ``x`` (``_QuantConv``): ``x`` quantised per
-    tensor by an ATen pass, the int8 conv, dequantised and rounded to
+    tensor by ``q.s_x``, the int8 conv, dequantised and rounded to
     ``dtype``. With ``use_kernels`` None the kernel (P2) takes any CUDA
-    input, float32 or bfloat16, since its arithmetic is integer; ``False``
-    runs the plain version, as ``True`` does on the CPU."""
-    xq = quant.quantize_activation(x, q.s_x).permute(0, 2, 3, 1)
+    input, float32 or bfloat16, and quantises x as it loads it (a
+    channels-last x is read in place); ``False`` runs the plain version, as
+    ``True`` does on the CPU."""
+    xh = x.permute(0, 2, 3, 1)
     if use_kernel(use_kernels, False, x, dtypes=(torch.float32, torch.bfloat16)):
-        y = int8_gemm.int8_conv3x3(xq.contiguous(), q.wp, q.scale, q.bias, q.stride, dtype)
+        y = int8_gemm.int8_conv3x3(xh, q.s_x, q.wp, q.scale, q.bias, q.stride, dtype)
     else:
-        y = int8_gemm.int8_conv3x3_reference(xq, q.wp, q.scale, q.bias, q.stride, dtype)
+        y = int8_gemm.int8_conv3x3_reference(xh, q.s_x, q.wp, q.scale, q.bias, q.stride, dtype)
     return y.permute(0, 3, 1, 2)
 
 

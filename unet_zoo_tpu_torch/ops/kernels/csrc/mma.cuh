@@ -1,7 +1,6 @@
 // Device helpers shared by the hand-written GEMM kernels (sm_90a): 16-byte
-// cp.async with zero fill, ldmatrix, the bf16 mma.sync m16n8k16 tile, the int8
-// m16n8k32 tile (int8_gemm.cu), and the block-tile GEMM main loop that K1
-// (fused_up.cu) and K4 (mkblock.cu) share.
+// cp.async with zero fill, ldmatrix, the bf16 mma.sync m16n8k16 tile, and the
+// block-tile GEMM main loop that K1 (fused_up.cu) and K4 (mkblock.cu) share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -44,18 +43,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The int8 tile: D[16x8] (s32) += A[16x32] (s8, row) * B[32x8] (s8, col). Its
-// fragments lie in registers byte for byte as the bf16 m16n8k16 tile's do
-// (four bytes of a row or column a register), so the same ldmatrix b16 loads
-// fetch both from K-contiguous tiles.
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

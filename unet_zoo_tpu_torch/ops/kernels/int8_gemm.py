@@ -4,16 +4,19 @@ Counterpart of the root probe ``_probe_int8_mosaic.py::make_matmul`` (a tiled
 ``A[M, K] . B[K, N]``, s8 x s8 -> s32 or bf16 x bf16 -> f32) and the carrier
 of the JAX package's int8 serving conv (``nn/blocks.py::_QuantConv``, whose
 s8 x s8 -> s32 ``lax.conv`` XLA lowered). One source, ``csrc/int8_gemm.cu``,
-two entry points over one tile loop:
+two entry points over one wgmma tile loop fed by TMA:
 
 * :func:`matmul`: ``out[M, N] = a[M, K] . bt[N, K]^T``, int8 -> int32 or
   bf16 -> float32; both operands K-contiguous.
-* :func:`int8_conv3x3`: NHWC int8 ``xq`` [B, H, W, Ci] with the weights
-  packed by :func:`pack_conv_weight` ([Co, Kpad] int8, K = 9 Ci in (ky, kx,
-  ci) order, zero-padded to a multiple of 64), stride 1 or 2, padding 1; the
-  exact int32 sums dequantised as ``rn(rn(acc * scale) + bias)`` in float32
-  and rounded once to ``out_dtype`` (float32 or bfloat16): bit for bit what
-  :func:`int8_conv3x3_reference` computes.
+* :func:`int8_conv3x3`: NHWC float32 or bfloat16 ``x`` [B, H, W, Ci],
+  quantised inside the kernel by the per-tensor scale ``s_x``
+  (``clip(round(x / s_x), -127, 127)``), with the weights packed by
+  :func:`pack_conv_weight` ([Co, Kpad] int8, K = 9 Ci in (ky, kx, ci) order,
+  zero-padded to a multiple of 64), stride 1 or 2, padding 1; the exact int32
+  sums dequantised as ``rn(rn(acc * scale) + bias)`` in float32 and rounded
+  once to ``out_dtype`` (float32 or bfloat16): bit for bit what
+  :func:`int8_conv3x3_reference` computes. :func:`conv_plan` picks the block
+  tile and how many blocks split K.
 
 On a CUDA tensor each wrapper launches the kernel (or raises for what it does
 not take, naming ``use_kernels=False``); on a CPU tensor it runs the plain
@@ -23,7 +26,8 @@ PyTorch version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,22 +37,40 @@ from unet_zoo_tpu_torch.ops.kernels import build
 
 # Times each wrapper launched its CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"int8_conv3x3": 0, "matmul": 0}
+# Times int8_conv3x3 copied an x whose NHWC view was not contiguous.
+X_COPIES = {"int8_conv3x3": 0}
 
-K_ALIGN = 64  # bytes of K a pipeline stage takes (csrc/int8_gemm.cu BKB)
+K_ALIGN = 64   # the packed weights' K padding, in bytes
+K_STAGE = 128  # bytes of K a pipeline stage holds per row (csrc/int8_gemm.cu KSTAGE)
+BM = 128       # rows of a block tile: two consumer warpgroups of 64
+TILE_N = (64, 128, 256)   # the kernel's block tile widths (wgmma N)
+STAGE_COST = {64: 1.0, 128: 1.3, 256: 2.15}   # a conv K stage's time by BN (conv_plan)
+SMS = 132      # streaming multiprocessors of an H100 SXM: one block each
 
 
 def pack_conv_weight(wq: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 3x3 weights -> [Co, Kpad] int8, K = (ky, kx, ci) flattened
-    and zero-padded to a multiple of K_ALIGN."""
+    """OIHW int8 3x3 weights -> [Co, Kpad] int8, K zero-padded to a multiple
+    of K_ALIGN. K is (ky, kx, ci) flattened; where Ci is a multiple of
+    K_STAGE it is (ci // K_STAGE, ky, kx, ci % K_STAGE), so that each of the
+    kernel's K stages holds one tap of one block of channels and neighbouring
+    stages read the same channels."""
     co, ci = wq.shape[:2]
     k = 9 * ci
     kpad = -(-k // K_ALIGN) * K_ALIGN
-    return F.pad(wq.permute(0, 2, 3, 1).reshape(co, k), (0, kpad - k)).contiguous()
+    w = wq.permute(0, 2, 3, 1)                                  # [Co, 3, 3, Ci]
+    if ci % K_STAGE == 0:
+        w = w.reshape(co, 3, 3, ci // K_STAGE, K_STAGE).permute(0, 3, 1, 2, 4)
+    return F.pad(w.reshape(co, k), (0, kpad - k)).contiguous()
 
 
 def unpack_conv_weight(wp: torch.Tensor, ci: int) -> torch.Tensor:
     """The inverse of :func:`pack_conv_weight`: OIHW int8."""
-    return wp[:, :9 * ci].reshape(-1, 3, 3, ci).permute(0, 3, 1, 2)
+    co = wp.shape[0]
+    w = wp[:, :9 * ci]
+    if ci % K_STAGE == 0:
+        return w.reshape(co, ci // K_STAGE, 3, 3, K_STAGE).permute(0, 1, 4, 2, 3).reshape(
+            co, ci, 3, 3)
+    return w.reshape(co, 3, 3, ci).permute(0, 3, 1, 2)
 
 
 def conv_out_size(n: int, stride: int) -> int:
@@ -56,15 +78,67 @@ def conv_out_size(n: int, stride: int) -> int:
     return (n - 1) // stride + 1
 
 
-def int8_conv3x3_reference(xq: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
-                           bias: Optional[torch.Tensor], stride: int,
+def int8_conv3x3_reference(x: torch.Tensor, s_x: torch.Tensor, wp: torch.Tensor,
+                           scale: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
                            out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch version of :func:`int8_conv3x3` (same arguments): the
-    exact int32 sums (``quant.int8_conv2d_exact``, float64), dequantised by
+    """Plain PyTorch version of :func:`int8_conv3x3` (same arguments): NHWC
+    ``x`` quantised by ``quant.quantize_activation``, the exact int32 sums
+    (``quant.int8_conv2d_exact``, float64), dequantised by
     ``quant.dequantize``; returns [B, Ho, Wo, Co] in ``out_dtype``."""
-    wq = unpack_conv_weight(wp, xq.shape[-1])
+    xq = quant.quantize_activation(x, s_x)
+    wq = unpack_conv_weight(wp, x.shape[-1])
     acc = quant.int8_conv2d_exact(xq.permute(0, 3, 1, 2), wq, stride, 1)
     return quant.dequantize(acc.permute(0, 2, 3, 1), scale, bias, out_dtype, channel_dim=-1)
+
+
+def plan_cost(m: int, n: int, kbytes: int, bn: int, splits: int,
+              sms: int = SMS) -> Optional[float]:
+    """:func:`conv_plan`'s modelled time of a launch with block tile BM x
+    ``bn`` and K split ``splits`` ways, in units of a BN = 64 stage; None for
+    a launch it does not consider (fewer blocks than ``sms`` where K has
+    stages to split, a tile wider than needed for n, or more splits than K
+    has stages)."""
+    stages = -(-kbytes // K_STAGE)
+    if bn > TILE_N[0] and n <= bn // 2 or not 1 <= splits <= stages:
+        return None
+    tiles = -(-m // BM) * -(-n // bn)
+    blocks = tiles * splits
+    if blocks < min(sms, tiles * stages):
+        return None
+    cost = -(-blocks // sms) * (-(-stages // splits) + 2) * STAGE_COST[bn]
+    if splits > 1:   # the last block reads every other split's partial tile
+        cost += splits * bn / 256
+    return cost
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(m: int, n: int, kbytes: int, sms: int = SMS) -> Tuple[int, int, int]:
+    """The conv kernel's launch for an [m, kbytes] x [kbytes, n] implicit
+    GEMM: (BM, BN, splits), splits the blocks that share a tile's K.
+
+    The grid gets at least ``sms`` blocks (one per SM), or as many as K has
+    stages (each split at least one). Among those plans it takes the one of
+    least modelled time (:func:`plan_cost`): waves of ``sms`` blocks times
+    the stages a block runs plus two of fill and epilogue, plus, when K is
+    split, the last block's reads of the other partial tiles. A stage's time
+    is bound by its producers' quantising gather, and a block has producer
+    warpgroups in inverse proportion to BN (csrc/int8_gemm.cu::Threads), so
+    a stage of BN = 256 costs less than twice one of BN = 128. STAGE_COST
+    holds the stages' relative times, fitted to the H100's times of every
+    plan at the served shapes (``probes.int8_conv_plan``, which prints the
+    fit; PERF.md gives the readings): refit it whenever the producer or the
+    ring changes. Ties go to fewer splits, then the wider tile."""
+    stages = -(-kbytes // K_STAGE)
+    best = None
+    for bn in TILE_N:
+        for splits in range(1, stages + 1):
+            cost = plan_cost(m, n, kbytes, bn, splits, sms)
+            if cost is None:
+                continue
+            key = (cost, splits, -bn)
+            if best is None or key < best[0]:
+                best = (key, (BM, bn, splits))
+    return best[1]
 
 
 def matmul_reference(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -80,25 +154,25 @@ def _fail(msg):
     raise ValueError(f"{msg}; use_kernels=False runs the int8 conv on its plain version")
 
 
-def _check_conv_args(xq, wp, scale, bias, stride, out_dtype):
-    if xq.dim() != 4 or xq.dtype != torch.int8:
-        _fail(f"xq must be int8 [B, H, W, Ci], got {xq.dtype} {tuple(xq.shape)}")
-    if not xq.is_contiguous():
-        _fail("xq must be contiguous [B, H, W, Ci] (channels last)")
-    b, h, w, ci = xq.shape
+def _check_conv_args(x, s_x, wp, scale, bias, stride, out_dtype):
+    if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
+        _fail(f"x must be float32 or bfloat16 [B, H, W, Ci], got {x.dtype} {tuple(x.shape)}")
+    b, h, w, ci = x.shape
     kpad = -(-9 * ci // K_ALIGN) * K_ALIGN
     if wp.dtype != torch.int8 or wp.dim() != 2 or wp.shape[1] != kpad or not wp.is_contiguous():
         _fail(f"wp must be contiguous int8 [Co, {kpad}] (pack_conv_weight), got {wp.dtype} "
               f"{tuple(wp.shape)}")
     co = wp.shape[0]
+    if s_x.dtype != torch.float32 or s_x.numel() != 1:
+        _fail(f"s_x must be a float32 scalar, got {s_x.dtype} {tuple(s_x.shape)}")
     for name, t in (("scale", scale), ("bias", bias)):
         if t is None:
             continue
         if t.dtype != torch.float32 or tuple(t.shape) != (co,) or not t.is_contiguous():
             _fail(f"{name} must be contiguous float32 [{co}], got {t.dtype} {tuple(t.shape)}")
-    for name, t in (("wp", wp), ("scale", scale), ("bias", bias)):
-        if t is not None and t.device != xq.device:
-            _fail(f"{name} is on {t.device}, xq on {xq.device}")
+    for name, t in (("s_x", s_x), ("wp", wp), ("scale", scale), ("bias", bias)):
+        if t is not None and t.device != x.device:
+            _fail(f"{name} is on {t.device}, x on {x.device}")
     if stride not in (1, 2):
         _fail(f"the int8 conv kernel takes stride 1 or 2, not {stride}")
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -113,7 +187,7 @@ def _lib():
     lib = build.library("int8_gemm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_conv3x3.argtypes = [p] * 5 + [i] * 10 + [p]
+        lib.int8_conv3x3.argtypes = [p] * 8 + [i] * 13 + [p]
         lib.int8_conv3x3.restype = i
         lib.gemm.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.gemm.restype = i
@@ -121,37 +195,73 @@ def _lib():
     return lib
 
 
-def int8_conv3x3(xq: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
-                 bias: Optional[torch.Tensor], stride: int,
-                 out_dtype: torch.dtype) -> torch.Tensor:
-    """3x3 int8 conv (padding 1) of NHWC ``xq`` with packed weights ``wp``,
-    dequantised by ``scale`` (= s_x * s_w) and ``bias`` [Co] (float32);
-    returns [B, Ho, Wo, Co] in ``out_dtype``."""
-    if xq.device.type == "cpu":
-        return int8_conv3x3_reference(xq, wp, scale, bias, stride, out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {xq.device}")
-    b, h, w, ci, ho, wo, co, kpad = _check_conv_args(xq, wp, scale, bias, stride, out_dtype)
+# Per (device, stream): one int32 counter per conv tile, all 0 between
+# launches (the last block of a split tile resets its own). Launches on one
+# stream run in order, so they can share a stream's counters; split convs
+# on two streams at once get a set each.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    c = _COUNTERS.get((device, stream))
+    if c is None or c.numel() < tiles:
+        c = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device, stream] = c
+    return c
+
+
+def int8_conv3x3(x: torch.Tensor, s_x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor], stride: int, out_dtype: torch.dtype,
+                 plan: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """3x3 int8 conv (padding 1) of NHWC float ``x``, quantised by the
+    float32 scalar ``s_x``, with packed weights ``wp``, dequantised by
+    ``scale`` (= s_x * s_w) and ``bias`` [Co] (float32); returns [B, Ho, Wo,
+    Co] in ``out_dtype``. An ``x`` whose NHWC view is not contiguous is
+    copied once (counted in X_COPIES). ``plan`` (BM, BN, splits) overrides
+    :func:`conv_plan`'s launch (``probes.int8_conv_plan`` times the
+    alternatives)."""
+    if x.device.type == "cpu":
+        return int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {x.device}")
+    b, h, w, ci, ho, wo, co, kpad = _check_conv_args(x, s_x, wp, scale, bias, stride, out_dtype)
+    if plan is None:
+        plan = conv_plan(b * ho * wo, co, kpad)
+    bm, bn, splits = plan
+    if bm != BM or bn not in TILE_N or not 1 <= splits <= -(-kpad // K_STAGE):
+        _fail(f"the int8 conv kernel's plans are ({BM}, one of {TILE_N}, 1 to the K stages), "
+              f"not {tuple(plan)}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+        X_COPIES["int8_conv3x3"] += 1
     lib = _lib()
-    with torch.cuda.device(xq.device):
-        out = torch.empty(b, ho, wo, co, device=xq.device, dtype=out_dtype)
+    with torch.cuda.device(x.device):
+        out = torch.empty(b, ho, wo, co, device=x.device, dtype=out_dtype)
         if out.numel() == 0:
             return out
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        err = lib.int8_conv3x3(xq.data_ptr(), wp.data_ptr(), scale.data_ptr(),
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ws = counters = None
+        if splits > 1:
+            tiles = -(-b * ho * wo // bm) * -(-co // bn)
+            ws = torch.empty(tiles * splits * bm * bn, dtype=torch.int32, device=x.device)
+            counters = _counters(x.device, stream, tiles)
+        err = lib.int8_conv3x3(x.data_ptr(), s_x.data_ptr(), wp.data_ptr(), scale.data_ptr(),
                                None if bias is None else bias.data_ptr(), out.data_ptr(),
+                               None if ws is None else ws.data_ptr(),
+                               None if counters is None else counters.data_ptr(),
                                b, h, w, ci, ho, wo, co, stride, kpad,
-                               int(out_dtype == torch.bfloat16), stream)
+                               int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+                               bn, splits, stream)
         if err:
-            raise RuntimeError(f"int8_conv3x3 launch failed: cudaError {err}")
+            raise RuntimeError(f"int8_conv3x3 launch failed: error {err}")
     LAUNCHES["int8_conv3x3"] += 1
     return out
 
 
-GEMM_TILES = ((128, 128), (256, 64))
+GEMM_TILES = tuple((BM, bn) for bn in TILE_N)
 
 
-def matmul(a: torch.Tensor, bt: torch.Tensor, tile=(128, 128)) -> torch.Tensor:
+def matmul(a: torch.Tensor, bt: torch.Tensor, tile=(128, 256)) -> torch.Tensor:
     """``a[M, K] . bt[N, K]^T``: int8 -> int32, or bf16 -> float32. ``tile``
     is the kernel's block tile (BM, BN), one of GEMM_TILES."""
     if a.device.type == "cpu":
@@ -169,7 +279,7 @@ def matmul(a: torch.Tensor, bt: torch.Tensor, tile=(128, 128)) -> torch.Tensor:
         _fail(f"the GEMM kernel's tiles are {GEMM_TILES}, not {tile}")
     if (k * a.element_size()) % 16:
         _fail(f"the GEMM kernel takes K * element size a multiple of 16 bytes, K = {k}")
-    if m >= 2 ** 31 // 128 or n >= 2 ** 31 // 128 or m * k * a.element_size() >= 2 ** 31:
+    if m * n >= 2 ** 31 or max(m, n) * k * a.element_size() >= 2 ** 31:
         _fail("the GEMM's shape is beyond the kernel's int32 indices")
     lib = _lib()
     int8 = a.dtype == torch.int8
@@ -179,8 +289,8 @@ def matmul(a: torch.Tensor, bt: torch.Tensor, tile=(128, 128)) -> torch.Tensor:
             return out
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.gemm(a.data_ptr(), bt.data_ptr(), out.data_ptr(), m, n, k, int(int8),
-                       tile[0], stream)
+                       tile[1], stream)
         if err:
-            raise RuntimeError(f"gemm launch failed: cudaError {err}")
+            raise RuntimeError(f"gemm launch failed: error {err}")
     LAUNCHES["matmul"] += 1
     return out

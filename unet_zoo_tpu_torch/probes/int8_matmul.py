@@ -9,11 +9,12 @@ of the output rms), then times ``--steps`` back-to-back launches with CUDA
 events after a warm-up.
 
 Usage: python -m unet_zoo_tpu_torch.probes.int8_matmul [--m 4096 --n 4096 --k 4096]
-       [--steps 20] [--bm 128 --bn 128] [--case all|bf16|int8] [--device cuda]
+       [--steps 20] [--bm 128 --bn 256] [--case all|bf16|int8] [--device cuda]
 
-``--bm``/``--bn`` pick the kernel's block tile, 128 x 128 or 256 x 64.
-``--bk`` is the TPU kernel's K tile; the Hopper kernel streams K through a
-ring of 64-byte stages instead, so only 0 (the whole K) is taken.
+``--bm``/``--bn`` pick the kernel's block tile, 128 x 64, 128 x 128 or
+128 x 256 (``int8_gemm.GEMM_TILES``). ``--bk`` is the TPU kernel's K tile;
+the Hopper kernel streams K through a ring of 128-byte stages instead, so
+only 0 (the whole K) is taken.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from unet_zoo_tpu_torch.ops.kernels import int8_gemm
 
-TILES = ((128, 128), (256, 64))
+TILES = int8_gemm.GEMM_TILES
 
 
 def operands(m, n, k, dtype, seed, device):
@@ -86,7 +87,7 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--bm", type=int, default=128)
-    ap.add_argument("--bn", type=int, default=128)
+    ap.add_argument("--bn", type=int, default=256)
     ap.add_argument("--bk", type=int, default=0, choices=[0])
     ap.add_argument("--case", default="all", choices=["all", "bf16", "int8"])
     ap.add_argument("--device", default="cuda")
