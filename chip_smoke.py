@@ -39,15 +39,16 @@
    on the kernel path against float32 compute, and with faults planted
    into K6's arguments (q and k swapped, the k embedding untransposed, the
    sve term dropped), which the served-model checks must reject.
-9. Holds K7 (``fused_axial_train``: stats, forward, B1, B2) against its
-   plain version, forward and backward (13 outputs), at every launch shape
-   of the B=8 ``gated`` train step on both axes, at gp 32 with L = 128 and at N = 37,
-   L = 29 < ks = 40; each comparison is shown to reject planted faults (B2
-   without the e x̂ term, var without -mu^2, d_relative from one block, kr
-   reading the k embedding untransposed).
+9. Holds K7 (``fused_axial_train``: stats, fwd, bwd, fin, combine) against
+   its plain version, forward and backward (13 outputs), at every launch
+   shape of the B=8 ``gated`` train step on both axes, at gp 32 with L = 128
+   and at N = 37, L = 29 < ks = 40; each comparison is shown to reject
+   planted faults (the combine without the e x̂ term, var without -mu^2,
+   d_relative from one bwd block per group, kr reading the k embedding
+   untransposed).
 10. Trains full-width ``gated`` (bf16 compute, float32 parameters, B=8,
    256x256) through ``make_train_step`` on the kernel path and on the module
-   path from the same weights and batch: each K7 grid runs 16 times per
+   path from the same weights and batch: each of K7's five grids runs 16 times per
    step, by the launch counters and by the profiler; gradients and running
    statistics of the two paths compared; the loss must fall over 10 steps
    on both; train img/s, peak memory, device busy time; every K7 launch of
@@ -61,8 +62,9 @@
    model's bf16 gradient stands: float32 on bf16-rounded weights and both
    bf16 paths against float32, at registry depth and at layers (1, 1, 1,
    1) (reported). ``axialunet`` trains 3 steps at B=2/128px. K7 timed per
-   launch shape against its bound, its plain version and the module chain
-   it replaces.
+   launch shape, forward and backward, by CUDA graph replay (device time) and
+   through autograd (CUDA events, what a step sees), against its bound, its
+   plain version, the module chain it replaces and the train kernel chain.
 11. Holds K2 (``swin_window_attention``) against its plain version at every
    launch shape of both served ``swin_unet_v2`` configurations (224px with
    window 7, 256px with window 8: N 49 and 64, nW 64/16/4 and unshifted)
@@ -142,6 +144,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak
@@ -197,6 +200,13 @@ K6_SHARE = 1e-3
 MEDT_REL_L2 = {"gated": 2e-2, "small": 1e-1}
 MEDT_AGREE = 0.99
 MEDT_F32_RATIO = 1.25
+# the 128px names (B=2) decide on the medians over MEDT_INPUTS seeded inputs,
+# as probes/medt_paths.py reads them; one input's readings are only logged.
+# The kernel path's masks may agree with f32 compute's less than the plain
+# path's by at most MEDT_F32_AGREE_SLACK (the probe read means of 0.99220
+# and 0.99182 for medt on the H100, PERF.md).
+MEDT_INPUTS = 32
+MEDT_F32_AGREE_SLACK = 0.005
 # one K6 launch per AxialAttention: two per AxialBlock (8 blocks; LoGo's
 # global branch 3 and local branch 8)
 MEDT_LAUNCHES = {"gated": 2 * sum(n for *_, n in AXIAL_SHAPES), "axialunet": 16, "medt": 16,
@@ -209,8 +219,10 @@ MEDT_LAUNCHES = {"gated": 2 * sum(n for *_, n in AXIAL_SHAPES), "axialunet": 16,
 K7_SHARE = 1e-3
 K7_OUTPUTS = ("sv", "sve", "mu", "var", "d_q", "d_k", "d_qg", "d_kg", "d_v", "d_q_emb",
               "d_k_emb", "d_v_emb", "d_gamma")
-# K7's four grids, each launched once per positional axis pass of a train step
-K7_GRIDS = ("axial_train_stats", "axial_train_fwd", "axial_train_b1", "axial_train_b2")
+# K7's five grids (two forward, three backward), each launched once per
+# positional axis pass of a train step
+K7_GRIDS = ("axial_train_stats", "axial_train_fwd", "axial_train_bwd", "axial_train_fin",
+            "axial_train_combine")
 TRAIN_STEPS = 10
 # An axis pass of a step from the seeded weights run again on its own bf16
 # operands and incoming gradient (check_train_blocks): the parameters whose
@@ -593,7 +605,7 @@ def check_k4_k5(torch, gen, device):
 
 
 def serve_both_paths(torch, gen, device, name, batch, image, counters, rel_l2_max, agree_min,
-                     f32_ratio=None, prepare=None, **kwargs):
+                     f32_ratio=None, prepare=None, decide=True, **kwargs):
     """``name`` served in bf16 on the kernel path and on the plain module path
     with the same seeded weights. Sets every ``counters`` entry ({wrapper
     module: LAUNCHES key}) to 0 just before one kernel-path forward and reads
@@ -602,7 +614,8 @@ def serve_both_paths(torch, gen, device, name, batch, image, counters, rel_l2_ma
     compute on the same bf16-rounded weights (kernel path at most
     ``f32_ratio`` times the plain path's, when given). ``prepare(module)``,
     if given, changes every model's weights alike before it is served;
-    ``kwargs`` go to ``create_model``. Returns the two predictors, the input,
+    ``kwargs`` go to ``create_model``. With ``decide`` False the bars are
+    only logged (the caller decides on many inputs). Returns the two predictors, the input,
     the launches, the agreement figures and the plain path's and the float32
     compute's logits."""
     from unet_zoo_tpu_torch import create_model
@@ -644,8 +657,8 @@ def serve_both_paths(torch, gen, device, name, batch, image, counters, rel_l2_ma
         f"(<= {rel_l2_max:.0e}), mask agreement {agree:.5f} (>= {agree_min}); rel L2 to f32 "
         f"compute: kernel path {dist['kernel']:.3e}, plain path {dist['plain']:.3e}"
         + (f" (kernel <= {f32_ratio} x plain)" if f32_ratio else ""))
-    if not (rel_l2 <= rel_l2_max and agree >= agree_min
-            and (f32_ratio is None or dist["kernel"] <= f32_ratio * dist["plain"])):
+    if decide and not (rel_l2 <= rel_l2_max and agree >= agree_min
+                       and (f32_ratio is None or dist["kernel"] <= f32_ratio * dist["plain"])):
         raise AssertionError(f"{name} kernel path disagrees with the plain path")
     return (preds, x, launches, dict(rel_l2=rel_l2, mask_agreement=agree, rel_l2_to_f32=dist),
             {"plain": lp, "f32": lf})
@@ -938,7 +951,9 @@ def serve_medt(torch, gen, device, name, batch, image, profile):
     rel_l2_max = MEDT_REL_L2["gated" if name == "gated" else "small"]
     preds, x, launches, agreement, refs = serve_both_paths(
         torch, gen, device, name, batch, image, [(k6, "fused_axial_attention")],
-        rel_l2_max, MEDT_AGREE, MEDT_F32_RATIO)
+        rel_l2_max, MEDT_AGREE, MEDT_F32_RATIO, decide=name == "gated")
+    if name != "gated":
+        agreement["over_inputs"] = medt_bars(torch, device, name, batch, image, rel_l2_max)
     launches = launches["fused_axial_attention"]
     want = MEDT_LAUNCHES[name]
     if launches != want:
@@ -955,6 +970,34 @@ def serve_medt(torch, gen, device, name, batch, image, profile):
     rates, med, busy = time_paths(torch, name, preds, x, profile)
     return dict(launches=launches, profiler_grids=seen, serve_img_per_s=rates, forward_ms=med,
                 device_busy_ms=busy, planted_faults=faults, **agreement)
+
+
+def medt_bars(torch, device, name, batch, image, rel_l2_max):
+    """The served-model bars of a small MedT model over MEDT_INPUTS seeded
+    inputs (``probes/medt_paths.py``'s readings): the medians of the kernel
+    path's relative L2 to the plain path (<= ``rel_l2_max``), of the two
+    paths' mask agreement (>= MEDT_AGREE) and of the kernel path's distance
+    to float32 compute over the plain path's (<= MEDT_F32_RATIO); and the
+    kernel path's mask agreement with float32 compute no lower than the plain
+    path's by more than MEDT_F32_AGREE_SLACK (medians). Random-weight MedT
+    logits amplify rounding, so one input's readings swing across the bars
+    while both paths stay as close to float32 compute (PERF.md)."""
+    from unet_zoo_tpu_torch.probes.medt_paths import readings
+
+    rows = readings(name, MEDT_INPUTS, batch, image, device)
+    med = {k: statistics.median(r[k] for r in rows) for k in ("rel", "kp", "kf", "pf", "ratio")}
+    log(f"serve {name} over {MEDT_INPUTS} inputs (medians): rel L2 kernel vs plain "
+        f"{med['rel']:.3e} (<= {rel_l2_max:.0e}), mask agreement {med['kp']:.5f} (>= "
+        f"{MEDT_AGREE}; {sum(r['kp'] < MEDT_AGREE for r in rows)} inputs under), distance to f32 "
+        f"kernel/plain {med['ratio']:.3f} (<= {MEDT_F32_RATIO}; "
+        f"{sum(r['ratio'] > MEDT_F32_RATIO for r in rows)} inputs over), masks against f32 "
+        f"compute kernel {med['kf']:.5f}, plain {med['pf']:.5f} (kernel >= plain - "
+        f"{MEDT_F32_AGREE_SLACK})")
+    if not (med["rel"] <= rel_l2_max and med["kp"] >= MEDT_AGREE
+            and med["ratio"] <= MEDT_F32_RATIO and med["kf"] >= med["pf"] - MEDT_F32_AGREE_SLACK):
+        raise AssertionError(f"{name} kernel path disagrees with the plain path over "
+                             f"{MEDT_INPUTS} inputs: {med}")
+    return med
 
 
 def random_attention(torch, width, ks, width_axis, mode, device, seed):
@@ -1083,31 +1126,45 @@ def k7_readings(got, ref):
 
 
 def k7_faults(torch, ops, cts, ks, ref):
-    """K7 through its real kernels with one fault planted each: B2 without
-    the e x̂ term (e = 0), var without -mu^2, d_relative (d_v_emb among it)
-    from one block's partial only, and kr reading the k embedding
-    untransposed (the k rows of ``relative`` reversed). Returns the largest
-    reading of each."""
+    """K7 through its real kernels with one fault planted each, by wrapping
+    the wrapper's function for one grid: the combine without the e x̂ term
+    (e zeroed after fin), var without -mu^2 (a, rsqrt(var + eps) and
+    -mu rsqrt(var + eps) re-formed from E[x^2] after stats), d_relative
+    (d_v_emb among it) from one bwd block per group (the other blocks'
+    partials zeroed after bwd); and kr reading the k embedding untransposed
+    (the k rows of ``relative`` reversed). Returns the largest reading of each."""
     from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
 
-    def run(patch=None, value=None, operands=ops):
-        saved = getattr(k7, patch) if patch else None
-        if patch:
-            setattr(k7, patch, value)
+    def no_e(call):
+        call.view("e").zero_()
+
+    def var_without_mu2(call):
+        mu, var, gamma = (call.tensors[x] for x in ("mu", "var", "gamma"))
+        var.add_(mu * mu)
+        inv = torch.rsqrt(var + call.eps)
+        call.view("consts").copy_(torch.cat([gamma * inv, inv, -mu * inv]).reshape(-1))
+
+    def one_block(call):
+        part = call.view("drel_part").view(call.dims["groups"], call.plan.bwd_blocks, -1)
+        part[:, 1:].zero_()
+
+    def run(grid=None, after=None, operands=ops):
+        saved = getattr(k7, grid) if grid else None
+        if grid:
+            setattr(k7, grid, lambda call: (saved(call), after(call)))
         try:
             return max(k7_readings(k7_run(torch, k7.fused_axial_train, operands, cts, ks),
                                    ref).values())
         finally:
-            if patch:
-                setattr(k7, patch, saved)
+            if grid:
+                setattr(k7, grid, saved)
 
     gp = ops[4].shape[-1]
     k_flat = ops[5].clone()
     k_flat[gp // 2:gp] = ops[5][gp // 2:gp].flip(-1)
-    return {"B2 without e x_hat": run("_e_term", lambda a, s, m: torch.zeros_like(a)),
-            "var without -mu^2": run("_moments", lambda sums, m: ((sums[:3] / m).float(),
-                                                                   (sums[3:] / m).float())),
-            "d_relative from one block": run("_sum_blocks", lambda part: part[0]),
+    return {"combine without e x_hat": run("_finish", no_e),
+            "var without -mu^2": run("_stats", var_without_mu2),
+            "d_relative from one block": run("_backward_pass", one_block),
             "kr untransposed": run(operands=ops[:5] + [k_flat, ops[6]])}
 
 
@@ -1568,40 +1625,52 @@ def check_train_blocks(torch, name, records):
     return dict(readings_max=worst, faults_min=caught)
 
 
-def k7_work(n, length, g, gp, ks):
-    """K7's least work: (forward f32 operations, backward f32 operations,
-    forward bytes, backward bytes). Per (row, group, i, j), c = gp/2: forward
-    6c (terms) + 9 (moments) + 9 (logits, softmax) + 4gp (sv, sve); backward
-    6c + 9 (sim once more) + 4gp (dsim) + 4 (dpre) + 12 (S, dtot) + 4gp (d_v,
-    d_v_emb) + 12c (the q/k contractions). Bytes: every bf16 operand read and
-    every output written once, ``relative`` and the [3, g] tables once."""
+def k7_work(n, length, g, gp, ks, moments=False):
+    """K7's least work, for any implementation: (forward f32 operations,
+    backward f32 operations, forward bytes, backward bytes). Per (row, group,
+    i, j), c = gp/2: forward 6c (terms) + 9 (logits, softmax) + 4gp (sv,
+    sve); backward 6c + 9 (sim once more) + 4gp (dsim) + 4 (dpre) + 12 (S,
+    dtot) + 4gp (d_v, d_v_emb) + 12c (the q/k contractions). The moments
+    need no per-pair work: per-row Gram sums give them in O(L c^2) (Σ qk^2 =
+    Σ_cc' (Σ_i q_ic q_ic')(Σ_j k_jc k_jc'); qr and kr by sums along
+    ``relative``'s diagonals). ``moments`` adds 9 operations per pair
+    for them, as the bound was counted before. Bytes: every bf16 operand read and every output
+    written once, ``relative`` and the [3, g] tables once."""
     c, pairs, nl = gp // 2, n * g * length * length, n * length * g
     tables = 4 * 2 * gp * (2 * ks - 1)
-    return (pairs * (6 * c + 4 * gp + 18), pairs * (18 * c + 8 * gp + 25),
+    return (pairs * (6 * c + 4 * gp + 9 + (9 if moments else 0)), pairs * (18 * c + 8 * gp + 25),
             2 * (4 * nl * c + nl * gp) + 2 * 2 * nl * gp + tables + 4 * 9 * g,
             2 * (4 * nl * c + 3 * nl * gp) + 2 * (4 * nl * c + nl * gp) + 2 * tables + 4 * 15 * g)
 
 
 def time_k7(torch, gen, device):
     """K7 at each launch shape of the B=8 gated train step, both axes:
-    forward (stats + fwd) and backward (B1 + B2) ms, the plain version's
-    forward + backward, the bf16 module chain's forward + backward (the
-    module path from bn_qkv to bn_output, what K7 replaces in training) and
-    the same chain on the train kernel path, and the bound."""
+    forward (stats + fwd) and backward (bwd + fin + combine) device ms by
+    CUDA graph replay (the backward as forward + backward less the forward,
+    since autograd runs a backward on its forward's stream), the same
+    through autograd by CUDA events back to back (what a step sees), the
+    plain version's forward + backward, the bf16 module chain's forward +
+    backward (the module path from bn_qkv to bn_output, what K7 replaces in
+    training), the same chain on the train kernel path, and the bound (with
+    the per-pair moment operations beside it)."""
     from unet_zoo_tpu_torch.models.medt_net import AxialAttention
     from unet_zoo_tpu_torch.nn import init_weights
     from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
 
-    rows = []
+    rows, step_bytes, step_old_ops = [], 0, 0
     for s, gp, ks, blocks in AXIAL_SHAPES:
         for width_axis in (False, True):
             b, g = SERVE_BATCH, AXIAL_GROUPS
             ops, cts = k7_operands(torch, gen, b, s, s, gp, ks, width_axis, device)
             leaves = [t.detach().requires_grad_() for t in ops]
-            fwd_ms = cuda_ms(torch, lambda: k7.fused_axial_train(*leaves, ks), 10)
-            outs = k7.fused_axial_train(*leaves, ks)
-            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(outs[:2], leaves, cts,
-                                                                retain_graph=True), 10)
+            fwd = lambda: k7.fused_axial_train(*leaves, ks)
+            fwd_ms = graph_ms(torch, fwd, 10)
+            bwd_ms = graph_ms(torch, lambda: torch.autograd.grad(fwd()[:2], leaves, cts),
+                              10) - fwd_ms
+            ev_fwd_ms = cuda_ms(torch, fwd, 10)
+            outs = fwd()
+            ev_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(outs[:2], leaves, cts,
+                                                                   retain_graph=True), 10)
             plain_ms = cuda_ms(torch, lambda: k7_reference(torch, ops, cts, ks), 2)
             attn = AxialAttention(g * gp, g * gp, g, ks, width_axis=width_axis, mode="gated",
                                   dtype=torch.bfloat16)
@@ -1616,20 +1685,30 @@ def time_k7(torch, gen, device):
             kchain_ms = cuda_ms(torch, lambda: chain(attn.train_core), 10)
             fwd_ops, bwd_ops, fwd_bytes, bwd_bytes = k7_work(n, s, g, gp, ks)
             bound_ms, bound_by = bound(0, fwd_bytes + bwd_bytes, fwd_ops + bwd_ops)
+            old_ops = k7_work(n, s, g, gp, ks, moments=True)[0] + bwd_ops
+            step_bytes += blocks * (fwd_bytes + bwd_bytes)
+            step_old_ops += blocks * old_ops
             axis = "W" if width_axis else "H"
             rows.append(dict(n=n, length=s, gp=gp, kernel_size=ks, axis=axis, launches=blocks,
                              fwd_ms=fwd_ms, bwd_ms=bwd_ms, ms=fwd_ms + bwd_ms,
+                             autograd_fwd_ms=ev_fwd_ms, autograd_bwd_ms=ev_bwd_ms,
+                             autograd_ms=ev_fwd_ms + ev_bwd_ms,
                              f32_ops=fwd_ops + bwd_ops, bytes=fwd_bytes + bwd_bytes,
                              fwd_bound_ms=bound(0, fwd_bytes, fwd_ops)[0],
                              bwd_bound_ms=bound(0, bwd_bytes, bwd_ops)[0],
-                             bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
-                             module_chain_ms=chain_ms, kernel_chain_ms=kchain_ms))
-            log(f"K7 N={n} L={s} gp={gp} along {axis} x{blocks}: fwd {fwd_ms:.4f} ms + bwd "
-                f"{bwd_ms:.4f} ms (bound {rows[-1]['fwd_bound_ms']:.4f} + "
-                f"{rows[-1]['bwd_bound_ms']:.4f}, {bound_by}), plain {plain_ms:.4f} ms, module "
-                f"chain {chain_ms:.4f} ms, kernel chain {kchain_ms:.4f} ms")
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             plain_ms=plain_ms, module_chain_ms=chain_ms,
+                             kernel_chain_ms=kchain_ms))
+            log(f"K7 N={n} L={s} gp={gp} along {axis} x{blocks}: device (graph) fwd "
+                f"{fwd_ms:.4f} + bwd {bwd_ms:.4f} ms, through autograd {ev_fwd_ms:.4f} + "
+                f"{ev_bwd_ms:.4f} ms (bound {rows[-1]['fwd_bound_ms']:.4f} + "
+                f"{rows[-1]['bwd_bound_ms']:.4f}, {bound_by}; with per-pair moments "
+                f"{bound(0, fwd_bytes + bwd_bytes, old_ops)[0]:.4f}), plain {plain_ms:.4f} ms, "
+                f"module chain {chain_ms:.4f} ms, kernel chain {kchain_ms:.4f} ms")
             del outs, leaves, attn, tokens
             torch.cuda.empty_cache()
+    log(f"K7 bound per step with per-pair moments (as counted before per-row Gram sums): "
+        f"{bound(0, step_bytes, step_old_ops)[0]:.4f} ms")
     return rows
 
 
@@ -2768,6 +2847,13 @@ def wgmma_counts(build):
     return {op: sum(op in line for line in sass.splitlines()) for op in ("IGMMA", "HGMMA")}
 
 
+def phase_gen(torch, device, *name):
+    """A generator for one phase of the run, seeded from the phase's name, so
+    that a draw added to or taken from one phase moves no other phase's
+    inputs."""
+    return torch.Generator(device=device).manual_seed(zlib.crc32(" ".join(map(str, name)).encode()))
+
+
 def per_forward(rows, key):
     """A per-launch quantity summed over one forward's launches."""
     return sum(r[key] * r["launches"] for r in rows)
@@ -2810,7 +2896,8 @@ def main() -> int:
             log(ptxas.read_text().strip())
 
     # 3. K1 against its plain version, bf16 inputs, reference in f32
-    gen = torch.Generator(device=device).manual_seed(0)
+    seeded = lambda *name: phase_gen(torch, device, *name)
+    gen = seeded("k1")
     cases = [(2, cin, cu, cu, cu, hc, hc) for cin, cu, hc in STAGES]
     cases.append((1, 96, 64, 32, 48, 8, 12))  # non-square, Co != Cu
     max_err = 0.0
@@ -2829,7 +2916,8 @@ def main() -> int:
         max_err = max(max_err, err)
 
     # 4. serve unet at full width, kernel path vs plain module path
-    x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
+    x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=seeded("serve unet"),
+                    device=device)
     kern = create_model("unet", dtype=torch.bfloat16, seed=0)
     plain = create_model("unet", dtype=torch.bfloat16, seed=0, use_kernels=False)
     pred_k, pred_p = make_predictor(kern, None, "logits"), make_predictor(plain, None, "logits")
@@ -2884,7 +2972,7 @@ def main() -> int:
     stages = []
     for cin, cu, hc in STAGES:
         b, cs, co = SERVE_BATCH, cu, cu
-        args = stage_case(torch, gen, b, cin, cu, cs, co, hc, hc, device)
+        args = stage_case(torch, seeded("time k1", cin), b, cin, cu, cs, co, hc, hc, device)
         y, skip, wt, bt, wc, sc, bi = args
         wt4 = wt.reshape(cin, 2, 2, cu).permute(0, 3, 1, 2).contiguous()
         wc4 = wc.reshape(3, 3, cu + cs, co).permute(3, 2, 0, 1).contiguous(
@@ -2913,60 +3001,60 @@ def main() -> int:
     # P1's gather on their probes' paths, run here, early: late in the run the
     # profiler kept losing one P2 grid of the float32 unet's trace, which
     # traces of the same forward in a fresh process hold
-    p2_conv_err = check_int8_conv(torch, gen, device)
-    int8_serving = {name: serve_int8(torch, gen, device, name) for name in INT8_LAUNCHES}
-    p2_timed = {name: time_int8_conv(torch, gen, device, name) for name in INT8_LAUNCHES}
+    p2_conv_err = check_int8_conv(torch, seeded("check_int8_conv"), device)
+    int8_serving = {name: serve_int8(torch, seeded("serve_int8", name), device, name) for name in INT8_LAUNCHES}
+    p2_timed = {name: time_int8_conv(torch, seeded("time_int8_conv", name), device, name) for name in INT8_LAUNCHES}
     p2_rows = {name: rows for name, (rows, _) in p2_timed.items()}
     torch.cuda.empty_cache()
-    gemm = check_gemm(torch, gen, device)
-    gather = check_gather(torch, gen, device)
+    gemm = check_gemm(torch, seeded("check_gemm"), device)
+    gather = check_gather(torch, seeded("check_gather"), device)
 
     # 5-6. mmunet: K4 and K5 checks, serving, per-shape timings
-    k4_err, k5_err = check_k4_k5(torch, gen, device)
-    mm_launches, mm_rates, mm_med, mm_busy, mm_agreement = serve_mmunet(torch, gen, device)
-    k4_rows, k5_rows = time_k4_k5(torch, gen, device)
+    k4_err, k5_err = check_k4_k5(torch, seeded("check_k4_k5"), device)
+    mm_launches, mm_rates, mm_med, mm_busy, mm_agreement = serve_mmunet(torch, seeded("serve_mmunet"), device)
+    k4_rows, k5_rows = time_k4_k5(torch, seeded("time_k4_k5"), device)
 
     # 7-8. MedT: K6 checks, gated served at full width, the other four names
     # at B=2/128px, K6 per launch shape
-    k6_err = check_k6(torch, gen, device)
-    gated = serve_medt(torch, gen, device, "gated", SERVE_BATCH, IMAGE, profile=True)
-    others = {name: serve_medt(torch, gen, device, name, 2, 128, profile=False)
+    k6_err = check_k6(torch, seeded("check_k6"), device)
+    gated = serve_medt(torch, seeded("serve_medt", "gated"), device, "gated", SERVE_BATCH, IMAGE, profile=True)
+    others = {name: serve_medt(torch, seeded("serve_medt", name), device, name, 2, 128, profile=False)
               for name in ("axialunet", "medt", "logo", "medt_logo")}
-    k6_rows, k6_wopos = time_k6(torch, gen, device)
+    k6_rows, k6_wopos = time_k6(torch, seeded("time_k6"), device)
     torch.cuda.empty_cache()
 
     # 9-10. MedT training: K7 checks, gated trained at full width on both
     # paths, axialunet briefly at 128px, K7 per launch shape
-    k7_err, k7_worst = check_k7(torch, gen, device)
-    gated_train = train_paths(torch, gen, device, "gated", SERVE_BATCH, IMAGE, TRAIN_STEPS,
+    k7_err, k7_worst = check_k7(torch, seeded("check_k7"), device)
+    gated_train = train_paths(torch, seeded("train_paths", "gated"), device, "gated", SERVE_BATCH, IMAGE, TRAIN_STEPS,
                               profile=True)
     torch.cuda.empty_cache()
     noise = {str(layers or "registry"): grad_noise(torch, device, SERVE_BATCH, IMAGE, layers)
              for layers in (None, (1, 1, 1, 1))}
-    axialunet_train = train_paths(torch, gen, device, "axialunet", 2, 128, 3, profile=False)
-    k7_rows = time_k7(torch, gen, device)
+    axialunet_train = train_paths(torch, seeded("train_paths", "axialunet"), device, "axialunet", 2, 128, 3, profile=False)
+    k7_rows = time_k7(torch, seeded("time_k7"), device)
     torch.cuda.empty_cache()
 
     # 11-12. swin_unet_v2: K2 checks, both configurations served at full
     # width, K2 per launch shape
-    k2_err = check_k2(torch, gen, device)
-    swin = {f"{image}px": serve_swin(torch, gen, device, image, window)
+    k2_err = check_k2(torch, seeded("check_k2"), device)
+    swin = {f"{image}px": serve_swin(torch, seeded("serve_swin", image), device, image, window)
             for image, window in SWIN_CONFIGS}
-    k2_rows = {f"{image}px": time_k2(torch, gen, device, image, window)
+    k2_rows = {f"{image}px": time_k2(torch, seeded("time_k2", image), device, image, window)
                for image, window in SWIN_CONFIGS}
     torch.cuda.empty_cache()
 
     # 13-14. unext and unext_s: K3 checks, both served at full width, K3 per
     # launch shape
-    k3_err = check_k3(torch, gen, device)
-    unext = {name: serve_unext(torch, gen, device, name) for name in UNEXT_CONFIGS}
-    k3_rows = {name: time_k3(torch, gen, device, name) for name in UNEXT_CONFIGS}
+    k3_err = check_k3(torch, seeded("check_k3"), device)
+    unext = {name: serve_unext(torch, seeded("serve_unext", name), device, name) for name in UNEXT_CONFIGS}
+    k3_rows = {name: time_k3(torch, seeded("time_k3", name), device, name) for name in UNEXT_CONFIGS}
     torch.cuda.empty_cache()
 
     # 15-16. wranet: K8 checks, served at full width, K8 per launch shape
-    k8_err = check_k8(torch, gen, device)
-    wranet = serve_wranet(torch, gen, device)
-    k8_rows = time_k8(torch, gen, device)
+    k8_err = check_k8(torch, seeded("check_k8"), device)
+    wranet = serve_wranet(torch, seeded("serve_wranet"), device)
+    k8_rows = time_k8(torch, seeded("time_k8"), device)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -3094,6 +3182,7 @@ def main() -> int:
         "library_ms": None,
         "fwd_ms": per_forward(k7_rows, "fwd_ms"),
         "bwd_ms": per_forward(k7_rows, "bwd_ms"),
+        "autograd_ms": per_forward(k7_rows, "autograd_ms"),
         "module_chain_ms": per_forward(k7_rows, "module_chain_ms"),
         "kernel_chain_ms": per_forward(k7_rows, "kernel_chain_ms"),
         "readings_max": k7_worst,

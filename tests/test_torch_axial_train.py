@@ -23,12 +23,15 @@ from unet_zoo_tpu.models import create_model as jax_create_model
 from unet_zoo_tpu.models.medt_net import AxialAttention as JaxAxialAttention
 from unet_zoo_tpu.models.medt_net import ResAxialAttentionUNet as JaxResAxialAttentionUNet
 from unet_zoo_tpu.models.medt_net import _relative_index as jax_relative_index
+from unet_zoo_tpu.ops.pallas import axial_train as jax_axial_train
 from unet_zoo_tpu.ops.pallas.axial_train import fused_axial_train as jax_fused_axial_train
 from unet_zoo_tpu.train.steps import create_train_state as jax_create_train_state
 from unet_zoo_tpu.train.steps import make_train_step as jax_make_train_step
 from unet_zoo_tpu_torch import create_model
 from unet_zoo_tpu_torch.models.medt_net import AxialAttention, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+from unet_zoo_tpu_torch.ops.kernels.axial_attention import (
+    relative_embeddings as port_relative_embeddings)
 from unet_zoo_tpu_torch.train import create_train_state, make_train_step
 from unet_zoo_tpu_torch.utils import convert as port_convert
 from unet_zoo_tpu_torch.utils.convert import from_jax_variables
@@ -84,37 +87,220 @@ def test_reference_matches_jax_kernel_values_and_moments():
     assert not got[2].requires_grad and not got[3].requires_grad
 
 
-def test_reference_gradients_match_jax_kernel():
-    """All nine gradients (q, k, qg, kg, v, the q/k/v rows of ``relative``,
-    i.e. the three tables summed along their diagonals, and gamma) under a
-    seeded upstream gradient, against jax.grad of the JAX kernel's custom
-    VJP: 1e-4 (float32, other summation orders; the JAX test holds its VJP
-    to autodiff at 5e-4)."""
+@pytest.fixture(scope="module")
+def jax_k7_grads():
+    """Inputs 1 (L = 16 < ks = 20), a seeded upstream gradient of sv and sve,
+    and jax.grad of the JAX kernel's custom VJP (interpret mode) for all seven
+    operands."""
     a, ks = _k7_inputs(1)
     rng = np.random.default_rng(42)
     shape = a["v"].shape
     w1, w2 = rng.standard_normal(shape).astype(np.float32), rng.standard_normal(shape).astype(
         np.float32)
-    names = list(a)
 
     def loss_jax(*args):
         sv, sve, _, _ = _jax_k7(*args, ks)
         return jnp.sum(sv * w1) + jnp.sum(sve * w2)
 
-    want = jax.grad(loss_jax, argnums=tuple(range(7)))(*(jnp.asarray(a[n]) for n in names))
+    want = jax.grad(loss_jax, argnums=tuple(range(7)))(*(jnp.asarray(a[n]) for n in a))
+    return a, ks, w1, w2, [np.asarray(w) for w in want]
+
+
+def _grad_pairs(names, got, want, gp):
+    """(name, port, jax) per gradient, ``relative``'s split into its q, k and v rows."""
+    c = gp // 2
+    pairs = list(zip(names, got, want))
+    _, rel_g, rel_w = pairs[5]
+    pairs[5:6] = [("q_emb", rel_g[:c], rel_w[:c]), ("k_emb", rel_g[c:gp], rel_w[c:gp]),
+                  ("v_emb", rel_g[gp:], rel_w[gp:])]
+    return pairs
+
+
+def test_reference_gradients_match_jax_kernel(jax_k7_grads):
+    """All nine gradients (q, k, qg, kg, v, the q/k/v rows of ``relative``,
+    i.e. the three tables summed along their diagonals, and gamma) under a
+    seeded upstream gradient, against jax.grad of the JAX kernel's custom
+    VJP: 1e-4 (float32, other summation orders; the JAX test holds its VJP
+    to autodiff at 5e-4)."""
+    a, ks, w1, w2, want = jax_k7_grads
+    names = list(a)
     ts = [torch.from_numpy(a[n]).requires_grad_() for n in names]
     sv, sve, _, _ = k7.fused_axial_train(*ts, ks, EPS)
     ((sv * torch.from_numpy(w1)).sum() + (sve * torch.from_numpy(w2)).sum()).backward()
-    gp, c = shape[-1], shape[-1] // 2
-    pairs = [(n, t.grad.numpy(), np.asarray(w)) for n, t, w in zip(names, ts, want)]
-    rel_g, rel_w = pairs[5][1], pairs[5][2]
-    pairs[5:6] = [("q_emb", rel_g[:c], rel_w[:c]), ("k_emb", rel_g[c:gp], rel_w[c:gp]),
-                  ("v_emb", rel_g[gp:], rel_w[gp:])]
+    pairs = _grad_pairs(names, [t.grad.numpy() for t in ts], want, a["v"].shape[-1])
     assert len(pairs) == 9
     for name, g_port, g_jax in pairs:
         np.testing.assert_allclose(g_port, g_jax, rtol=1e-4, atol=1e-4, err_msg=name)
+    rel_g = ts[5].grad.numpy()
     # the columns no offset of an axis shorter than ks reaches get nothing
     assert np.all(rel_g[:, :ks - 16] == 0) and np.all(rel_g[:, ks + 15:] == 0)
+
+
+# --- the kernels' arithmetic, in plain PyTorch ------------------------------------
+
+def _forward_saved(t, ks):
+    """What the stats and fwd grids compute, in float64: the terms [3, N, g,
+    L, L], mu, var, a and rsqrt(var + eps) [3, g], the logits, each query
+    row's max and sum of exp(logit - max) [N, g, L] and sv, sve [N, L, g, gp]."""
+    q, k, qg, kg, v, rel, gamma = (t[x] for x in ("q", "k", "qg", "kg", "v", "relative", "gamma"))
+    c, length = q.shape[-1], q.shape[1]
+    gp = 2 * c
+    emb = port_relative_embeddings(rel, ks, length)
+    qe, ke, ve = emb[:c], emb[c:gp], emb[gp:]
+    terms = torch.stack([torch.einsum("nigc,njgc->ngij", q, k),
+                         torch.einsum("nigc,cij->ngij", qg, qe),
+                         torch.einsum("njgc,cji->ngij", kg, ke)])
+    mu = terms.mean(dim=(1, 3, 4))
+    var = terms.var(dim=(1, 3, 4), unbiased=False)
+    inv = torch.rsqrt(var + EPS)
+    bc = lambda x: x[:, None, :, None, None]
+    logit = (bc(gamma * inv) * terms).sum(0)
+    mx = logit.max(dim=-1).values
+    total = torch.exp(logit - mx[..., None]).sum(-1)
+    sim = torch.exp(logit - mx[..., None]) / total[..., None]
+    sv = torch.einsum("ngij,njgp->nigp", sim, v)
+    sve = torch.einsum("ngij,pij->nigp", sim, ve)
+    return dict(terms=terms, mu=mu, var=var, a=gamma * inv, inv=inv, logit=logit, mx=mx, total=total,
+                sim=sim, sv=sv, sve=sve, qe=qe, ke=ke, ve=ve)
+
+
+def _split_backward(t, ks, d_sv, d_sve):
+    """The bwd, fin and combine grids in float64: one pass forms dpre from
+    the saved log-sum-exp and D = Σ_p dsv sv + dsve sve, the partials of S,
+    and for every output BatchNorm's e touches two partials, Σ dpre·operand
+    and Σ x̂·operand; fin forms S and e = -a S / M; combine recombines
+    a (dpre part) + e (x̂ part). Returns the parts and the seven gradients."""
+    f = _forward_saved(t, ks)
+    q, k, qg, kg, v, rel = (t[x] for x in ("q", "k", "qg", "kg", "v", "relative"))
+    n, length, g, c = q.shape
+    sim = torch.exp(f["logit"] - f["mx"][..., None]) / f["total"][..., None]
+    d = ((d_sv * f["sv"]).sum(-1) + (d_sve * f["sve"]).sum(-1)).permute(0, 2, 1)  # [N, g, L]
+    dsim = (torch.einsum("nigp,njgp->ngij", d_sv, v)
+            + torch.einsum("nigp,pij->ngij", d_sve, f["ve"]))
+    dpre = sim * (dsim - d[..., None])
+    bc = lambda x: x[:, None, :, None, None]
+    xh = (f["terms"] - bc(f["mu"])) * bc(f["inv"])
+    s = (dpre * xh).sum(dim=(1, 3, 4))                                   # [3, g]
+    e = -f["a"] * s / (n * length * length)
+    ein = torch.einsum
+    parts = {  # name: (dpre part, x̂ part, term)
+        "q": (ein("ngij,njgc->nigc", dpre, k), ein("ngij,njgc->nigc", xh[0], k), 0),
+        "k": (ein("ngij,nigc->njgc", dpre, q), ein("ngij,nigc->njgc", xh[0], q), 0),
+        "qg": (ein("ngij,cij->nigc", dpre, f["qe"]), ein("ngij,cij->nigc", xh[1], f["qe"]), 1),
+        "kg": (ein("ngij,cji->njgc", dpre, f["ke"]), ein("ngij,cji->njgc", xh[2], f["ke"]), 2),
+        "q_emb": (ein("ngij,nigc->gcij", dpre, qg), ein("ngij,nigc->gcij", xh[1], qg), 1),
+        "k_emb": (ein("ngij,njgc->gcji", dpre, kg), ein("ngij,njgc->gcji", xh[2], kg), 2),
+    }
+    grads = {}
+    for name, (pa, px, term) in parts.items():
+        if name.endswith("emb"):   # per group [g, c, L, L]: a and e per group, then the sum
+            grads[name] = (f["a"][term][:, None, None, None] * pa
+                           + e[term][:, None, None, None] * px).sum(0)
+        else:
+            grads[name] = f["a"][term][:, None] * pa + e[term][:, None] * px
+    grads["v"] = ein("ngij,nigp->njgp", sim, d_sv)
+    grads["v_emb"] = ein("ngij,nigp->pij", sim, d_sve)
+    rel_leaf = rel.clone().requires_grad_()
+    table = torch.cat([grads.pop("q_emb"), grads.pop("k_emb"), grads.pop("v_emb")])
+    grads["relative"], = torch.autograd.grad(port_relative_embeddings(rel_leaf, ks, length),
+                                             rel_leaf, table)
+    grads["gamma"] = s
+    return dict(f, parts=parts, s=s, e=e, d=d, dsim=dsim, sim=sim), grads
+
+
+def _f64(a):
+    return {name: torch.from_numpy(x).double() for name, x in a.items()}
+
+
+def test_e_linear_split_recombined_is_the_two_pass_gradient(jax_k7_grads):
+    """The one-pass backward: every gradient that BatchNorm's e = -a S / M
+    touches, emitted as Σ dpre·operand and Σ x̂·operand and recombined as
+    a (dpre part) + e (x̂ part) after S is known, equals the JAX kernel's
+    two-pass gradient (B2 forms a dpre + e x̂ per pair with e already known)
+    on all nine gradients, at 1e-4 (float64 here, float32 in JAX); and the x̂
+    part matters: without it d_q misses by far more."""
+    a, ks, w1, w2, want = jax_k7_grads
+    t = _f64(a)
+    cts = [torch.from_numpy(w).double() for w in (w1, w2)]
+    saved, got = _split_backward(t, ks, *cts)
+    names = list(a)
+    pairs = _grad_pairs(names, [got[n].numpy() for n in names], want, a["v"].shape[-1])
+    for name, g_port, g_jax in pairs:
+        np.testing.assert_allclose(g_port, g_jax, rtol=1e-4, atol=1e-4, err_msg=name)
+    dq_without_x = (saved["a"][0][:, None] * saved["parts"]["q"][0]).numpy()
+    assert np.abs(dq_without_x - want[0]).max() > 100 * 1e-4
+
+
+def test_row_statistics_saved_by_the_forward(jax_k7_grads):
+    """What the fwd grid keeps for the backward: with each query row's
+    max and sum, exp(logit - max) / sum is the softmax, so the backward
+    needs no row max or sum (sv from it matches the JAX kernel's forward at
+    1e-5); D_i = Σ_p dsv sv + dsve sve from float32 sv, sve equals Σ_j sim
+    dsim to 1e-6 of its scale, while bf16-rounded sv, sve would move it a
+    thousand times further."""
+    a, ks, w1, w2, _ = jax_k7_grads
+    t = _f64(a)
+    d_sv, d_sve = (torch.from_numpy(w).double() for w in (w1, w2))
+    saved, _ = _split_backward(t, ks, d_sv, d_sve)
+    np.testing.assert_allclose(saved["sim"].sum(-1).numpy(), 1.0, rtol=0, atol=1e-12)
+    want = _jax_k7(*(jnp.asarray(a[n]) for n in a), ks)
+    np.testing.assert_allclose(saved["sv"].numpy(), np.asarray(want[0]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(saved["sve"].numpy(), np.asarray(want[1]), rtol=1e-5, atol=1e-5)
+    exact = (saved["sim"] * saved["dsim"]).sum(-1)                     # [N, g, L]
+    scale = exact.abs().max().item()
+
+    def d_from(dt):
+        sv, sve = saved["sv"].to(dt).double(), saved["sve"].to(dt).double()
+        return ((d_sv * sv).sum(-1) + (d_sve * sve).sum(-1)).permute(0, 2, 1)
+
+    assert (saved["d"] - exact).abs().max().item() <= 1e-12 * scale
+    err32 = (d_from(torch.float32) - exact).abs().max().item()
+    err16 = (d_from(torch.bfloat16) - exact).abs().max().item()
+    assert err32 <= 1e-6 * scale and err16 >= 1e3 * err32
+    # why the sims are divided by the row's own sum: one rounding of a
+    # log-sum-exp scales a whole row of sims; D, summed from those sims, scales
+    # with it and dsim does not, so the row of dpre no longer sums to zero and
+    # d_q takes the error from the whole row (float64, a scale of 1 + 1e-6)
+    k = t["k"]
+    def dq_part(sim):
+        sv = torch.einsum("ngij,njgp->nigp", sim, t["v"])
+        sve = torch.einsum("ngij,pij->nigp", sim, saved["ve"])
+        d = ((d_sv * sv).sum(-1) + (d_sve * sve).sum(-1)).permute(0, 2, 1)
+        return torch.einsum("ngij,njgc->nigc", sim * (saved["dsim"] - d[..., None]), k)
+    exact = dq_part(saved["sim"])
+    scaled = dq_part(saved["sim"] * (1 + 1e-6))
+    renorm = dq_part(saved["sim"] * (1 + 1e-6) / (saved["sim"] * (1 + 1e-6)).sum(-1, keepdim=True))
+    rms = exact.pow(2).mean().sqrt()
+    assert (scaled - exact).abs().max() > 1e-7 * rms
+    assert (renorm - exact).abs().max() < 1e-3 * (scaled - exact).abs().max()
+
+
+def test_block_totals_and_moments():
+    """The stats grid's moments: float32 sums over a thread's tile of pairs,
+    float64 over tiles and blocks, mu and the biased var = E[x^2] - mu^2 in
+    float64, against the JAX kernel's moments (interpret mode) at 1e-5 and a
+    float64 reference at 1e-6, on terms with nonzero means."""
+    a, ks = _k7_inputs(2)
+    a["q"] = a["q"] + 0.5
+    a["k"] = a["k"] + 0.5
+    t = {n: torch.from_numpy(x) for n, x in a.items()}
+    f64 = _forward_saved(_f64(a), ks)
+    terms32 = _forward_saved({n: x.float() for n, x in t.items()}, ks)["terms"]  # [3, N, g, L, L]
+    r, length = k7.R_FWD[a["v"].shape[-1]], a["q"].shape[1]
+    tiles = terms32.reshape(*terms32.shape[:3], length // r, r, length // r, r)
+    s1 = tiles.sum(dim=(4, 6)).double().sum(dim=(1, 3, 4))            # [3, g]
+    s2 = (tiles * tiles).sum(dim=(4, 6)).double().sum(dim=(1, 3, 4))
+    m = float(np.prod(terms32.shape[1:])) / terms32.shape[2]
+    mu = s1 / m
+    var = s2 / m - mu * mu
+    c, gp = a["q"].shape[-1], a["v"].shape[-1]
+    rel = jnp.asarray(a["relative"])
+    emb = rel[:, jnp.asarray(jax_relative_index(ks))].reshape(2 * gp, ks, ks)[:, :length, :length]
+    j_mu, j_var, _ = jax_axial_train._moments(*(jnp.asarray(a[n]) for n in ("q", "k", "qg", "kg")),
+                                              emb[:c], emb[c:gp].transpose(0, 2, 1), EPS, True)
+    for got, ref, exact in ((mu, j_mu, f64["mu"]), (var, j_var, f64["var"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=1e-6, atol=1e-7)
 
 
 # --- K7's wrapper ------------------------------------------------------------------
@@ -170,30 +356,95 @@ def test_wrapper_rejects_other_devices():
         k7.fused_axial_train(**a)
 
 
-@pytest.mark.parametrize("rows,length,gp,split", [
-    (1024, 128, 2, 2), (1024, 128, 4, 2), (512, 64, 8, 4), (256, 32, 16, 8), (37, 29, 4, 8),
-    (64, 128, 32, 8),   # gp 32 at L = 128: one group per block
+@pytest.mark.parametrize("rows,length,gp,units,warps,bwd_rows", [
+    (1024, 128, 2, 8, 4, 16), (1024, 128, 4, 8, 4, 16), (512, 64, 8, 8, 4, 8),
+    (256, 32, 16, 8, 4, 4), (37, 29, 4, 32, 4, 4),
+    (64, 128, 32, 2, 1, 1),   # gp 32 at L = 128: two rows per fwd block, one warp per bwd block
 ])
-def test_group_split(rows, length, gp, split):
-    assert k7.group_split(rows, 8, length, gp) == split
-    for kind in range(4):
-        assert k7._smem_bytes(kind, length, 8 // split, gp) <= 200 * 1024
+def test_group_split(rows, length, gp, units, warps, bwd_rows):
+    """The launch plan (it replaced the split of a row's groups over blocks):
+    rows per stats/fwd block, one thread per query tile and within shared
+    memory; bwd blocks of up to four warps, two an SM where they fit; every
+    row of every group in exactly one block of each grid."""
+    p = k7.plan(rows, length, 8, gp, max(length, 40))
+    _, t_f = k7.fwd_tiles(length, gp)
+    assert (p.units, p.warps, p.rows) == (units, warps, bwd_rows)
+    assert p.units * t_f <= k7.THREADS and p.fwd_blocks == -(-rows // p.units)
+    assert p.stats_blocks <= p.fwd_blocks and p.rows % p.warps == 0
+    assert (p.bwd_blocks - 1) * p.rows < rows <= p.bwd_blocks * p.rows
+    assert max(p.smem) <= 227 * 1024
+    assert p.smem[2] == k7.bwd_smem(gp, length, p.warps)
+    if p.warps > 1:
+        assert p.smem[2] <= 113 * 1024
 
 
-def test_block_totals_and_moments():
-    """Per-block float64 sums [N, split, R, g / split] -> [R, g] (group
-    g = chunk * g / split + local group), then mu and the biased variance
-    E[x^2] - mu^2 in float64."""
-    part = torch.arange(2 * 2 * 6 * 3, dtype=torch.float64).reshape(2, 2, 6, 3)
-    tot = k7._group_totals(part)
-    assert tot.shape == (6, 6) and tot.dtype == torch.float64
-    assert tot[4, 5].item() == part[:, 1, 4, 2].sum().item()
-    x = torch.randn(3, 1000, dtype=torch.float64) * 0.01 + 100.0   # mean >> std
-    sums = torch.cat([x.sum(1, keepdim=True), (x * x).sum(1, keepdim=True)]).repeat(1, 2)
-    sums = sums.reshape(2, 3, 2).reshape(6, 2)
-    mu, var = k7._moments(sums, 1000.0)
-    assert mu.dtype == var.dtype == torch.float32
-    torch.testing.assert_close(var[:, 0], x.var(1, unbiased=False).float(), rtol=1e-3, atol=0)
+@pytest.mark.parametrize("rows,length,gp", [(1024, 128, 4), (37, 29, 4), (256, 128, 32)])
+def test_plan_workspaces(rows, length, gp):
+    """Each call's two workspaces: parts 256-byte aligned, in order, not
+    overlapping, of the sizes the kernels index."""
+    g, c = 8, gp // 2
+    p = k7.plan(rows, length, g, gp, 128)
+    want = {"consts": 9 * g, "stat": g * p.stats_blocks * 6, "rows": rows * g * length * 2,
+            "svf": rows * g * length * 2 * gp, "e": 3 * g, "s_part": g * p.bwd_blocks * 3,
+            "pi": rows * g * length * 4 * c, "pj": rows * g * length * 4 * c,
+            "drel_part": g * p.bwd_blocks * (4 * c + gp) * (2 * length - 1)}
+    for layout, total in ((p.fwd_ws, p.fwd_bytes), (p.bwd_ws, p.bwd_bytes)):
+        end = 0
+        for name, (off, count, dtype) in layout.items():
+            assert count == want[name] and off % 256 == 0 and off >= end, name
+            end = off + count * (8 if dtype == torch.float64 else 4)
+        assert end <= total
+
+
+@pytest.mark.parametrize("length,gp", [(5, 4), (16, 2), (29, 4), (32, 8), (32, 16), (64, 4),
+                                       (128, 2), (128, 4), (128, 32)])
+def test_band_walk_covers_every_pair_once(length, gp):
+    """The bwd grid's walk (band_tiles): at every step the lanes hold one key
+    tile and distinct query tiles (so per-query sums need no atomics and the
+    per-key sums are one reduction); every pair (i, j) of the row lies in
+    exactly one lane's tile; each lane stays on two bands, d and d - T."""
+    r, t, loops = k7.bwd_tiles(length, gp)
+    walk = k7.band_tiles(length, gp)
+    assert t == 1 << (-(-length // r) - 1).bit_length() and loops == max(1, t // 32)
+    seen = np.zeros((r * t, r * t), dtype=int)
+    for j in range(t):
+        rows_ = [i for d, jj, i, _ in walk if jj == j]
+        assert sorted(rows_) == list(range(t))
+    for d, j, i, band in walk:
+        assert band == (d if j < t - d else d - t)
+        seen[i * r:(i + 1) * r, j * r:(j + 1) * r] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("gp", [2, 4, 8])
+def test_band_slots_hold_the_tile_diagonals(gp):
+    """Within a tile of band D, pair (a, b) lies on offset i - j = R D + s -
+    (R - 1) with slot s = a - b + R - 1 in [0, 2R - 1): the 2R - 1 diagonals a
+    lane keeps in registers for the whole band (load_band, flush_band)."""
+    length = 64
+    r, _, _ = k7.bwd_tiles(length, gp)
+    for d, j, i, band in k7.band_tiles(length, gp):
+        for a in range(r):
+            for b in range(r):
+                s = a - b + r - 1
+                assert 0 <= s < 2 * r - 1
+                assert (i * r + a) - (j * r + b) == r * band + s - (r - 1)
+
+
+@pytest.mark.parametrize("length,gp", [(5, 4), (29, 4), (64, 8), (32, 16), (128, 2)])
+def test_forward_slots_read_their_offsets(length, gp):
+    """The stats/fwd table of ``relative``: slot s of query tile t against key
+    tile J reads the word load_rel_table stored the offset R (t - J) + s - (R - 1) at, for
+    every tile and slot; the table's words are distinct per offset."""
+    r, t = k7.fwd_tiles(length, gp)
+    lp = r * t
+    index = {o: k7.fwd_table_index(length, gp, o) for o in range(-(lp - 1), lp)}
+    assert len(set(index.values())) == len(index) and max(index.values()) < 2 * lp
+    for tt in range(t):
+        for j in range(t):
+            for s_ in range(2 * r - 1):
+                o = r * (tt - j) + s_ - (r - 1)
+                assert k7.fwd_slot_index(length, gp, tt, j, s_) == index[o]
 
 
 # --- AxialAttention in train mode -------------------------------------------------

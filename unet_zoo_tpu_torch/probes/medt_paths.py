@@ -25,8 +25,9 @@ from unet_zoo_tpu_torch.utils.serving import make_predictor
 
 
 def readings(name, inputs, batch, image, device):
-    """Per input: mask agreement kernel/plain, kernel/f32, plain/f32, and the
-    ratio of the kernel path's distance to f32 compute over the plain path's."""
+    """Per input: mask agreement kernel/plain, kernel/f32, plain/f32, the
+    ratio of the kernel path's distance to f32 compute over the plain path's,
+    and the kernel path's relative L2 distance to the plain path."""
     build = lambda **kw: make_predictor(create_model(name, seed=0, image_size=image, **kw),
                                         None, "logits")
     kern = build(dtype=torch.bfloat16)
@@ -40,7 +41,7 @@ def readings(name, inputs, batch, image, device):
         x = torch.randn(batch, 3, image, image, generator=gen, device=device)
         lk, lp, lf = kern(x).float(), plain(x).float(), exact(x).float()
         out.append(dict(kp=agree(lk, lp), kf=agree(lk, lf), pf=agree(lp, lf),
-                        ratio=dist(lk, lf) / dist(lp, lf)))
+                        ratio=dist(lk, lf) / dist(lp, lf), rel=dist(lk, lp)))
     return out
 
 
