@@ -15,7 +15,8 @@
    all four decoder stages, and times both paths and each stage.
 5. Holds K4 (``fused_mkblock``) and K5 (``fused_softmax_morph``) against
    their plain versions at every distinct full-width ``mmunet`` shape and
-   one odd shape each, each comparison scaled to what the output computes
+   one odd shape each (K4: and the edges of its forms), each comparison
+   scaled to what the output computes
    and shown to reject planted faults (K4: the cascade padded with gelu(t)
    instead of zero; K5: zero outputs, the wrong window, erosion padded
    with 0).
@@ -23,7 +24,7 @@
    K4 must run on all 22 MKBlocks and K5 on all 6 morphology gates, by the
    launch counters and by the profiler; times both paths, and K4 and K5 at
    every launch shape against their plain versions and the bf16 module
-   chains they replace.
+   chains they replace, with each K4 grid's device time from the profiler.
 7. Holds K6 (``fused_axial_attention``) against its plain version at every
    launch shape of the full-width ``gated`` forward, on both axes, in
    ``wopos`` mode at two shapes, and at an odd shape whose axis is shorter
@@ -169,9 +170,18 @@ MORPH_SHAPES = [(768, 16, 2, 1), (384, 32, 2, 1), (192, 64, 2, 1), (192, 128, 2,
 MMUNET_REL_L2 = 3e-2
 # K4 against its plain version: the error beyond the output's bf16 rounding,
 # as a share of the rms of the MLP branch (see k4_reading). Measured at most
-# 6.8e-3 on the H100 at the full-width shapes; the planted border fault
-# (mkblock_border_fault) reads 0.109 or more there (PERF.md).
+# 2.7e-3 on the H100 at the full-width shapes and the edge cases (h0 agrees
+# bit for bit, so the MLP's roundings alone remain); the planted border
+# fault (mkblock_border_fault) reads 8.4e-2 or more there (PERF.md).
 K4_BRANCH_SHARE = 2e-2
+# K4 beyond mmunet's shapes, at the edges of its forms (ops/kernels/mkblock.py::plan):
+# H, W not multiples of 8 or of the 16-pixel cascade tile; M below one
+# 128-row MLP tile; M one more than a whole persistent wave of 132 tiles
+# (61 x 277 = 132 x 128 + 1) for the resident (96) and streamed (192) fused
+# form; C = 384 and 768 at M = 512 (the split second GEMM); C = 160, a
+# multiple of 32 outside mmunet's widths (a 64-byte-swizzled K box).
+K4_EDGE_CASES = [(1, 32, 37, 29), (1, 96, 5, 7), (1, 96, 61, 277), (1, 192, 61, 277),
+                 (8, 384, 8, 8), (8, 768, 8, 8), (2, 160, 12, 20)]
 # K5 against its plain version, relative: half a bf16 ulp (2^-8) plus f32
 # differences of exp and of the sum over C (see k5_reading).
 K5_REL = 2.0 ** -8 + 2.0 ** -16
@@ -559,7 +569,7 @@ def check_k4_k5(torch, gen, device):
 
     k4_err = 0.0
     cases = [(2 if h >= 128 else SERVE_BATCH, c, h, h) for c, h, _ in MKBLOCK_SHAPES]
-    cases.append((1, 32, 37, 29))  # odd: H, W not multiples of 8 or of the 16-pixel tile
+    cases += K4_EDGE_CASES
     for b, c, h, w in cases:
         blk = random_mkblock(torch, c, torch.float32, "cpu", c + h)
         weights = [t.to(device) for t in k4.fold_mkblock_params(blk)]
@@ -694,15 +704,20 @@ def serve_mmunet(torch, gen, device):
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
 
-    # every K4 launch is a cascade grid and an MLP: one fused grid (C = 96,
-    # 192) or two GEMM grids
+    # every K4 launch is a cascade grid and an MLP: one fused grid (C <= 192),
+    # or a hidden-layer GEMM grid and an output GEMM grid (mkblock_gemm<1>)
+    # or a split one (mkblock_gemm<2>) and its reduction
     events = profile_forward(torch, lambda: preds["kernel"](x))
     count = lambda key: sum(key in e.name for e in events)
-    seen = {key: count(key) for key in ("mkblock_cascade", "mkblock_mlp_fused", "mkblock_gemm",
+    seen = {key: count(key) for key in ("mkblock_cascade", "mkblock_mlp<", "mkblock_gemm<0>",
+                                         "mkblock_gemm<1>", "mkblock_gemm<2>", "mkblock_reduce",
                                          "softmax_morph_kernel")}
     log(f"profiler: {seen}")
-    mlps = seen["mkblock_mlp_fused"] + seen["mkblock_gemm"] / 2
+    mlps = seen["mkblock_mlp<"] + seen["mkblock_gemm<0>"]
+    outputs = seen["mkblock_gemm<1>"] + seen["mkblock_reduce"]
     if not (seen["mkblock_cascade"] == mlps == want["fused_mkblock"]
+            and outputs == seen["mkblock_gemm<0>"]
+            and seen["mkblock_gemm<2>"] == seen["mkblock_reduce"]
             and seen["softmax_morph_kernel"] == want["fused_softmax_morph"]):
         raise AssertionError(f"profiler did not see K4 on every MKBlock and K5 on every gate: "
                              f"{seen}, launches {want}")
@@ -717,28 +732,38 @@ def time_k4_k5(torch, gen, device):
     from unet_zoo_tpu_torch.models.mmunet import softmax_morph
     from unet_zoo_tpu_torch.ops.kernels import mkblock as k4
     from unet_zoo_tpu_torch.ops.kernels import morph as k5
+    from unet_zoo_tpu_torch.probes.mkblock_grids import grid_split
     from unet_zoo_tpu_torch.utils.serving import cast_params_for_inference
 
     k4_rows = []
     for c, h, n in MKBLOCK_SHAPES:
         b = SERVE_BATCH
-        # the predictor's module path: bf16-rounded parameters, bf16 compute
+        # the predictor's module path: bf16-rounded parameters, bf16 compute;
+        # the kernel path's weights folded and packed once, as frozen
         blk = cast_params_for_inference(random_mkblock(torch, c, torch.bfloat16, device, c + h))
         weights = k4.fold_mkblock_params(blk)
+        packed = k4.pack_mkblock_weights(weights.w1, weights.w2)
         x = bf16_input(torch, gen, (b, c, h, h), device)
+        kernel = lambda: k4.fused_mkblock(x, *weights, packed=packed)
         with torch.inference_mode():
-            ms = cuda_ms(torch, lambda: k4.fused_mkblock(x, *weights), 20)
+            ms = cuda_ms(torch, kernel, 20)
+            device_graph_ms = graph_ms(torch, kernel, 20)
             plain_ms = cuda_ms(torch, lambda: k4.fused_mkblock_reference(x, *weights), 5)
             chain_ms = cuda_ms(torch, lambda: blk(x), 20)
+            # each grid's device time per launch, by kernel name, from the profiler
+            grids = {name: ms_ for name, (ms_, _) in grid_split(kernel, 10).items()}
         tc, f32, nbytes = mkblock_work(b, c, h, h)
         bound_ms, bound_by = bound(tc, nbytes, f32)
         k4_rows.append(dict(x=[b, c, h, h], launches=n, tc_flops=tc, f32_flops=f32,
                             bytes=nbytes, ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
+                            bound_ms=bound_ms, bound_by=bound_by, graph_ms=device_graph_ms,
+                            grids_ms=grids, device_ms=sum(grids.values()),
                             tflops=tc / ms / 1e9))
-        log(f"K4 x={[b, c, h, h]} x{n}: {ms:.4f} ms ({tc / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+        log(f"K4 x={[b, c, h, h]} x{n}: {ms:.4f} ms ({tc / ms / 1e9:.1f} TFLOP/s), by graph "
+            f"{device_graph_ms:.4f} ms, device {sum(grids.values()):.4f} ms ("
+            + ", ".join(f"{name} {g:.4f}" for name, g in grids.items())
+            + f"), plain {plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
 
     k5_rows = []
     for c, h, repeat, n in MORPH_SHAPES:
@@ -3070,6 +3095,15 @@ def main() -> int:
     bound_ms, bound_by = bound(total("flops"), total("bytes"))
     k4_bound = bound(per_forward(k4_rows, "tc_flops"), per_forward(k4_rows, "bytes"),
                      per_forward(k4_rows, "f32_flops"))
+    k4_grids = {}
+    for r in k4_rows:
+        for name, g in r["grids_ms"].items():
+            k4_grids[name] = k4_grids.get(name, 0.0) + g * r["launches"]
+    log(f"K4 per mmunet forward: {per_forward(k4_rows, 'ms'):.4f} ms by events, "
+        f"{per_forward(k4_rows, 'graph_ms'):.4f} ms by graph, device "
+        f"{per_forward(k4_rows, 'device_ms'):.4f} ms ("
+        + ", ".join(f"{name} {g:.4f}" for name, g in k4_grids.items())
+        + f"), bound {k4_bound[0]:.4f} ms ({k4_bound[1]})")
     k5_bound = bound(0, per_forward(k5_rows, "bytes"), per_forward(k5_rows, "f32_ops"))
     mm_serving = dict(serve_img_per_s=mm_rates, forward_ms=mm_med, device_busy_ms=mm_busy,
                       **mm_agreement)
@@ -3135,6 +3169,9 @@ def main() -> int:
         "bound_by": k4_bound[1],
         "library_ms": None,
         "module_chain_ms": per_forward(k4_rows, "module_chain_ms"),
+        "graph_ms": per_forward(k4_rows, "graph_ms"),
+        "device_ms": per_forward(k4_rows, "device_ms"),
+        "grids_ms": k4_grids,
         "mmunet": mm_serving,
         "shapes": k4_rows,
     }, {

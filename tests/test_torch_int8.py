@@ -653,8 +653,8 @@ def test_probe_clis_run_the_plain_versions(capsys):
     assert "s8xs8->s32" in out and "int8 vs bf16 ratio" in out and "max_err=0.00e+00" in out
     with pytest.raises(SystemExit):
         int8_matmul.main(["--bm", "512", "--device", "cpu"])
-    from unet_zoo_tpu_torch.probes import gated_step, int8_conv_plan, medt_paths
+    from unet_zoo_tpu_torch.probes import gated_step, int8_conv_plan, medt_paths, mkblock_grids
 
-    for card_only in (int8_conv_plan, medt_paths, gated_step):   # they time or compare on the card
+    for card_only in (int8_conv_plan, medt_paths, gated_step, mkblock_grids):   # they time or compare on the card
         with pytest.raises(SystemExit, match="CUDA is not available"):
             card_only.main([])

@@ -97,10 +97,10 @@ def _k5_reading(got, ref):
     return ((got.float() - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
 
 
-def _mkblock_weights(device, c):
+def _mkblock_weights(device, c, seed=0):
     """A random MKBlock with BN and biases off identity, folded."""
     blk = MKBlock(c)
-    init_weights(blk, torch.Generator().manual_seed(0))
+    init_weights(blk, torch.Generator().manual_seed(seed))
     with torch.no_grad():
         for m in blk.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
@@ -118,6 +118,12 @@ def _mkblock_weights(device, c):
     (1, 768, 8, 8),        # down3's width (two GEMM grids), one tile
     (1, 32, 13, 21),       # ragged tiles, q = 8
     (2, 64, 5, 70),        # q = 16: two chunks of channel chains, one row of tiles
+    (1, 96, 5, 7),         # M below one 128-row MLP tile
+    (1, 96, 61, 277),      # M = 132 x 128 + 1: one more than a persistent wave (resident weights)
+    (1, 192, 61, 277),     # the same, weights streamed
+    (8, 384, 8, 8),        # M = 512: the second GEMM split over K
+    (8, 768, 8, 8),
+    (2, 160, 12, 20),      # a multiple of 32 outside mmunet's widths: a 64-byte K box
 ])
 def test_fused_mkblock_kernel_matches_reference(cuda_device, b, c, h, w):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -133,6 +139,75 @@ def test_fused_mkblock_kernel_matches_reference(cuda_device, b, c, h, w):
     broken = got.clone()
     broken[:, :, 0] = x[:, :, 0]
     assert _k4_reading(broken, ref, x) > K4_BRANCH_SHARE
+
+
+def _mkblock_input(device, b, c, h, w, seed):
+    x = torch.randn(b, c, h, w, generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device)
+    return x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+# one shape of each form: resident fused MLP, streamed fused MLP, two GEMM
+# grids, the second split over K
+K4_FORMS = [(8, 96, 24, 24), (2, 192, 24, 24), (8, 384, 32, 32), (8, 768, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w", K4_FORMS)
+def test_fused_mkblock_is_deterministic(cuda_device, b, c, h, w):
+    """Two launches on the same inputs agree bit for bit: every sum, the
+    split second GEMM's too, is taken in a fixed order."""
+    weights = _mkblock_weights(cuda_device, c)
+    packed = k4.pack_mkblock_weights(weights[2], weights[4])
+    x = _mkblock_input(cuda_device, b, c, h, w, 1)
+    first = k4.fused_mkblock(x, *weights, packed=packed)
+    second = k4.fused_mkblock(x, *weights, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", [1, 2])
+@pytest.mark.parametrize("b,c,h,w", K4_FORMS)
+def test_fused_mkblock_interleaved_blocks(cuda_device, streams, b, c, h, w):
+    """Two MKBlocks of one width with different weights and inputs, launched
+    in turns on one stream or on two streams at once, each give what they give
+    alone, bit for bit: no weights, tensor map or workspace of one call is
+    served to another."""
+    blocks = [_mkblock_weights(cuda_device, c, seed) for seed in (0, 1)]
+    packs = [k4.pack_mkblock_weights(wt[2], wt[4]) for wt in blocks]
+    xs = [_mkblock_input(cuda_device, b, c, h, w, seed) for seed in (2, 3)]
+    alone = [k4.fused_mkblock(x, *wt, packed=pk) for x, wt, pk in zip(xs, blocks, packs)]
+    torch.cuda.synchronize()
+    for x, wt, got in zip(xs, blocks, alone):
+        assert _k4_reading(got, k4.fused_mkblock_reference(x.float(), *wt), x) <= K4_BRANCH_SHARE
+    side = [torch.cuda.Stream() for _ in range(streams)]
+    outs = [[], []]
+    start = torch.cuda.Event()
+    start.record()
+    for i, st in enumerate(side):
+        st.wait_event(start)
+    for _ in range(3):
+        for i in (0, 1):
+            with torch.cuda.stream(side[i % streams]):
+                if streams == 2:
+                    torch.cuda._sleep(10000)   # let the other stream's launch run meanwhile
+                outs[i].append(k4.fused_mkblock(xs[i], *blocks[i], packed=packs[i]))
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        for got in outs[i]:
+            assert torch.equal(got, alone[i])
+    assert not torch.equal(alone[0], alone[1])
+
+
+@pytest.mark.cuda
+def test_mkblock_plan_matches_the_source(cuda_device):
+    """The wrapper's mirror of the fused form's layout is the source's."""
+    lib = k4._lib()
+    for c in range(32, k4.FUSED_MAX_C + 1, 32):
+        resident, smem = k4.fused_layout(c)
+        assert (lib.mkblock_fused_resident(c), lib.mkblock_fused_smem(c)) == (int(resident), smem)
+    assert lib.mkblock_fused_smem(k4.FUSED_MAX_C + 32) == 0
 
 
 @pytest.mark.cuda

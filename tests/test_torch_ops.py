@@ -113,7 +113,8 @@ def test_import_leaves_jax_out():
             "unet_zoo_tpu_torch.ops.kernels.int8_gemm, unet_zoo_tpu_torch.ops.kernels.row_gather, "
             "unet_zoo_tpu_torch.models.unet_tpu, unet_zoo_tpu_torch.probes.int8_matmul, "
             "unet_zoo_tpu_torch.probes.gather, unet_zoo_tpu_torch.probes.int8_conv_plan, "
-            "unet_zoo_tpu_torch.probes.medt_paths, unet_zoo_tpu_torch.probes.gated_step; "
+            "unet_zoo_tpu_torch.probes.medt_paths, unet_zoo_tpu_torch.probes.gated_step, "
+            "unet_zoo_tpu_torch.probes.mkblock_grids; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'unet_zoo_tpu') if m in sys.modules]; "
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -104,20 +104,23 @@ class MKBlock(nn.Module):
             self.linear_1 = nn.Conv1d(64, dim, 1, bias=False)
             self.conv2 = nn.Sequential(nn.Conv2d(dim, dim, 1, bias=False), nn.BatchNorm2d(dim))
         self._frozen: Optional[mkblock.MKBlockWeights] = None
+        self._packed: Optional[mkblock.MKBlockPacked] = None
 
     def kernel_path(self, x: torch.Tensor) -> bool:
         return use_kernel(self.use_kernels, self.training, x,
                           x.shape[1] % mkblock.CHANNEL_ALIGN == 0)
 
     def freeze_kernel_weights(self) -> None:
-        """Fold once for a predictor whose weights no longer change."""
+        """Fold and pack once for a predictor whose weights no longer change."""
         self._frozen = mkblock.fold_mkblock_params(self)
+        self._packed = mkblock.pack_mkblock_weights(self._frozen.w1, self._frozen.w2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kernel_path(x):
             w = self._frozen if self._frozen is not None else mkblock.fold_mkblock_params(self)
             xb = x.to(torch.bfloat16, memory_format=torch.channels_last)
-            x = mkblock.fused_mkblock(xb, *w).to(self.dtype)
+            x = mkblock.fused_mkblock(xb, *w, packed=self._packed if self._frozen is not None
+                                      else None).to(self.dtype)
         else:
             x = self._base(x)
         return self._attention(x) if self.external_attention else x

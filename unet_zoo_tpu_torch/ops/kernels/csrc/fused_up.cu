@@ -8,7 +8,7 @@
 //
 // Form: two launches of one tensor-core GEMM kernel (mma.sync m16n8k16, bf16
 // in, f32 accumulate), fed by a 4-stage cp.async ring in shared memory
-// (gemm_mainloop in mma.cuh, shared with K4).
+// (gemm_mainloop in mma.cuh).
 //   1. ConvT as a GEMM: [B*Hc*Wc, Cin] x [Cin, 4*Cu]. Columns are packed
 //      (a, b, cu), so column (a, b, cu) of coarse pixel (m, n) belongs to fine
 //      pixel (2m+a, 2n+b): the depth-to-space is index math in the store. The

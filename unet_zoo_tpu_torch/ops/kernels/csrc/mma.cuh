@@ -1,6 +1,6 @@
 // Device helpers shared by the hand-written GEMM kernels (sm_90a): 16-byte
 // cp.async with zero fill, ldmatrix, the bf16 mma.sync m16n8k16 tile, and the
-// block-tile GEMM main loop that K1 (fused_up.cu) and K4 (mkblock.cu) share.
+// block-tile GEMM main loop of K1 (fused_up.cu).
 #pragma once
 
 #include <cuda_bf16.h>
