@@ -19,12 +19,15 @@
    scaled to what the output computes
    and shown to reject planted faults (K4: the cascade padded with gelu(t)
    instead of zero; K5: zero outputs, the wrong window, erosion padded
-   with 0).
+   with 0, the second round padded with 0 or with the pads swapped, the
+   kernel launched with a strip or band halo one pixel short); K5 also
+   launches twice bit for bit and its source's geometry is the plan's.
 6. Serves full-width ``mmunet`` (base 96, bf16, B=8, 256x256) the same way:
    K4 must run on all 22 MKBlocks and K5 on all 6 morphology gates, by the
-   launch counters and by the profiler; times both paths, and K4 and K5 at
+   launch counters and by the profiler (each K5 launch both its grids); times both paths, and K4 and K5 at
    every launch shape against their plain versions and the bf16 module
-   chains they replace, with each K4 grid's device time from the profiler.
+   chains they replace, with each K4 and K5 grid's device time from the
+   profiler.
 7. Holds K6 (``fused_axial_attention``) against its plain version at every
    launch shape of the full-width ``gated`` forward, on both axes, in
    ``wopos`` mode at two shapes, and at an odd shape whose axis is shorter
@@ -547,17 +550,38 @@ def mkblock_border_fault(torch, x, taps, affine, w1, b1, w2, b2):
 
 def morph_faults(torch, x, repeat, d_ref, e_ref):
     """Planted K5 faults, each (name, got, ref): d or e all zero, the wrong
-    window (5 for 7), and e re-padded with 0 instead of +inf each round."""
+    window (5 for 7), e re-padded with 0 instead of +inf each round; for two
+    rounds also the second round alone padded with 0, and with the maps'
+    pads swapped (+inf for d, -inf for e). (A second round with no re-pad
+    at all equals the reference, tests/test_torch_morph_plan.py.) Where the
+    plan has more than one strip or band, the kernel itself launched with a
+    strip halo or a band halo one pixel short of R (``morph.short_halo_fault``)."""
     from unet_zoo_tpu_torch.ops.kernels import morph as k5
 
     F = torch.nn.functional
     d5, e5 = k5.fused_softmax_morph_reference(x.float(), 5, repeat)
-    e0 = torch.softmax(x.float(), dim=1)
+    sm = torch.softmax(x.float(), dim=1)
+    e0 = sm
     for _ in range(repeat):
         e0 = -F.max_pool2d(F.pad(-e0, (3, 3, 3, 3), value=0.0), 7, 1)
-    return [("d zero", torch.zeros_like(d_ref), d_ref), ("e zero", torch.zeros_like(e_ref), e_ref),
-            ("d 5x5", d5, d_ref), ("e 5x5", e5, e_ref),
-            ("e 0-padded", e0.to(torch.bfloat16), e_ref)]
+    faults = [("d zero", torch.zeros_like(d_ref), d_ref),
+              ("e zero", torch.zeros_like(e_ref), e_ref),
+              ("d 5x5", d5, d_ref), ("e 5x5", e5, e_ref),
+              ("e 0-padded", e0.to(torch.bfloat16), e_ref)]
+    if repeat == 2:
+        d1, e1 = F.max_pool2d(sm, 7, 1, 3), -F.max_pool2d(-sm, 7, 1, 3)
+        second = lambda t, pad: F.max_pool2d(F.pad(t, (3, 3, 3, 3), value=pad), 7, 1)
+        faults += [("e 2nd round 0-padded", (-second(-e1, 0.0)).to(torch.bfloat16), e_ref),
+                   ("d 2nd round +inf-padded", second(d1, float("inf")).to(torch.bfloat16), d_ref),
+                   ("e 2nd round -inf-padded", (-second(-e1, float("inf"))).to(torch.bfloat16),
+                    e_ref)]
+    b, c, h, w = x.shape
+    p = k5.plan(b, c, h, w, repeat)
+    for side, pieces in (("strip", -(-w // p.tw)), ("band", -(-h // p.bh))):
+        if pieces > 1:
+            d, e = k5.short_halo_fault(x, repeat, side)
+            faults += [(f"d {side} halo R-1", d, d_ref), (f"e {side} halo R-1", e, e_ref)]
+    return faults
 
 
 def check_k4_k5(torch, gen, device):
@@ -591,7 +615,7 @@ def check_k4_k5(torch, gen, device):
         k4_err = max(k4_err, err)
 
     k5_err = 0.0
-    cases = [(2 if h >= 128 else SERVE_BATCH, c, h, h) for c, h, _, _ in MORPH_SHAPES]
+    cases = [(SERVE_BATCH, c, h, h) for c, h, _, _ in MORPH_SHAPES]
     cases.append((1, 24, 37, 29))
     for b, c, h, w in cases:
         x = bf16_input(torch, gen, (b, c, h, w), device, scale=2.0)
@@ -599,16 +623,25 @@ def check_k4_k5(torch, gen, device):
             d, e = k5.fused_softmax_morph(x, 7, repeat)
             d_ref, e_ref = k5.fused_softmax_morph_reference(x.float(), 7, repeat)
             faults = morph_faults(torch, x, repeat, d_ref, e_ref)
+            d2, e2 = k5.fused_softmax_morph(x, 7, repeat)
             torch.cuda.synchronize()
+            p = k5.plan(b, c, h, w, repeat)
+            geometry = k5.source_geometry(b, c, h, w, repeat, p)
             rel = {"d": k5_reading(d, d_ref), "e": k5_reading(e, e_ref)}
             caught = {name: k5_reading(got, ref) for name, got, ref in faults}
-            log(f"K5 x={[b, c, h, w]} repeat={repeat}: max rel err d {rel['d']:.3e}, "
-                f"e {rel['e']:.3e} (limit {K5_REL:.4e}); least planted fault "
-                f"{min(caught.values()):.3e} ({min(caught, key=caught.get)})")
+            log(f"K5 x={[b, c, h, w]} repeat={repeat} plan cb={p.cb} tw={p.tw} bh={p.bh} "
+                f"grid={p.grid} threads={p.threads} smem={p.smem} stats blocks "
+                f"{p.stats_blocks}: max rel err d {rel['d']:.3e}, e {rel['e']:.3e} (limit "
+                f"{K5_REL:.4e}); least planted fault {min(caught.values()):.3e} "
+                f"({min(caught, key=caught.get)}) of {len(caught)}")
             if not max(rel.values()) <= K5_REL:
                 raise AssertionError(f"K5 disagrees with its plain version: {rel}")
             if not min(caught.values()) > K5_REL:
                 raise AssertionError(f"the K5 comparison passed a planted fault: {caught}")
+            if not (torch.equal(d, d2) and torch.equal(e, e2)):
+                raise AssertionError("two K5 launches differ")
+            if geometry != (*p.grid, p.threads, p.smem, p.stats_blocks, p.rows):
+                raise AssertionError(f"K5 source geometry {geometry} is not the plan's {p}")
             k5_err = max(k5_err, (d.float() - d_ref).abs().max().item(),
                          (e.float() - e_ref).abs().max().item())
     return k4_err, k5_err
@@ -706,18 +739,20 @@ def serve_mmunet(torch, gen, device):
 
     # every K4 launch is a cascade grid and an MLP: one fused grid (C <= 192),
     # or a hidden-layer GEMM grid and an output GEMM grid (mkblock_gemm<1>)
-    # or a split one (mkblock_gemm<2>) and its reduction
+    # or a split one (mkblock_gemm<2>) and its reduction; every K5 launch is a
+    # statistics grid and a pool grid
     events = profile_forward(torch, lambda: preds["kernel"](x))
     count = lambda key: sum(key in e.name for e in events)
     seen = {key: count(key) for key in ("mkblock_cascade", "mkblock_mlp<", "mkblock_gemm<0>",
                                          "mkblock_gemm<1>", "mkblock_gemm<2>", "mkblock_reduce",
-                                         "softmax_morph_kernel")}
+                                         "softmax_stats_kernel", "softmax_morph_kernel")}
     log(f"profiler: {seen}")
     mlps = seen["mkblock_mlp<"] + seen["mkblock_gemm<0>"]
     outputs = seen["mkblock_gemm<1>"] + seen["mkblock_reduce"]
     if not (seen["mkblock_cascade"] == mlps == want["fused_mkblock"]
             and outputs == seen["mkblock_gemm<0>"]
             and seen["mkblock_gemm<2>"] == seen["mkblock_reduce"]
+            and seen["softmax_stats_kernel"] == want["fused_softmax_morph"]
             and seen["softmax_morph_kernel"] == want["fused_softmax_morph"]):
         raise AssertionError(f"profiler did not see K4 on every MKBlock and K5 on every gate: "
                              f"{seen}, launches {want}")
@@ -769,19 +804,26 @@ def time_k4_k5(torch, gen, device):
     for c, h, repeat, n in MORPH_SHAPES:
         b = SERVE_BATCH
         x = bf16_input(torch, gen, (b, c, h, h), device, scale=2.0)
+        kernel = lambda: k5.fused_softmax_morph(x, 7, repeat)
         with torch.inference_mode():
-            ms = cuda_ms(torch, lambda: k5.fused_softmax_morph(x, 7, repeat), 20)
+            ms = cuda_ms(torch, kernel, 20)
+            device_graph_ms = graph_ms(torch, kernel, 20)
             plain_ms = cuda_ms(torch, lambda: k5.fused_softmax_morph_reference(x, 7, repeat), 5)
             chain_ms = cuda_ms(torch, lambda: softmax_morph(x, repeat, False, False), 20)
+            grids = {name: ms_ for name, (ms_, _) in grid_split(kernel, 10).items()}
         ops, nbytes = morph_work(b, c, h, h, 7, repeat)
         bound_ms, bound_by = bound(0, nbytes, ops)
         k5_rows.append(dict(x=[b, c, h, h], repeat=repeat, launches=n, f32_ops=ops,
                             bytes=nbytes, ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            gbytes_per_s=nbytes / ms / 1e6))
-        log(f"K5 x={[b, c, h, h]} repeat={repeat} x{n}: {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, module chain "
-            f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                            bound_ms=bound_ms, bound_by=bound_by, graph_ms=device_graph_ms,
+                            grids_ms=grids, device_ms=sum(grids.values()),
+                            gbytes_per_s=nbytes / device_graph_ms / 1e6))
+        log(f"K5 x={[b, c, h, h]} repeat={repeat} x{n}: {ms:.4f} ms, by graph "
+            f"{device_graph_ms:.4f} ms ({nbytes / device_graph_ms / 1e6:.1f} GB/s), device "
+            f"{sum(grids.values()):.4f} ms ("
+            + ", ".join(f"{name} {g:.4f}" for name, g in grids.items())
+            + f"), plain {plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
     return k4_rows, k5_rows
 
 
@@ -3105,6 +3147,15 @@ def main() -> int:
         + ", ".join(f"{name} {g:.4f}" for name, g in k4_grids.items())
         + f"), bound {k4_bound[0]:.4f} ms ({k4_bound[1]})")
     k5_bound = bound(0, per_forward(k5_rows, "bytes"), per_forward(k5_rows, "f32_ops"))
+    k5_grids = {}
+    for r in k5_rows:
+        for name, g in r["grids_ms"].items():
+            k5_grids[name] = k5_grids.get(name, 0.0) + g * r["launches"]
+    log(f"K5 per mmunet forward: {per_forward(k5_rows, 'ms'):.4f} ms by events, "
+        f"{per_forward(k5_rows, 'graph_ms'):.4f} ms by graph, device "
+        f"{per_forward(k5_rows, 'device_ms'):.4f} ms ("
+        + ", ".join(f"{name} {g:.4f}" for name, g in k5_grids.items())
+        + f"), bound {k5_bound[0]:.4f} ms ({k5_bound[1]})")
     mm_serving = dict(serve_img_per_s=mm_rates, forward_ms=mm_med, device_busy_ms=mm_busy,
                       **mm_agreement)
     k6_bound = bound(0, per_forward(k6_rows, "bytes"), per_forward(k6_rows, "f32_ops"))
@@ -3187,6 +3238,9 @@ def main() -> int:
         "bound_by": k5_bound[1],
         "library_ms": None,
         "module_chain_ms": per_forward(k5_rows, "module_chain_ms"),
+        "graph_ms": per_forward(k5_rows, "graph_ms"),
+        "device_ms": per_forward(k5_rows, "device_ms"),
+        "grids_ms": k5_grids,
         "shapes": k5_rows,
     }, {
         "name": "fused_axial_attention",

@@ -210,18 +210,38 @@ def test_mkblock_plan_matches_the_source(cuda_device):
     assert lib.mkblock_fused_smem(k4.FUSED_MAX_C + 32) == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,c,h,w,k,repeat", [
+def _morph_input(device, b, c, h, w, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (2 * torch.randn(b, c, h, w, generator=gen, device=device)).to(torch.bfloat16)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+# mmunet's five gate shapes at B=8 (base 96, 256px), then odd shapes
+MORPH_CASES = [
+    (8, 768, 16, 16, 7, 2),
+    (8, 384, 32, 32, 7, 2),
+    (8, 192, 64, 64, 7, 2),
+    (8, 192, 128, 128, 7, 2),
+    (8, 96, 256, 256, 7, 1),
     (2, 192, 64, 64, 7, 2),
     (1, 768, 16, 16, 7, 2),
     (2, 96, 40, 24, 7, 1),
     (1, 24, 13, 29, 7, 2),     # ragged tiles
     (3, 16, 9, 9, 7, 1),       # an image smaller than the halo
-])
+    (1, 8, 13, 29, 7, 2),
+    (8, 64, 64, 64, 7, 1),     # statistics: 8 lanes a pixel
+    (8, 128, 64, 64, 7, 1),    # statistics: 16 lanes a pixel
+    (1, 40, 33, 100, 7, 2),    # 5 vectors a pixel: statistics 1 lane a pixel
+    (2, 176, 64, 64, 7, 2),    # no block of MIN_CB channels or more fits
+    (2, 208, 64, 64, 7, 2),
+    (2, 232, 64, 64, 7, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,k,repeat", MORPH_CASES)
 def test_fused_softmax_morph_kernel_matches_reference(cuda_device, b, c, h, w, k, repeat):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    x = (2 * torch.randn(b, c, h, w, generator=gen, device=cuda_device)).to(torch.bfloat16)
-    x = x.contiguous(memory_format=torch.channels_last)
+    x = _morph_input(cuda_device, b, c, h, w)
     d_ref, e_ref = k5.fused_softmax_morph_reference(x.float(), k, repeat)
     d, e = k5.fused_softmax_morph(x, k, repeat)
     torch.cuda.synchronize()
@@ -231,6 +251,69 @@ def test_fused_softmax_morph_kernel_matches_reference(cuda_device, b, c, h, w, k
     # an erosion of zeros, or one of the wrong window, fails the same comparison
     assert _k5_reading(torch.zeros_like(e), e_ref) > K5_REL
     assert _k5_reading(k5.fused_softmax_morph_reference(x.float(), 5, repeat)[1], e_ref) > K5_REL
+    # two launches agree bit for bit
+    d2, e2 = k5.fused_softmax_morph(x, k, repeat)
+    assert torch.equal(d, d2) and torch.equal(e, e2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,k,repeat", MORPH_CASES)
+def test_morph_plan_matches_the_source(cuda_device, b, c, h, w, k, repeat):
+    """The source launches the grid, threads, shared memory and statistics
+    blocks that morph.plan computes."""
+    p = k5.plan(b, c, h, w, repeat)
+    assert k5.source_geometry(b, c, h, w, repeat, p) == (
+        *p.grid, p.threads, p.smem, p.stats_blocks, p.rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,repeat", [(2, 96, 256, 256, 1), (2, 192, 128, 128, 2),
+                                            (2, 192, 64, 64, 2)])
+@pytest.mark.parametrize("side", ["strip", "band"])
+def test_morph_halo_one_pixel_short_is_rejected(cuda_device, b, c, h, w, repeat, side):
+    """The kernel built with a strip or band halo one pixel short of
+    R = 3 * repeat (the source's fault entry): the cells beside a strip or
+    band inside the image drop out of the windows, and the K5 comparison
+    rejects it."""
+    x = _morph_input(cuda_device, b, c, h, w, seed=1)
+    p = k5.plan(b, c, h, w, repeat)
+    assert (-(-w // p.tw) if side == "strip" else -(-h // p.bh)) > 1
+    d_ref, e_ref = k5.fused_softmax_morph_reference(x.float(), 7, repeat)
+    d, e = k5.short_halo_fault(x, repeat, side)
+    torch.cuda.synchronize()
+    assert min(_k5_reading(d, d_ref), _k5_reading(e, e_ref)) > K5_REL
+
+
+def _repad_fault(x, pad_d, pad_e):
+    """K5's plain version, two rounds, with the second round padded with
+    ``pad_d`` (d) and ``pad_e`` (e) instead of -inf and +inf."""
+    F = torch.nn.functional
+    sm = torch.softmax(x, dim=1)
+    d, e = F.max_pool2d(sm, 7, 1, 3), -F.max_pool2d(-sm, 7, 1, 3)
+    d = F.max_pool2d(F.pad(d, (3, 3, 3, 3), value=pad_d), 7, 1)
+    e = -F.max_pool2d(F.pad(-e, (3, 3, 3, 3), value=-pad_e), 7, 1)
+    return d.to(torch.bfloat16), e.to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad_d,pad_e,rejects", [
+    (0.0, 0.0, "e"),                             # the second round padded with zeros
+    (float("inf"), -float("inf"), "de"),         # the two maps' pads swapped
+])
+def test_morph_second_round_repad_fault_is_rejected(cuda_device, pad_d, pad_e, rejects):
+    """A second round padded with the wrong value fails the K5 comparison
+    where the value can win a window (0 in an erosion; +inf in a dilation,
+    -inf in an erosion); the kernel passes it. A second round with no
+    re-pad at all computes the reference itself
+    (tests/test_torch_morph_plan.py), so it is no fault to plant."""
+    x = _morph_input(cuda_device, 2, 192, 64, 64, seed=2)
+    d_ref, e_ref = k5.fused_softmax_morph_reference(x.float(), 7, 2)
+    d_bad, e_bad = _repad_fault(x.float(), pad_d, pad_e)
+    reading = {"d": _k5_reading(d_bad, d_ref), "e": _k5_reading(e_bad, e_ref)}
+    assert all(reading[m] > K5_REL for m in rejects), reading
+    d, e = k5.fused_softmax_morph(x, 7, 2)
+    torch.cuda.synchronize()
+    assert max(_k5_reading(d, d_ref), _k5_reading(e, e_ref)) <= K5_REL
 
 
 @pytest.mark.cuda

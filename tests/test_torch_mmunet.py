@@ -236,15 +236,6 @@ def test_morph_kernel_argument_checks(shape, k, repeat, err):
         k5._check_kernel_args(x.float(), 7, 1)
 
 
-@pytest.mark.parametrize("shape,groups", [
-    ((8, 768, 16, 16), 33),     # one tile per image: channel chunks spread the grid
-    ((8, 96, 256, 256), 1),     # 2048 tiles fill the card alone
-    ((1, 16, 5, 7), 2),         # capped at C / 8 chunks
-])
-def test_morph_channel_groups(shape, groups):
-    assert k5.channel_groups(*shape) == groups
-
-
 def test_wrappers_reject_other_devices():
     x = torch.zeros(1, 32, 4, 4, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -16,6 +16,7 @@ import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -24,11 +25,15 @@ from unet_zoo_tpu.models import create_model as jax_create_model
 from unet_zoo_tpu.models import wranet as jwra
 from unet_zoo_tpu.ops import deform as jax_deform
 from unet_zoo_tpu.ops.pallas import deform as jax_k8
+from unet_zoo_tpu.train.steps import TrainState as JaxTrainState
+from unet_zoo_tpu.train.steps import make_optimizer as jax_make_optimizer
+from unet_zoo_tpu.train.steps import make_train_step as jax_make_train_step
 from unet_zoo_tpu.utils.convert import convert_state_dict
 from unet_zoo_tpu_torch import create_model, list_models
 from unet_zoo_tpu_torch.models import wranet as pwra
 from unet_zoo_tpu_torch.ops import deform as port_deform
 from unet_zoo_tpu_torch.ops.kernels import deform as k8
+from unet_zoo_tpu_torch.train import create_train_state, make_train_step
 from unet_zoo_tpu_torch.utils.convert import from_jax_variables
 
 torch.set_num_threads(1)
@@ -99,6 +104,25 @@ def test_deform_conv2d_matches_jax_bf16(scale):
     got = port_deform.deform_conv2d(tb(x), _t(off), _t(m), tb(wt), tb(bias))
     assert got.dtype == torch.bfloat16
     assert _max_err(got.float().numpy(), want) <= 2 ** -7 * np.abs(want).max()
+
+
+def test_deform_conv2d_grads_at_zero_offsets_match_jax_vjp():
+    """float32, zero offsets: every border tap samples exactly on the
+    frame's bound (-1 or H, W), where ``jnp.clip`` passes half the gradient.
+    The gradients with respect to x, offset and mask match JAX's VJP within
+    1e-5 of each one's largest magnitude (``torch.clamp``, which passes all
+    of it, puts the offset gradient 0.5 of its largest entry away)."""
+    x, _, m, wt, bias = _deform_case(9, 2, 7, 6, 5, 4, 1.0)
+    off = np.zeros((2, 7, 6, 18), np.float32)
+    g = np.random.default_rng(10).standard_normal((2, 7, 6, 4)).astype(np.float32)
+    vjp = jax.jit(lambda g_, *a: jax.vjp(
+        lambda *b: jax_deform.deform_conv2d(*b, jnp.asarray(bias)), *a)[1](g_)[:3])
+    want = [np.asarray(a) for a in vjp(*map(jnp.asarray, (g, x, off, m, wt)))]
+    args = [_t(a).requires_grad_(i < 3) for i, a in enumerate((x, off, m, wt))]
+    port_deform.deform_conv2d(*args, _t(bias)).backward(_t(g))
+    for name, a, w in zip(("x", "offset", "mask"), args, want):
+        assert np.abs(w).max() > 0, name
+        assert _max_err(a.grad.numpy(), w) <= 1e-5 * np.abs(w).max(), name
 
 
 # --- K8's plain version against the JAX Pallas kernel -----------------------------------
@@ -238,15 +262,22 @@ def test_deformable_conv_matches_jax(use_kernels):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_init():
+    """A JAX wranet (feature_channels 32, XLA path) and its seed-0 variables
+    for a batch of two 32px images, as numpy arrays."""
+    m = jax_create_model("wranet", feature_channels=32, use_pallas=False)
+    v = flax.core.unfreeze(m.init(jax.random.PRNGKey(0), jnp.zeros((2, 32, 32, 3))))
+    return m, jax.tree_util.tree_map(np.asarray, v)
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_case():
-    """A JAX wranet (feature_channels 32), its variables with the offset and
-    modulator convs drawn off zero and BatchNorm off identity, a 32px input
-    and its eval logits (XLA path)."""
+    """The seed-0 JAX wranet with the offset and modulator convs drawn off
+    zero and BatchNorm off identity, a 32px input and its eval logits."""
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
-    m = jax_create_model("wranet", feature_channels=32, use_pallas=False)
-    v = flax.core.unfreeze(m.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    v = jax.tree_util.tree_map(np.asarray, v)
+    m, v = _jax_init()
+    v = jax.tree_util.tree_map(np.asarray, v)       # a fresh tree: the draws below replace leaves
     _draw_offsets(rng, v["params"])
     for e in (1, 2, 3):
         alpha = v["params"][f"enc{e}_wrarb"]["alpha"]
@@ -336,3 +367,54 @@ def test_wranet_trains_on_module_path(monkeypatch):
     offset_w = m.module.decoder_lv1.rdb.convs[0].offset_conv.weight
     assert np.isfinite(losses).all() and losses[-1] < losses[0] and calls == []
     assert offset_w.abs().max() > 0          # moved off its zero init
+
+
+# --- one train step -------------------------------------------------------------------
+
+
+def _adam_first_moment(opt_state):
+    return next(s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)).mu
+
+
+@pytest.fixture(scope="module")
+def jax_wranet_step():
+    """JAX ``wranet`` (feature_channels 32, 32px, XLA path) from its seed-0
+    variables, as initialised (offset and modulator convs at zero; the
+    optimizer of ``create_train_state``), one make_train_step on a seeded
+    uint8 batch of 2: initial variables, metrics and the clipped gradient
+    (AdamW's first moment after one step is 0.1 times it)."""
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
+    masks = (rng.random((2, 32, 32, 1)) > 0.5).astype(np.uint8)
+    m, init = _jax_init()
+    state = JaxTrainState.create(apply_fn=m.module.apply, params=init["params"],
+                                 batch_stats=init["batch_stats"], tx=jax_make_optimizer(1e-4))
+    as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    state, metrics = jax_make_train_step(m)(state, jnp.asarray(images), jnp.asarray(masks))
+    grads = jax.tree_util.tree_map(lambda mu: mu / 0.1, as_np(_adam_first_moment(state.opt_state)))
+    return (images, masks, init, {k: float(v) for k, v in metrics.items()},
+            from_jax_variables("wranet", {"params": grads, "batch_stats": init["batch_stats"]}))
+
+
+def test_wranet_train_step_grads_match_jax(jax_wranet_step):
+    """One port step on the module path, float32, from JAX's initial
+    variables and batch: loss and Dice at 1e-5, every clipped first-step
+    gradient within 1e-3 of its tensor's largest entry. At init every
+    border tap of the deformable convs samples exactly on the frame's
+    bound, so the offset convs' gradients hinge on the clamp's tie rule
+    (``torch.clamp`` put them 4-8% of their largest entry away)."""
+    images, masks, init, metrics, grads_ref = jax_wranet_step
+    model = create_model("wranet", device="cpu", feature_channels=32)
+    model.module.load_state_dict(from_jax_variables("wranet", init), strict=True)
+    got = make_train_step(model)(create_train_state(model), _nchw(images), _nchw(masks))
+    np.testing.assert_allclose(got["loss"].item(), metrics["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["dice"].item(), metrics["dice"], rtol=1e-5)
+    names = []
+    for name, p in model.module.named_parameters():
+        g_ref = grads_ref[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), g_ref, rtol=0,
+                                   atol=1e-3 * np.abs(g_ref).max() + 1e-7, err_msg=f"grad {name}")
+        names.append(name)
+    assert "decoder_lv1.rdb.convs.0.offset_conv.weight" in names

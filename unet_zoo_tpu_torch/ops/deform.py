@@ -5,7 +5,8 @@ package runs through XLA: the module path of ``wranet``'s
 ``DeformableConv``. Plain PyTorch, batched over images (no torchvision):
 
 * every sample position is clamped to a 1-pixel zero frame around the
-  image ([-1, H] and [-1, W]), shifted by +1 into the padded image, and its
+  image ([-1, H] and [-1, W]; a tie at a bound splits the gradient as
+  ``jnp.clip`` does), shifted by +1 into the padded image, and its
   top-left corner clamped to [0, Hp - 2] x [0, Wp - 2], so samples outside
   the image interpolate to zero (torchvision's semantics);
 * the four corner weights fold the modulation mask;
@@ -40,6 +41,15 @@ def out_size(h: int, w: int, kh: int, kw: int, stride: int, padding: int, dilati
     return ho, wo
 
 
+def clip(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``v`` clamped to [lo, hi] with ``jnp.clip``'s gradient: a value that
+    sits exactly on a bound passes half the gradient, where ``torch.clamp``
+    passes all of it. wranet's offset convs are zero at init, so every
+    border tap samples exactly on a bound on the first train step. The
+    bounds are filled on v's device, so a CUDA graph can capture it."""
+    return torch.minimum(torch.maximum(v, v.new_full((), lo)), v.new_full((), hi))
+
+
 def sample_positions(h: int, w: int, offset: torch.Tensor, mask: torch.Tensor, kh: int, kw: int,
                      stride: int = 1, padding: int = 1, dilation: int = 1) -> Samples:
     """Clamped bilinear sample positions and weights, in float32.
@@ -56,8 +66,8 @@ def sample_positions(h: int, w: int, offset: torch.Tensor, mask: torch.Tensor, k
     kx = ((taps % kw) * dilation).float()
     by = (torch.arange(ho, device=dev) * stride - padding).float()
     bx = (torch.arange(wo, device=dev) * stride - padding).float()
-    py = torch.clamp((by[:, None, None] + ky) + off[..., 0], -1.0, float(h)) + 1.0
-    px = torch.clamp((bx[None, :, None] + kx) + off[..., 1], -1.0, float(w)) + 1.0
+    py = clip((by[:, None, None] + ky) + off[..., 0], -1.0, float(h)) + 1.0
+    px = clip((bx[None, :, None] + kx) + off[..., 1], -1.0, float(w)) + 1.0
     y0 = torch.clamp(torch.floor(py), 0, h)          # [0, Hp - 2]
     x0 = torch.clamp(torch.floor(px), 0, w)          # [0, Wp - 2]
     wy1, wx1 = py - y0, px - x0
