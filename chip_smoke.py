@@ -30,14 +30,19 @@
    profiler.
 7. Holds K6 (``fused_axial_attention``) against its plain version at every
    launch shape of the full-width ``gated`` forward, on both axes, in
-   ``wopos`` mode at two shapes, and at an odd shape whose axis is shorter
-   than the kernel size; each comparison is shown to reject planted faults
-   (the k embedding read untransposed, the softmax over queries, the sve
-   term dropped).
+   ``wopos`` mode at two shapes, at an odd shape whose axis is shorter
+   than the kernel size, at L = 33, 127 and 129 (partial key tiles) and
+   at every gp at L = 128; each comparison is shown to reject planted
+   faults (the k embedding read untransposed, the softmax over queries, the
+   sve term dropped) and, through the source's test-only entry, faults of
+   the kernel's design where they apply (the rescale skipped when a row's
+   reference moves, the last partial key tile dropped, the key splits'
+   merge dropped); every case launches twice bit for bit.
 8. Serves full-width ``gated`` (bf16, B=8, 256x256) on both paths: K6 must
-   run 16 times per forward, by the launch counter and by the profiler;
-   times both paths and K6 at every launch shape against its bound, its
-   plain version and the bf16 module chain it replaces. Serves
+   run 16 times per forward, by the launch counter and by the profiler
+   (every K6 grid name); times both paths and K6 at every launch shape
+   against its bound, its plain version and the bf16 module chain it
+   replaces, by CUDA events and by CUDA graph. Serves
    ``axialunet``, ``medt``, ``logo`` and ``medt_logo`` at B=2, 128x128 on
    both paths, compared the same way. Each model is also served in float32
    on the kernel path against float32 compute, and with faults planted
@@ -199,6 +204,12 @@ AXIAL_GROUPS = 8
 # What remains is f32 arithmetic in another order (sums over j, expf); the
 # planted faults read orders of magnitude above the limit.
 K6_SHARE = 1e-3
+# the names of K6's grids (csrc/axial_attention.cu: one grid a launch)
+K6_GRIDS = ("axial_attention_kernel",)
+# K6's design faults (ops/kernels/axial_attention.py::FAULTS) are planted on
+# the case's operands with the similarity scaled by K6_SHARPEN, so that rows'
+# softmax references move; the served kernel is held on the same operands.
+K6_SHARPEN = 6.0
 # MedT, kernel path vs plain path: relative L2 of logits and mask agreement.
 # Both paths are bf16 and round in different places: the plain path rounds
 # the similarity logits, the softmax and every BN to bf16, the kernel keeps
@@ -896,11 +907,28 @@ def k6_arg_faults(torch, relative, out_scale):
     return [("k_emb untransposed", (k_flat, out_scale)), ("sve dropped", (relative, no_sve))]
 
 
+def k6_design_faults(length, gp, wopos):
+    """The design faults that can show at a K6 shape: the rescale where
+    every key split walks 8 key tiles or more, the partial tile where L is
+    not a multiple of R, the merge where the keys are split."""
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+
+    if wopos:
+        return []
+    p = k6.plan(1, 1, length, gp, wopos)
+    apply = {"rescale skipped": p.tiles // p.splits >= 8,
+             "partial key tile dropped": length % p.rows_per_lane != 0,
+             "key-split merge dropped": p.splits > 1}
+    return [name for name, ok in apply.items() if ok]
+
+
 def check_k6(torch, gen, device):
     """K6 against its plain version (f32) at every launch shape on both axes,
-    in wopos mode at two shapes and at an odd shape with L < ks, each
-    beside planted faults that the same comparison must reject; returns
-    the max abs error."""
+    in wopos mode at two shapes, at an odd shape with L < ks, at L = 33, 127
+    and 129 and at every gp at L = 128, each beside planted faults that the
+    same comparison must reject (the design faults on sharpened operands,
+    where they apply) and launched twice bit for bit; returns the max abs
+    error."""
     from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
 
     cases = [(SERVE_BATCH, s, s, gp, ks, False, axis) for s, gp, ks, _ in AXIAL_SHAPES
@@ -908,28 +936,51 @@ def check_k6(torch, gen, device):
     cases += [(SERVE_BATCH, 128, 128, 4, 128, True, False),
               (SERVE_BATCH, 32, 32, 16, 32, True, True)]
     cases.append((1, 29, 37, 4, 40, False, False))   # N = 37 rows, L = 29 < ks = 40
+    cases += [(2, 33, 5, 4, 33, False, False), (1, 7, 127, 2, 127, False, True),
+              (1, 129, 3, 8, 129, False, False)]
+    cases += [(1, 3, 128, gp, 128, False, True) for gp in (2, 4, 8, 16, 32)]
     err = 0.0
     for b, h, w, gp, ks, wopos, width_axis in cases:
         args = k6_case(torch, gen, b, h, w, gp, ks, wopos, device)
         got = k6.fused_axial_attention(*args, ks, width_axis)
+        again = k6.fused_axial_attention(*args, ks, width_axis)
         f32 = [None if a is None else a.float() for a in args]
         ref = k6.fused_axial_attention_reference(*f32, ks, width_axis)
         caught = {name: k6_reading(out, ref) for name, out in
                   k6_faults(torch, *f32, ks, width_axis)}
+        length = w if width_axis else h
+        design = k6_design_faults(length, gp, wopos)
+        if design:
+            sharp = list(args)
+            sharp[2] = K6_SHARPEN * args[2]
+            sharp_ref = k6.fused_axial_attention_reference(
+                *[a.float() for a in sharp], ks, width_axis)
+            sharp_reading = k6_reading(k6.fused_axial_attention(*sharp, ks, width_axis),
+                                       sharp_ref)
+            for name in design:
+                caught[name] = k6_reading(k6.planted_fault(*sharp, ks, width_axis, name),
+                                          sharp_ref)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K6 gave two results on the same operands at {h}x{w}, gp={gp}")
         reading = k6_reading(got, ref)
         axis = "W" if width_axis else "H"
-        n, length = (b * h, w) if width_axis else (b * w, h)
+        n = b * h if width_axis else b * w
         e = (got.float() - ref).abs().max().item()
+        # a fault that reads NaN (an empty key split) is rejected as well
+        least = min(caught, key=lambda k: caught[k] if caught[k] == caught[k] else float("inf"))
         log(f"K6 qkv={[b, 2 * AXIAL_GROUPS * gp, h, w]} along {axis} (N={n}, L={length}, "
             f"gp={gp}, ks={ks}{', wopos' if wopos else ''}): max_abs_err {e:.3e}; beyond "
-            f"output rounding {reading:.3e} of the output rms (limit {K6_SHARE:.0e}); least "
-            f"planted fault {min(caught.values()):.3e} ({min(caught, key=caught.get)})")
-        if not reading <= K6_SHARE:
+            f"output rounding {reading:.3e} of the output rms (limit {K6_SHARE:.0e}); "
+            + (f"sharpened x{K6_SHARPEN:g} {sharp_reading:.3e}; " if design else "")
+            + f"two launches bit for bit; least planted fault {caught[least]:.3e} ({least}; "
+            f"{len(caught)} planted)")
+        if not reading <= K6_SHARE or (design and not sharp_reading <= K6_SHARE):
             raise AssertionError(f"K6 disagrees with its plain version: {reading}")
-        if not min(caught.values()) > K6_SHARE:
-            raise AssertionError(f"the K6 comparison passed a planted fault: {caught}")
+        passed = [name for name, r in caught.items() if r <= K6_SHARE]
+        if passed:
+            raise AssertionError(f"the K6 comparison passed planted faults {passed}: {caught}")
         err = max(err, e)
     return err
 
@@ -1030,10 +1081,10 @@ def serve_medt(torch, gen, device, name, batch, image, profile):
     seen = None
     if profile:
         events = profile_forward(torch, lambda: preds["kernel"](x))
-        seen = sum("axial_attention_kernel" in e.name for e in events)
-        log(f"profiler: {seen} axial_attention_kernel grids in one {name} forward")
-        if seen != want:
-            raise AssertionError(f"profiler saw K6 {seen} times in {name}, expected {want}")
+        seen = {grid: sum(grid in e.name for e in events) for grid in K6_GRIDS}
+        log(f"profiler: K6 grids in one {name} forward {seen} (launches {launches})")
+        if any(count != want for count in seen.values()):
+            raise AssertionError(f"profiler saw K6 grids {seen} in {name}, expected {want} each")
     rates, med, busy = time_paths(torch, name, preds, x, profile)
     return dict(launches=launches, profiler_grids=seen, serve_img_per_s=rates, forward_ms=med,
                 device_busy_ms=busy, planted_faults=faults, **agreement)
@@ -1088,9 +1139,10 @@ def random_attention(torch, width, ks, width_axis, mode, device, seed):
 
 
 def time_k6(torch, gen, device):
-    """K6 at each launch shape of the B=8 gated forward, both axes: kernel,
-    plain version, bound, and the bf16 module chain it replaces (the module
-    path from bn_qkv to bn_output, on the same projections)."""
+    """K6 at each launch shape of the B=8 gated forward, both axes: kernel
+    (CUDA events and a CUDA graph of 20 launches), plain version, bound, and
+    the bf16 module chain it replaces (the module path from bn_qkv to
+    bn_output, on the same projections)."""
     from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
 
     rows = []
@@ -1103,8 +1155,9 @@ def time_k6(torch, gen, device):
             tokens = k6.axis_rows(qkv, width_axis).contiguous()
             tables = (w.relative, w.sim_scale, w.out_scale, w.out_shift)
             with torch.inference_mode():
-                ms = cuda_ms(torch, lambda: k6.fused_axial_attention(qkv, *tables, ks,
-                                                                     width_axis), 20)
+                kernel = lambda: k6.fused_axial_attention(qkv, *tables, ks, width_axis)
+                ms = cuda_ms(torch, kernel, 20)
+                graph = graph_ms(torch, kernel, 20)
                 plain_ms = cuda_ms(torch, lambda: k6.fused_axial_attention_reference(
                     qkv, *tables, ks, width_axis), 3)
                 chain_ms = cuda_ms(torch, lambda: attn.core(tokens), 10)
@@ -1113,11 +1166,12 @@ def time_k6(torch, gen, device):
             axis = "W" if width_axis else "H"
             rows.append(dict(qkv=[b, 2 * g * gp, s, s], axis=axis, n=b * s, length=s, gp=gp,
                              kernel_size=ks, launches=blocks, f32_ops=ops, bytes=nbytes, ms=ms,
-                             plain_ms=plain_ms, module_chain_ms=chain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, tflops=ops / ms / 1e9))
-            log(f"K6 qkv={[b, 2 * g * gp, s, s]} along {axis} x{blocks}: {ms:.4f} ms "
-                f"({ops / ms / 1e9:.2f} TFLOP/s f32), plain {plain_ms:.4f} ms, module chain "
-                f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                             graph_ms=graph, plain_ms=plain_ms, module_chain_ms=chain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, tflops=ops / graph / 1e9))
+            log(f"K6 qkv={[b, 2 * g * gp, s, s]} along {axis} x{blocks}: {ms:.4f} ms by events, "
+                f"{graph:.4f} ms by graph ({ops / graph / 1e9:.2f} TFLOP/s f32), plain "
+                f"{plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
     # wopos (medt's mode) at the largest shape: kernel against its module chain
     s, gp, ks, _ = AXIAL_SHAPES[1]
     attn = random_attention(torch, AXIAL_GROUPS * gp, ks, False, "wopos", device, 7)
@@ -3159,6 +3213,9 @@ def main() -> int:
     mm_serving = dict(serve_img_per_s=mm_rates, forward_ms=mm_med, device_busy_ms=mm_busy,
                       **mm_agreement)
     k6_bound = bound(0, per_forward(k6_rows, "bytes"), per_forward(k6_rows, "f32_ops"))
+    log(f"K6 per gated forward: {per_forward(k6_rows, 'ms'):.4f} ms by events, "
+        f"{per_forward(k6_rows, 'graph_ms'):.4f} ms by graph, bound {k6_bound[0]:.4f} ms "
+        f"({k6_bound[1]})")
     k7_bound = bound(0, per_forward(k7_rows, "bytes"), per_forward(k7_rows, "f32_ops"))
     main_k2 = k2_rows["224px"]        # the registry default: 224px, window 7
     k2_bound = bound(per_forward(main_k2, "tc_flops"), per_forward(main_k2, "bytes"),
@@ -3251,6 +3308,7 @@ def main() -> int:
         "max_abs_err": k6_err,
         "ms": per_forward(k6_rows, "ms"),
         "plain_ms": per_forward(k6_rows, "plain_ms"),
+        "graph_ms": per_forward(k6_rows, "graph_ms"),
         "bound_ms": k6_bound[0],
         "bound_by": k6_bound[1],
         "library_ms": None,

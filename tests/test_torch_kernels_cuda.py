@@ -381,6 +381,14 @@ def _k6_case(device, b, h, w, gp, ks, wopos, g=8):
     (2, 64, 64, 32, 64, False, True),      # gp 32: groups=4 or width_per_group=128
     (1, 4, 512, 2, 512, False, True),      # 16 keys per lane: image_size 1024's layer1
     (1, 2, 300, 32, 300, True, True),      # wopos, gp 32, 10 keys per lane
+    (2, 33, 5, 4, 33, False, False),       # L = 33: a partial key tile, two query chunks
+    (1, 7, 127, 2, 127, False, True),      # L = 127: a partial key tile
+    (1, 129, 3, 8, 129, False, False),     # L = 129: a partial tile at R = 2, three chunks
+    (1, 3, 128, 2, 128, False, True),      # gp 2 to 32 at L = 128
+    (1, 3, 128, 4, 128, False, True),
+    (1, 3, 128, 8, 128, False, True),
+    (1, 3, 128, 16, 128, False, True),
+    (1, 3, 128, 32, 128, False, True),
 ])
 def test_fused_axial_attention_kernel_matches_reference(cuda_device, b, h, w, gp, ks, wopos,
                                                         width_axis):
@@ -401,6 +409,56 @@ def test_fused_axial_attention_kernel_matches_reference(cuda_device, b, h, w, gp
         k_flat[gp // 2:gp] = f32[1][gp // 2:gp].flip(-1)
         assert _k6_reading(k6.fused_axial_attention(args[0], k_flat, *args[2:], ks,
                                                     width_axis), ref) > K6_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,gp,ks,wopos,width_axis", [
+    (8, 128, 128, 4, 128, False, True),    # gated layer1_0
+    (8, 32, 32, 8, 32, False, False),      # 2 key splits
+    (1, 33, 5, 2, 33, True, False),        # wopos, a partial key tile
+])
+def test_fused_axial_attention_is_deterministic(cuda_device, b, h, w, gp, ks, wopos,
+                                                width_axis):
+    """Two launches on the same operands agree bit for bit."""
+    args = _k6_case(cuda_device, b, h, w, gp, ks, wopos)
+    first = k6.fused_axial_attention(*args, ks, width_axis)
+    assert torch.equal(first, k6.fused_axial_attention(*args, ks, width_axis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,b,h,w,gp,ks", [
+    ("rescale skipped", 8, 128, 128, 4, 128),
+    ("rescale skipped", 8, 64, 64, 8, 64),
+    ("partial key tile dropped", 2, 33, 5, 4, 33),
+    ("partial key tile dropped", 1, 129, 3, 8, 129),
+    ("key-split merge dropped", 8, 64, 64, 4, 64),
+    ("key-split merge dropped", 8, 32, 32, 8, 32),
+])
+def test_fused_axial_attention_design_faults_are_rejected(cuda_device, fault, b, h, w, gp, ks):
+    """Faults of the kernel's design, planted through the source's test-only
+    entry, fail the K6 comparison; the served kernel passes it on the same
+    operands. The similarity is scaled 6x so that rows' references move."""
+    args = list(_k6_case(cuda_device, b, h, w, gp, ks, False))
+    args[2] = 6.0 * args[2]
+    f32 = [a.float() for a in args]
+    ref = k6.fused_axial_attention_reference(*f32, ks, False)
+    assert _k6_reading(k6.fused_axial_attention(*args, ks, False), ref) <= K6_SHARE
+    before = k6.LAUNCHES["fused_axial_attention"]
+    got = k6.planted_fault(*args, ks, False, fault)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES["fused_axial_attention"] == before
+    assert not _k6_reading(got, ref) <= K6_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gp", k6.GROUP_PLANES)
+def test_axial_plan_matches_the_source(cuda_device, gp):
+    """plan()'s shared memory is the source's, at every length class."""
+    for length in (1, 29, 32, 33, 64, 127, 128, 129, 256, 300, 512):
+        for wopos in (False, True):
+            for gb in (1, 2, 8):
+                assert (k6.source_smem(length, gp, gb, wopos)
+                        == k6.smem_bytes(length, gp, gb, wopos))
 
 
 @pytest.mark.cuda

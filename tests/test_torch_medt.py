@@ -304,22 +304,6 @@ def test_wrapper_rejects_other_devices():
         k6.fused_axial_attention(**a)
 
 
-@pytest.mark.parametrize("rows,length,gp,split", [
-    (1024, 128, 2, 2), (512, 64, 4, 4), (256, 32, 16, 8), (37, 29, 4, 8),
-    (4096, 256, 16, 2),   # raised from 1 by the shared-memory limit
-    (2048, 256, 32, 8),   # gp 32: one group per block
-])
-def test_group_split(rows, length, gp, split):
-    assert k6.group_split(rows, 8, length, gp, False) == split
-    assert k6._smem_bytes(length, 8 // split, gp, False) <= k6._SMEM_LIMIT
-
-
-def test_group_split_raises_when_nothing_fits():
-    assert k6.group_split(64, 8, 512, 32, True) == 8      # wopos: no embedding columns
-    with pytest.raises(ValueError, match="shared memory"):
-        k6.group_split(64, 8, 512, 32, False)
-
-
 def test_kernel_dispatch():
     attn = AxialAttention(8, 16, 4, 8, use_kernels=None).eval()
     x = torch.zeros(1, 8, 8, 6)

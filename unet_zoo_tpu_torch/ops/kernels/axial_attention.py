@@ -21,8 +21,9 @@ shifts add, since the sv and sve channels of a pair are summed. ``bn_qkv``
 folds into the qkv projection's weight and bias.
 
 On a CUDA tensor :func:`fused_axial_attention` launches the hand-written
-Hopper kernel in ``csrc/axial_attention.cu`` (one grid); on a CPU tensor it
-runs :func:`fused_axial_attention_reference`, the plain PyTorch version.
+Hopper kernel in ``csrc/axial_attention.cu`` (one grid, one pass over the
+keys, laid out by :func:`plan`); on a CPU tensor it runs
+:func:`fused_axial_attention_reference`, the plain PyTorch version.
 ``qkv`` and the output are logical NCHW in ``channels_last`` memory, as the
 1x1 projection writes them; the kernel reads both axes in place (the
 height pass's transposes are strides).
@@ -43,9 +44,12 @@ from unet_zoo_tpu_torch.ops.kernels import build
 LAUNCHES = {"fused_axial_attention": 0}
 
 GROUP_PLANES = (2, 4, 8, 16, 32)  # gp values the kernel is built for
-MAX_LENGTH = 512                  # longest axis: 16 keys per lane of a warp
-_TARGET_BLOCKS = 2048             # rows x group chunks to aim for (132 SMs)
-_SMEM_LIMIT = 200 * 1024          # of the 227 KB a block may use
+MAX_LENGTH = 512                  # longest axis the kernel takes
+MAX_WARPS = 4                     # warps of a block (csrc/axial_attention.cu)
+SMEM_LIMIT = 232448               # an H100 block's dynamic shared memory
+TARGET_BLOCKS = 264               # two blocks for each of an H100's 132 SMs
+# Planted faults of the source's test-only entry ``axial_attention_fault``
+FAULTS = {"rescale skipped": 1, "partial key tile dropped": 2, "key-split merge dropped": 3}
 
 
 class AxialWeights(NamedTuple):
@@ -167,31 +171,70 @@ def fused_axial_attention_reference(qkv, relative, sim_scale, out_scale, out_shi
     return out.permute(0, 3, 1, 2).to(qkv.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def _smem_bytes(length: int, gb: int, gp: int, wopos: bool) -> int:
-    """Shared memory of one block (``smem_bytes`` in csrc/axial_attention.cu)."""
-    rel = 0 if wopos else 2 * gp * (2 * length - 1)
-    return 4 * (length * (gb * 2 * gp + 1) + rel + 3 * gb + 3 * gb * gp)
+class AxialPlan(NamedTuple):
+    """How one K6 launch runs (csrc/axial_attention.cu)."""
+
+    rows_per_lane: int     # R: a lane's query rows, and the keys of a key tile
+    tiles: int             # T = ceil(L / R) query tiles, and as many key tiles
+    lanes: int             # lanes of one key split (one query tile each)
+    splits: int            # key splits whose partials a query tile's lanes merge
+    chunks: int            # chunks of 32 query tiles
+    warps: int             # warps per group; each takes every warps-th chunk
+    groups_per_block: int  # groups of one row a block holds
+    grid: Tuple[int, int]  # (rows, groups / groups_per_block)
+    threads: int           # 32 * groups_per_block * warps
+    smem: int              # a block's dynamic shared memory in bytes
 
 
-def split_groups(rows: int, groups: int, smem_bytes, kernel: str, length: int, gp: int) -> int:
-    """Blocks that share one row's groups: the largest divisor of ``groups``
-    that keeps the grid near ``_TARGET_BLOCKS`` blocks, raised while a
-    block's shared memory, ``smem_bytes(groups per block)``, would exceed
-    ``_SMEM_LIMIT``."""
-    divisors = [d for d in range(1, groups + 1) if groups % d == 0]
-    want = max(1, -(-_TARGET_BLOCKS // rows))
-    split = max(d for d in divisors if d <= want)
-    for d in divisors:
-        if d >= split and smem_bytes(groups // d) <= _SMEM_LIMIT:
-            return d
-    raise ValueError(f"the {kernel} kernel does not fit an axis of {length} with gp={gp} in "
-                     f"shared memory; use_kernels=False runs such a model on its module path")
+def rows_per_lane(gp: int) -> int:
+    """A lane's query rows (``rows_per_lane`` in csrc/axial_attention.cu):
+    the most whose logits, operands and 2 gp R sums stay in registers."""
+    return 4 if gp <= 4 else 2 if gp == 8 else 1
 
 
-def group_split(rows: int, groups: int, length: int, gp: int, wopos: bool) -> int:
-    """K6's :func:`split_groups`."""
-    return split_groups(rows, groups, lambda gb: _smem_bytes(length, gb, gp, wopos), "K6",
-                        length, gp)
+def smem_bytes(length: int, gp: int, gb: int, wopos: bool) -> int:
+    """A block's shared memory (``smem_bytes`` in csrc/axial_attention.cu):
+    q|k|v of ``gb`` groups over LP positions (the length rounded up to R) as
+    f32, and 2 LP columns of each of the 2 gp rows of ``relative``."""
+    r = rows_per_lane(gp)
+    lp = -(-length // r) * r
+    return 4 * (lp * gb * 2 * gp + (0 if wopos else 2 * gp * 2 * lp))
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (x.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, groups: int, length: int, gp: int, wopos: bool) -> AxialPlan:
+    """The launch for ``rows`` rows of ``length`` positions and ``groups``
+    groups of ``gp`` channels. A warp's lanes own query tiles of R rows; a
+    length under 32 tiles leaves lanes over, which split the keys (a power
+    of two of them, each at least one key tile); a longer one is taken in
+    chunks of 32 tiles by up to MAX_WARPS warps. A block holds one row and
+    the most of its groups (a divisor of ``groups``) that keeps it within
+    MAX_WARPS warps and SMEM_LIMIT bytes and the grid at TARGET_BLOCKS
+    blocks or more; where no grid reaches it, the fewest groups. Raises
+    where not even one group fits in shared memory."""
+    r = rows_per_lane(gp)
+    tiles = -(-length // r)
+    lanes = min(32, _pow2_ceil(tiles))
+    splits = min(32 // lanes, _pow2_floor(tiles))
+    chunks = -(-tiles // 32)
+    warps = min(chunks, MAX_WARPS)
+    fits = [d for d in range(1, groups + 1) if groups % d == 0 and d * warps <= MAX_WARPS
+            and smem_bytes(length, gp, d, wopos) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"the K6 kernel does not fit an axis of {length} with gp={gp} in "
+                         f"shared memory; use_kernels=False runs such a model on its module path")
+    full = [d for d in fits if rows * (groups // d) >= TARGET_BLOCKS]
+    gb = max(full) if full else min(fits)
+    return AxialPlan(r, tiles, lanes, splits, chunks, warps, gb, (rows, groups // gb),
+                     32 * gb * warps, smem_bytes(length, gp, gb, wopos))
 
 
 def _check_kernel_args(qkv, relative, sim_scale, out_scale, out_shift, kernel_size,
@@ -241,10 +284,57 @@ def _lib():
     lib = build.library("axial_attention")
     if not getattr(lib, "_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.axial_attention.argtypes = [p] * 6 + [i] * 7 + [ll] * 6 + [p]
+        lib.axial_attention.argtypes = [p] * 6 + [i] * 8 + [ll] * 6 + [p]
         lib.axial_attention.restype = i
+        lib.axial_attention_fault.argtypes = [p] * 6 + [i] * 8 + [ll] * 6 + [i, p]
+        lib.axial_attention_fault.restype = i
+        lib.axial_attention_smem.argtypes = [i] * 4
+        lib.axial_attention_smem.restype = ll
         lib._typed = True
     return lib
+
+
+def source_smem(length: int, gp: int, gb: int, wopos: bool) -> int:
+    """The source's own shared memory for a block of ``gb`` groups, as
+    :func:`smem_bytes` has it."""
+    return _lib().axial_attention_smem(length, gp, gb, int(wopos))
+
+
+def _run(qkv, relative, sim_scale, out_scale, out_shift, kernel_size, width_axis, *fault):
+    """One K6 call on CUDA tensors (checked, laid out by :func:`plan`); with
+    ``fault`` the source's fault entry instead."""
+    b, g, gp, length = _check_kernel_args(qkv, relative, sim_scale, out_scale, out_shift,
+                                          kernel_size, width_axis)
+    _, _, h, w = qkv.shape
+    rows_per_image = h if width_axis else w
+    p = plan(b * rows_per_image, g, length, gp, relative is None)
+    lib = _lib()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        out = torch.empty((b, g * gp, h, w), dtype=qkv.dtype, device=qkv.device,
+                          memory_format=torch.channels_last)
+        # element strides of (image, row, position) for the axis pass
+        si, so = qkv.stride(), out.stride()
+        pick = (lambda s: (s[0], s[2], s[3])) if width_axis else (lambda s: (s[0], s[3], s[2]))
+        entry = lib.axial_attention_fault if fault else lib.axial_attention
+        err = entry(qkv.data_ptr(), out.data_ptr(),
+                    None if relative is None else relative.data_ptr(), sim_scale.data_ptr(),
+                    out_scale.data_ptr(), out_shift.data_ptr(), b * rows_per_image,
+                    rows_per_image, length, kernel_size, g, gp, p.groups_per_block, p.warps,
+                    *pick(si), *pick(so), *fault, stream)
+        if err:
+            raise RuntimeError(f"axial_attention launch failed: cudaError {err}")
+    return out
+
+
+def planted_fault(qkv, relative, sim_scale, out_scale, out_shift, kernel_size: int,
+                  width_axis: bool, fault: str) -> torch.Tensor:
+    """A planted fault for the card checks: the kernel with one of
+    :data:`FAULTS` (positional modes). Not counted in LAUNCHES."""
+    if relative is None:
+        raise ValueError("the planted faults are built for the positional modes")
+    return _run(qkv, relative, sim_scale, out_scale, out_shift, kernel_size, width_axis,
+                FAULTS[fault])
 
 
 def fused_axial_attention(qkv, relative, sim_scale, out_scale, out_shift,
@@ -265,25 +355,6 @@ def fused_axial_attention(qkv, relative, sim_scale, out_scale, out_shift,
                                                kernel_size, width_axis)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_axial_attention runs on cuda or cpu, not {qkv.device}")
-    b, g, gp, length = _check_kernel_args(qkv, relative, sim_scale, out_scale, out_shift,
-                                          kernel_size, width_axis)
-    _, _, h, w = qkv.shape
-    rows_per_image = h if width_axis else w
-    lib = _lib()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        out = torch.empty((b, g * gp, h, w), dtype=qkv.dtype, device=qkv.device,
-                          memory_format=torch.channels_last)
-        # element strides of (image, row, position) for the axis pass
-        si, so = qkv.stride(), out.stride()
-        pick = (lambda s: (s[0], s[2], s[3])) if width_axis else (lambda s: (s[0], s[3], s[2]))
-        err = lib.axial_attention(
-            qkv.data_ptr(), out.data_ptr(), None if relative is None else relative.data_ptr(),
-            sim_scale.data_ptr(), out_scale.data_ptr(), out_shift.data_ptr(),
-            b * rows_per_image, rows_per_image, length, kernel_size, g, gp,
-            group_split(b * rows_per_image, g, length, gp, relative is None),
-            *pick(si), *pick(so), stream)
-        if err:
-            raise RuntimeError(f"axial_attention launch failed: cudaError {err}")
+    out = _run(qkv, relative, sim_scale, out_scale, out_shift, kernel_size, width_axis)
     LAUNCHES["fused_axial_attention"] += 1
     return out
