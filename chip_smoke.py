@@ -101,16 +101,22 @@
    every launch shape against its bound, its plain version, the bf16 module
    chain it replaces and cuDNN's depthwise conv.
 15. Holds K8 (``deform_conv2d``) against its plain version at both ``wranet``
-   launch shapes and an odd shape (C 40, O 24), with offsets that reach past
-   every edge of the frame and sigmoid masks; each comparison is shown to
+   launch shapes, an odd shape (C 40, O 24), C not a multiple of 8, O 128, a
+   7x7 kernel, stride 2 and dilation 2, each with offsets of std 0, 1, 3 and
+   8 pixels (at 3 and 8 past every edge of the frame) and sigmoid masks;
+   every case launches twice bit for bit, and each comparison is shown to
    reject planted faults (corner weights' x and y swapped, no clamp to the
-   frame, the mask ignored, taps in column-major order).
+   frame, the mask ignored, taps in column-major order, and, through the
+   source's test-only variant, each tap's row tile multiplied by the next
+   tap's weights).
 16. Serves ``wranet`` (feature_channels 128, bf16, B=8, 256px) on both paths
    with the offset and modulator convs drawn alike off their zero init: K8
    must run twice per forward, by the counter and by the profiler; every K8
-   launch held against its plain version on the model's operands; times both
-   paths and K8 at both launch shapes against its bound, its plain version
-   and the bf16 module chain it replaces.
+   launch held against its plain version on the model's operands (and the
+   design fault on the same operands must fail); times both paths and K8 at
+   both launch shapes by CUDA graph and by events against its bound, the
+   exact blend's issue floor, its plain version and the bf16 module chain it
+   replaces.
 17. Holds P2's int8 conv (``int8_conv3x3``, the implicit-GEMM int8 conv of
    int8 serving, which quantises its float x as it loads it) against its
    plain version, bit for bit, at every launch shape of the served
@@ -159,6 +165,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core peak
 PEAK_INT8_OPS = 1979e12    # H100 SXM dense int8 tensor-core peak
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
+H100_SMS, SM_LANES, SM_CLOCK_HZ = 132, 128, 1.98e9   # issue: 4 warp-instructions a clock an SM
 SERVE_BATCH = 8
 IMAGE = 256
 # y [B, Cin, Hc, Wc] and skip [B, Cs, 2Hc, 2Wc] of unet's four decoder
@@ -224,8 +231,10 @@ K6_SHARPEN = 6.0
 MEDT_REL_L2 = {"gated": 2e-2, "small": 1e-1}
 MEDT_AGREE = 0.99
 MEDT_F32_RATIO = 1.25
-# the 128px names (B=2) decide on the medians over MEDT_INPUTS seeded inputs,
-# as probes/medt_paths.py reads them; one input's readings are only logged.
+# the 128px names (B=2) decide on the medians over MEDT_INPUTS seeded inputs
+# (medt_bars), as probes/medt_paths.py reads them; medt_faults' "none" row
+# adds every K6 launch of the forward (none_row_failed), and one input's
+# readings are only logged.
 # The kernel path's masks may agree with f32 compute's less than the plain
 # path's by at most MEDT_F32_AGREE_SLACK (the probe read means of 0.99220
 # and 0.99182 for medt on the H100, PERF.md).
@@ -985,7 +994,45 @@ def check_k6(torch, gen, device):
     return err
 
 
-def medt_faults(torch, name, preds, x, refs, plain_to_f32, rel_l2_max):
+def failed_checks(r, rel_l2_max):
+    """The served MedT checks that one forward's readings ``r`` fail: rel L2
+    to the plain path, mask agreement, distance to f32 compute over the
+    plain path's, and the largest reading of its K6 launches against K6's
+    plain version. Plain Python (tested on the CPU)."""
+    return [k for k, bad in (("rel_l2", r["rel_l2"] > rel_l2_max),
+                             ("mask_agreement", r["mask_agreement"] < MEDT_AGREE),
+                             ("f32_ratio", r["f32_ratio"] > MEDT_F32_RATIO),
+                             ("launch_reading", r["launch_reading_max"] > K6_SHARE)) if bad]
+
+
+def none_row_failed(r, rel_l2_max, on_medians):
+    """The checks that fail medt_faults' "none" row (no planted fault).
+    Without ``on_medians`` (``gated``) the forward's own readings decide, as
+    for a fault row. With it (the 128px names) rel L2, mask agreement and
+    distance to f32 are decided on the medians over MEDT_INPUTS seeded
+    inputs, by medt_bars (medians_failed) before medt_faults runs, with the
+    same limits; this row adds every K6 launch of the forward against its
+    plain version. Random-weight MedT logits amplify K6's last-bit
+    differences 200-fold, so one input swings across the mask bar while
+    every launch agrees (PERF.md). Plain Python (tested on the CPU)."""
+    if not on_medians:
+        return failed_checks(r, rel_l2_max)
+    return ["launch_reading"] if not r["launch_reading_max"] <= K6_SHARE else []
+
+
+def medians_failed(med, rel_l2_max):
+    """The bars that medt_bars' medians over MEDT_INPUTS inputs miss: rel L2
+    to the plain path, mask agreement, distance to f32 over the plain path's,
+    and mask agreement with f32 compute against the plain path's (keys rel,
+    kp, ratio, kf and pf). Plain Python (tested on the CPU)."""
+    return [k for k, ok in (("rel_l2", med["rel"] <= rel_l2_max),
+                            ("mask_agreement", med["kp"] >= MEDT_AGREE),
+                            ("f32_ratio", med["ratio"] <= MEDT_F32_RATIO),
+                            ("f32_agreement", med["kf"] >= med["pf"] - MEDT_F32_AGREE_SLACK))
+            if not ok]
+
+
+def medt_faults(torch, name, preds, x, refs, plain_to_f32, rel_l2_max, on_medians=False):
     """K6 inside the served bf16 model: every launch of a forward is held
     against K6's plain version on the same operands, the model's own
     activations (k6_reading, limit K6_SHARE). Then faults planted into K6's
@@ -994,7 +1041,9 @@ def medt_faults(torch, name, preds, x, refs, plain_to_f32, rel_l2_max):
     positional modes, the k embedding untransposed and the sve term
     dropped. Each forward is read by every check of the served model
     (against the plain path, its distance to f32 compute, every launch
-    against the plain version); every fault must fail at least one.
+    against the plain version); every fault must fail at least one. The
+    "none" row is decided by none_row_failed (``on_medians``: the 128px
+    names, whose medians over MEDT_INPUTS inputs medt_bars has held).
     Returns the readings."""
     from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
 
@@ -1039,17 +1088,16 @@ def medt_faults(torch, name, preds, x, refs, plain_to_f32, rel_l2_max):
                      mask_agreement=(mask(lk) == mask(refs["plain"])).float().mean().item(),
                      f32_ratio=dist(lk, refs["f32"]) / plain_to_f32,
                      launch_reading_max=max(passes))
-            failed = [k for k, bad in (("rel_l2", r["rel_l2"] > rel_l2_max),
-                                       ("mask_agreement", r["mask_agreement"] < MEDT_AGREE),
-                                       ("f32_ratio", r["f32_ratio"] > MEDT_F32_RATIO),
-                                       ("launch_reading", r["launch_reading_max"] > K6_SHARE))
-                      if bad]
+            failed = (none_row_failed(r, rel_l2_max, on_medians) if plant is None
+                      else failed_checks(r, rel_l2_max))
             readings[fault] = dict(r, failed=failed)
             log(f"{name} planted fault {fault}: rel L2 vs plain {r['rel_l2']:.3e} (<= "
                 f"{rel_l2_max:.0e}), mask agreement {r['mask_agreement']:.5f} (>= {MEDT_AGREE}), "
                 f"distance to f32 {r['f32_ratio']:.3f} x plain's (<= {MEDT_F32_RATIO}), its "
                 f"{len(passes)} K6 launches against the plain version at most "
-                f"{r['launch_reading_max']:.3e} (<= {K6_SHARE:.0e}): fails {failed or 'nothing'}")
+                f"{r['launch_reading_max']:.3e} (<= {K6_SHARE:.0e}): fails {failed or 'nothing'}"
+                + (" (decided on its K6 launches; the other bars on the medians over inputs)"
+                   if plant is None and on_medians else ""))
     finally:
         k6.fused_axial_attention = kernel
     if readings["none"]["failed"]:
@@ -1077,7 +1125,7 @@ def serve_medt(torch, gen, device, name, batch, image, profile):
     if launches != want:
         raise AssertionError(f"K6 ran {launches} times in {name}, expected {want}")
     faults = medt_faults(torch, name, preds, x, refs,
-                         agreement["rel_l2_to_f32"]["plain"], rel_l2_max)
+                         agreement["rel_l2_to_f32"]["plain"], rel_l2_max, name != "gated")
     seen = None
     if profile:
         events = profile_forward(torch, lambda: preds["kernel"](x))
@@ -1111,10 +1159,10 @@ def medt_bars(torch, device, name, batch, image, rel_l2_max):
         f"{sum(r['ratio'] > MEDT_F32_RATIO for r in rows)} inputs over), masks against f32 "
         f"compute kernel {med['kf']:.5f}, plain {med['pf']:.5f} (kernel >= plain - "
         f"{MEDT_F32_AGREE_SLACK})")
-    if not (med["rel"] <= rel_l2_max and med["kp"] >= MEDT_AGREE
-            and med["ratio"] <= MEDT_F32_RATIO and med["kf"] >= med["pf"] - MEDT_F32_AGREE_SLACK):
+    failed = medians_failed(med, rel_l2_max)
+    if failed:
         raise AssertionError(f"{name} kernel path disagrees with the plain path over "
-                             f"{MEDT_INPUTS} inputs: {med}")
+                             f"{MEDT_INPUTS} inputs ({failed}): {med}")
     return med
 
 
@@ -2315,14 +2363,29 @@ def k8_work(b, h, w, c, o, k=9):
             2 * (n * c + n * 3 * k + n * o + k * c * o) + 4 * o)
 
 
-def k8_case(torch, gen, b, h, w, c, o, device, scale=3.0):
-    """bf16 K8 operands: offsets of std ``scale`` pixels (samples past every
-    edge of the frame), masks from a sigmoid, a weight of O(1) outputs."""
+def k8_issue_ms(b, h, w, c, k=9):
+    """The exact blend's issue floor (stride 1, padding 1): K8 keeps g the
+    plain version's bit for bit, so each channel of each (pixel, tap) takes
+    4 multiplies and 3 adds rounded one by one (no FMA), 4 bf16 unpacking
+    slots (two a corner pair of channels) and half a packing slot: 11.5
+    lane-instructions, issued at most SM_LANES a clock on each SM at
+    SM_CLOCK_HZ (the H100 SXM's 132 SMs, 4 schedulers of a warp each, at its
+    1.98 GHz boost clock)."""
+    return b * h * w * k * c * 11.5 / (H100_SMS * SM_LANES * SM_CLOCK_HZ) * 1e3
+
+
+def k8_case(torch, gen, b, h, w, c, o, device, scale=3.0, k=3, stride=1, pad=1, dil=1):
+    """bf16 K8 operands: offsets of std ``scale`` pixels (at 3 and above,
+    samples past every edge of the frame), masks from a sigmoid, a k x k
+    weight of O(1) outputs."""
+    from unet_zoo_tpu_torch.ops.deform import out_size
+
     r = lambda *s: torch.randn(*s, generator=gen, device=device)
     bf = torch.bfloat16
-    return (r(b, h, w, c).to(bf), (scale * r(b, h, w, 18)).to(bf),
-            torch.sigmoid(2.0 * r(b, h, w, 9)).to(bf), (r(3, 3, c, o) / (9 * c) ** 0.5).to(bf),
-            r(o).to(bf))
+    ho, wo = out_size(h, w, k, k, stride, pad, dil)
+    return (r(b, h, w, c).to(bf), (scale * r(b, ho, wo, 2 * k * k)).to(bf),
+            torch.sigmoid(2.0 * r(b, ho, wo, k * k)).to(bf),
+            (r(k, k, c, o) / (k * k * c) ** 0.5).to(bf), r(o).to(bf))
 
 
 def k8_fault_positions(torch, clamp=True, column_major=False, swap_xy=False):
@@ -2357,81 +2420,106 @@ def k8_fault_positions(torch, clamp=True, column_major=False, swap_xy=False):
     return positions
 
 
-def k8_faults(torch, x, off, m, wt, bias):
-    """K8's plain version with one fault planted each: the corner weights' x
-    and y swapped, no clamp to the frame, taps in column-major order (each
-    through ``k8_fault_positions`` in place of ``sample_positions`` for one
-    call) and the mask ignored."""
+def k8_faults(torch, x, off, m, wt, bias, conv, on_pixels=False):
+    """K8's plain version with one fault planted each: the mask ignored, the
+    corner weights' x and y swapped, no clamp to the frame, taps in
+    column-major order (each through ``k8_fault_positions`` in place of
+    ``sample_positions`` for one call), and the kernel's own design fault
+    (each tap's row tile times the next tap's weights, the source's
+    test-only variant). With ``on_pixels`` (zero offsets: every sample on a
+    pixel inside the frame, where x and y weigh 0 and the clamp never
+    acts) the swap and the clamp are left out: they change nothing there."""
     from unet_zoo_tpu_torch.ops.kernels import deform as k8
 
-    faults = {"mask ignored": k8.deform_conv2d_reference(x, off, torch.ones_like(m), wt, bias)}
+    faults = {"mask ignored": k8.deform_conv2d_reference(x, off, torch.ones_like(m), wt, bias,
+                                                         **conv),
+              "next tap's weights (design)": k8.planted_fault(x, off, m, wt, bias, **conv)}
     real = k8.sample_positions
     for name, kw in (("corner weights x and y swapped", dict(swap_xy=True)),
                      ("no clamp to the frame", dict(clamp=False)),
                      ("taps in column-major order", dict(column_major=True))):
+        if on_pixels and name != "taps in column-major order":
+            continue
         k8.sample_positions = k8_fault_positions(torch, **kw)
         try:
-            faults[name] = k8.deform_conv2d_reference(x, off, m, wt, bias)
+            faults[name] = k8.deform_conv2d_reference(x, off, m, wt, bias, **conv)
         finally:
             k8.sample_positions = real
     return faults
 
 
+# check_k8's cases: (B, H, W, C, O, k, stride, padding, dilation), each at
+# offsets of std K8_OFFSET_STDS pixels
+K8_CASES = [row[:5] + (3, 1, 1, 1) for row in wranet_launch_shapes()] + [
+    (2, 37, 45, 40, 24, 3, 1, 1, 1),      # odd H, W; C 40, O 24
+    (2, 19, 23, 20, 5, 3, 1, 1, 1),       # C not a multiple of 8, odd O
+    (2, 20, 23, 64, 128, 3, 1, 1, 1),     # O 128
+    (1, 19, 21, 24, 16, 7, 1, 3, 1),      # 7x7 kernel: K 49
+    (2, 33, 31, 48, 32, 3, 2, 1, 1),      # stride 2
+    (2, 29, 27, 32, 32, 3, 1, 2, 2),      # dilation 2
+]
+K8_OFFSET_STDS = (0.0, 1.0, 3.0, 8.0)
+
+
 def check_k8(torch, gen, device):
     """K8 against its plain version (the same bf16 operands) at both wranet
-    launch shapes (B=8, 256px) and an odd shape (odd H and W, C 40, O 24),
-    offsets of std 3 pixels with samples past every edge and sigmoid masks,
-    each beside planted faults that the same comparison must reject.
-    Returns the max abs error."""
+    launch shapes (B=8, 256px), an odd shape, C not a multiple of 8, O 128, a
+    7x7 kernel, stride 2 and dilation 2, each with offsets of std 0, 1, 3 and
+    8 pixels (at 3 and 8 samples past every edge of the frame) and sigmoid
+    masks; every case launches twice bit for bit and stands beside planted
+    faults that the same comparison must reject. Returns the max abs error."""
     from unet_zoo_tpu_torch.ops.kernels import deform as k8
 
-    cases = [row[:5] for row in wranet_launch_shapes()] + [(2, 37, 45, 40, 24)]
     err = 0.0
-    for b, h, w, c, o in cases:
-        args = k8_case(torch, gen, b, h, w, c, o, device)
-        got = k8.deform_conv2d(*args)
-        ref = k8.deform_conv2d_reference(*args)
-        caught = {name: ulp_reading(got, out) for name, out in k8_faults(torch, *args).items()}
-        torch.cuda.synchronize()
-        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
-        reading = ulp_reading(got, ref)
-        e = (got.float() - ref.float()).abs().max().item()
-        off = args[1].float().reshape(b, h, w, 9, 2)
-        taps = torch.arange(9, device=device)
-        py = torch.arange(h, device=device)[:, None, None] + (taps // 3 - 1) + off[..., 0]
-        px = torch.arange(w, device=device)[None, :, None] + (taps % 3 - 1) + off[..., 1]
-        past = {edge: t.float().mean().item() for edge, t in (
-            ("top", py < -1), ("bottom", py > h), ("left", px < -1), ("right", px > w))}
-        if not min(past.values()) > 0:
-            raise AssertionError(f"K8's offsets do not reach past every edge: {past}")
-        log(f"K8 [{b}, {h}, {w}, {c}] -> {o}: max_abs_err {e:.3e}; beyond one bf16 ulp "
-            f"{reading:.3e} of the output rms (limit {K8_SHARE:.0e}); least planted fault "
-            f"{min(caught.values()):.3e} ({min(caught, key=caught.get)}); samples past the "
-            f"frame's edges: {', '.join(f'{k} {v:.4f}' for k, v in past.items())}")
-        if not reading <= K8_SHARE:
-            raise AssertionError(f"K8 disagrees with its plain version: {reading}")
-        if not min(caught.values()) > K8_SHARE:
-            raise AssertionError(f"the K8 comparison passed a planted fault: {caught}")
-        err = max(err, e)
+    for b, h, w, c, o, k, stride, pad, dil in K8_CASES:
+        conv = dict(stride=stride, padding=pad, dilation=dil)
+        for std in K8_OFFSET_STDS:
+            args = k8_case(torch, gen, b, h, w, c, o, device, std, k, stride, pad, dil)
+            got = k8.deform_conv2d(*args, **conv)
+            again = k8.deform_conv2d(*args, **conv)
+            ref = k8.deform_conv2d_reference(*args, **conv)
+            caught = {name: ulp_reading(got, out)
+                      for name, out in k8_faults(torch, *args, conv, std == 0).items()}
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K8 [{b}, {h}, {w}, {c}] -> {o}: two launches differ")
+            reading = ulp_reading(got, ref)
+            e = (got.float() - ref.float()).abs().max().item()
+            ho, wo = args[1].shape[1:3]
+            off = args[1].float().reshape(b, ho, wo, k * k, 2)
+            taps = torch.arange(k * k, device=device)
+            py = (torch.arange(ho, device=device)[:, None, None] * stride - pad
+                  + (taps // k) * dil + off[..., 0])
+            px = (torch.arange(wo, device=device)[None, :, None] * stride - pad
+                  + (taps % k) * dil + off[..., 1])
+            past = {edge: t.float().mean().item() for edge, t in (
+                ("top", py < -1), ("bottom", py > h), ("left", px < -1), ("right", px > w))}
+            log(f"K8 [{b}, {h}, {w}, {c}] -> {o}, k {k}, stride {stride}, dilation {dil}, "
+                f"offsets std {std:g}: max_abs_err {e:.3e}; beyond one bf16 ulp {reading:.3e} "
+                f"of the output rms (limit {K8_SHARE:.0e}); least of {len(caught)} planted "
+                f"faults {min(caught.values()):.3e} ({min(caught, key=caught.get)}); samples "
+                f"past the frame: {', '.join(f'{side} {v:.4f}' for side, v in past.items())}")
+            if std >= 3 and not min(past.values()) > 0:
+                raise AssertionError(f"K8's offsets do not reach past every edge: {past}")
+            if not reading <= K8_SHARE:
+                raise AssertionError(f"K8 disagrees with its plain version: {reading}")
+            if not min(caught.values()) > K8_SHARE:
+                raise AssertionError(f"the K8 comparison passed a planted fault: {caught}")
+            err = max(err, e)
     return err
 
 
 def draw_deform_offsets(torch, module):
     """The offset and modulator convs of every DeformableConv drawn off their
     zero init (std WRANET_OFFSET_SCALE and WRANET_MASK_SCALE over
-    sqrt(fan_in), biases zero) from one seed: at init the deformable conv is
-    a plain conv times 0.5 and never exercises the gather. Every model built
-    from the same seed gets the same values (its own CPU generator)."""
-    from unet_zoo_tpu_torch.models.wranet import DeformableConv
+    sqrt(fan_in), biases zero) from seed 13 (``models/wranet.py::
+    draw_offsets``): at init the deformable conv is a plain conv times 0.5
+    and never exercises the gather. Every model built from the same seed
+    gets the same values (its own CPU generator)."""
+    from unet_zoo_tpu_torch.models.wranet import draw_offsets
 
-    g = torch.Generator().manual_seed(13)
-    with torch.no_grad():
-        for m in module.modules():
-            if isinstance(m, DeformableConv):
-                for conv_m, scale in ((m.offset_conv, WRANET_OFFSET_SCALE),
-                                      (m.modulator_conv, WRANET_MASK_SCALE)):
-                    std = scale / conv_m.weight[0].numel() ** 0.5
-                    conv_m.weight.copy_(std * torch.randn(conv_m.weight.shape, generator=g))
+    draw_offsets(module, WRANET_OFFSET_SCALE, WRANET_MASK_SCALE, 13)
 
 
 def deform_ranges(torch, x):
@@ -2497,10 +2585,16 @@ def serve_wranet(torch, gen, device):
     ranges = deform_ranges(torch, x)
     _, readings = checked_launches(torch, k8, "deform_conv2d", k8.deform_conv2d_reference,
                                    lambda: preds["kernel"](x))
+    _, faults = checked_launches(torch, k8, "deform_conv2d",
+                                 lambda *a: k8.planted_fault(*a), lambda: preds["kernel"](x))
     log(f"wranet: its {len(readings)} K8 launches against the plain version on the model's "
-        f"own operands: {', '.join(f'{r:.3e}' for r in readings)} (<= {K8_SHARE:.0e})")
+        f"own operands: {', '.join(f'{r:.3e}' for r in readings)} (<= {K8_SHARE:.0e}); "
+        f"against the planted design fault (next tap's weights): "
+        f"{', '.join(f'{r:.3e}' for r in faults)}")
     if len(readings) != WRANET_LAUNCHES or not max(readings) <= K8_SHARE:
         raise AssertionError("wranet: K8 disagrees with its plain version in the served model")
+    if not min(faults) > K8_SHARE:
+        raise AssertionError("wranet: the per-launch K8 check passed the planted design fault")
     events = profile_forward(torch, lambda: preds["kernel"](x))
     seen = sum("deform_kernel" in e.name for e in events)
     log(f"profiler: {seen} deform_kernel grids in one wranet forward")
@@ -2527,16 +2621,19 @@ def time_k8(torch, gen, device):
         args = k8_case(torch, gen, b, h, w, c, o, device)
         with torch.inference_mode():
             ms = graph_ms(torch, lambda: k8.deform_conv2d(*args), 20)
+            events = cuda_ms(torch, lambda: k8.deform_conv2d(*args), 20)
             plain_ms = graph_ms(torch, lambda: k8.deform_conv2d_reference(*args), 3)
             chain_ms = graph_ms(torch, lambda: module_deform.deform_conv2d(*args), 3)
         tc, f32, nbytes = k8_work(b, h, w, c, o)
         bound_ms, bound_by = bound(tc, nbytes, f32)
+        issue_ms = k8_issue_ms(b, h, w, c)
         rows.append(dict(b=b, h=h, w=w, c=c, o=o, launches=n, tc_flops=tc, f32_ops=f32,
-                         bytes=nbytes, ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        log(f"K8 [{b}, {h}, {w}, {c}] -> {o} x{n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"module chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-            f"{tc / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s)")
+                         bytes=nbytes, ms=ms, events_ms=events, plain_ms=plain_ms,
+                         module_chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        log(f"K8 [{b}, {h}, {w}, {c}] -> {o} x{n}: {ms:.4f} ms by graph, {events:.4f} ms by "
+            f"events, plain {plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {tc / ms / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / ms / 1e6:.1f} GB/s), the exact blend's issue floor {issue_ms:.4f} ms")
     return rows
 
 
@@ -3239,7 +3336,10 @@ def main() -> int:
         log(f"K3 per {name} forward: {k3_per_config[name]}")
     k8_bound = bound(per_forward(k8_rows, "tc_flops"), per_forward(k8_rows, "bytes"),
                      per_forward(k8_rows, "f32_ops"))
-    log(f"K8 per wranet forward: {per_forward(k8_rows, 'ms'):.4f} ms, plain "
+    log(f"K8 per wranet forward: {per_forward(k8_rows, 'ms'):.4f} ms by graph, "
+        f"{per_forward(k8_rows, 'events_ms'):.4f} ms by events, the blend's issue floor "
+        f"{sum(k8_issue_ms(r['b'], r['h'], r['w'], r['c']) * r['launches'] for r in k8_rows):.4f}"
+        f" ms, plain "
         f"{per_forward(k8_rows, 'plain_ms'):.4f} ms, module chain "
         f"{per_forward(k8_rows, 'module_chain_ms'):.4f} ms, bound {k8_bound[0]:.4f} ms "
         f"({k8_bound[1]})")
@@ -3383,6 +3483,7 @@ def main() -> int:
         "bound_ms": k8_bound[0],
         "bound_by": k8_bound[1],
         "library_ms": None,
+        "events_ms": per_forward(k8_rows, "events_ms"),
         "module_chain_ms": per_forward(k8_rows, "module_chain_ms"),
         "wranet": wranet,
         "shapes": k8_rows,

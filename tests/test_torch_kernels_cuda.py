@@ -1005,36 +1005,103 @@ def test_unext_kernel_path_matches_plain_path(cuda_device, name, launches):
     assert ((got - ref).norm() / ref.norm()).item() <= UNEXT_REL_L2
 
 
-def _deform_case(device, b, h, w, c, o, scale=3.0, seed=0):
-    """bf16 operands: offsets of std ``scale`` pixels (samples past every
-    edge), sigmoid masks."""
+def _deform_case(device, b, h, w, c, o, scale=3.0, seed=0, k=3, stride=1, pad=1, dil=1):
+    """bf16 operands: offsets of std ``scale`` pixels (at 3 and 8, samples
+    past every edge), sigmoid masks, a k x k weight of O(1) outputs."""
     gen = torch.Generator(device=device).manual_seed(seed + b + h + c + o)
     r = lambda *s: torch.randn(*s, generator=gen, device=device)
     bf = torch.bfloat16
-    return (r(b, h, w, c).to(bf), (scale * r(b, h, w, 18)).to(bf),
-            torch.sigmoid(2 * r(b, h, w, 9)).to(bf), (r(3, 3, c, o) / (9 * c) ** 0.5).to(bf),
-            r(o).to(bf))
+    ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    return (r(b, h, w, c).to(bf), (scale * r(b, ho, wo, 2 * k * k)).to(bf),
+            torch.sigmoid(2 * r(b, ho, wo, k * k)).to(bf),
+            (r(k, k, c, o) / (k * k * c) ** 0.5).to(bf), r(o).to(bf))
+
+
+# (B, H, W, C, O, k, stride, padding, dilation)
+DEFORM_SHAPES = [
+    (8, 128, 128, 128, 32, 3, 1, 1, 1),    # wranet's decoder_lv2 at 256px (B=8)
+    (8, 256, 256, 128, 32, 3, 1, 1, 1),    # wranet's decoder_lv1
+    (2, 37, 45, 40, 24, 3, 1, 1, 1),       # odd H, W; C 40, O 24
+    (2, 17, 13, 40, 24, 3, 1, 1, 1),       # odd H, W; fewer rows than a block tile
+    (1, 9, 11, 20, 5, 3, 1, 1, 1),         # C not a multiple of 8, odd O
+    (2, 20, 23, 64, 128, 3, 1, 1, 1),      # O 128: the 128-column accumulator
+    (1, 6, 7, 128, 100, 3, 1, 1, 1),       # O 100, fewer output columns than a tile
+    (1, 19, 21, 24, 16, 7, 1, 3, 1),       # 7x7 kernel: K 49
+    (2, 33, 31, 48, 32, 3, 2, 1, 1),       # stride 2
+    (2, 29, 27, 32, 32, 3, 1, 2, 2),       # dilation 2
+    (1, 12, 10, 200, 40, 3, 1, 1, 1),      # C 200: two channel chunks
+    (1, 9, 9, 264, 128, 7, 1, 3, 1),       # W streamed: K 49 x 3 chunks x O 128
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c,o", [
-    (8, 128, 128, 128, 32),     # wranet's decoder_lv2 at 256px (B=8)
-    (2, 17, 13, 40, 24),        # odd H, W; C 40, O 24
-    (1, 9, 11, 20, 5),          # C not a multiple of 8, odd O
-    (1, 6, 7, 128, 100),        # O 100: the 128-column accumulator
-])
-def test_deform_kernel_matches_reference(cuda_device, b, h, w, c, o):
+@pytest.mark.parametrize("scale", [0.0, 1.0, 3.0, 8.0])
+@pytest.mark.parametrize("b,h,w,c,o,k,stride,pad,dil", DEFORM_SHAPES)
+def test_deform_kernel_matches_reference(cuda_device, b, h, w, c, o, k, stride, pad, dil, scale):
+    """K8 against its plain version, offsets of std 0, 1, 3 and 8 pixels;
+    two launches bit for bit; planted faults (the mask ignored, the bias
+    dropped, each tap's row tile multiplied by the next tap's weights) fail
+    the same check."""
+    x, off, m, wt, bias = _deform_case(cuda_device, b, h, w, c, o, scale, k=k, stride=stride,
+                                       pad=pad, dil=dil)
+    conv = dict(stride=stride, padding=pad, dilation=dil)
+    ref = k8.deform_conv2d_reference(x, off, m, wt, bias, **conv)
+    before = k8.LAUNCHES["deform_conv2d"]
+    got = k8.deform_conv2d(x, off, m, wt, bias, **conv)
+    again = k8.deform_conv2d(x, off, m, wt, bias, **conv)
+    torch.cuda.synchronize()
+    assert k8.LAUNCHES["deform_conv2d"] - before == 2
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert torch.equal(got, again)
+    assert _ulp_reading(got, ref) <= K8_SHARE
+    for fault in (k8.deform_conv2d_reference(x, off, torch.ones_like(m), wt, bias, **conv),
+                  k8.deform_conv2d_reference(x, off, m, wt, **conv),
+                  k8.planted_fault(x, off, m, wt, bias, **conv)):
+        assert _ulp_reading(got, fault) > K8_SHARE
+    assert k8.LAUNCHES["deform_conv2d"] - before == 2
+
+
+# (B, H, W, C, O) with a 3x3 kernel whose plans take each patch and block
+# layout and W in tap groups, and the layout: (patch, block, tap group)
+DEFORM_LAYOUTS = [
+    ((2, 128, 128, 128, 32), ((4, 4), (4, 4), 9)),     # wranet's: W resident
+    ((2, 40, 1, 32, 32), ((16, 1), (16, 1), 9)),       # one output column
+    ((2, 40, 2, 32, 32), ((8, 2), (16, 1), 9)),        # two
+    ((2, 40, 5, 32, 32), ((4, 4), (8, 2), 9)),         # five: two patches across
+    ((2, 40, 45, 64, 100), ((4, 4), (2, 4), 9)),       # 8 warps
+    ((2, 48, 48, 200, 40), ((4, 4), (4, 4), 4)),       # two chunks: W in groups of 4 taps
+    ((1, 24, 24, 512, 128), ((4, 4), (2, 4), 1)),      # four chunks: W one tap at a time
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", DEFORM_LAYOUTS)
+def test_deform_plans_match_reference(cuda_device, shape, layout):
+    """Each patch and block layout that plan() picks, W resident and in tap
+    groups, at offsets of std 3 agrees with the plain version, and the
+    planted fault fails under each."""
+    b, h, w, c, o = shape
+    p = k8.plan(b, c, o, 9, h, w)
+    assert ((p.th, p.tw), (p.wy, p.wx), p.group) == layout
     x, off, m, wt, bias = _deform_case(cuda_device, b, h, w, c, o)
     ref = k8.deform_conv2d_reference(x, off, m, wt, bias)
-    before = k8.LAUNCHES["deform_conv2d"]
     got = k8.deform_conv2d(x, off, m, wt, bias)
+    fault = k8.planted_fault(x, off, m, wt, bias)
     torch.cuda.synchronize()
-    assert k8.LAUNCHES["deform_conv2d"] - before == 1
-    assert got.dtype == torch.bfloat16 and got.shape == (b, h, w, o)
     assert _ulp_reading(got, ref) <= K8_SHARE
-    for fault in (k8.deform_conv2d_reference(x, off, torch.ones_like(m), wt, bias),
-                  k8.deform_conv2d_reference(x, off, m, wt)):
-        assert _ulp_reading(got, fault) > K8_SHARE
+    assert _ulp_reading(fault, ref) > K8_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,o,k,stride,pad,dil", DEFORM_SHAPES)
+def test_deform_plan_matches_source(cuda_device, b, h, w, c, o, k, stride, pad, dil):
+    """plan()'s tiles, warps and shared memory are the built source's own."""
+    ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    p = k8.plan(b, c, o, k * k, ho, wo)
+    assert k8.source_geometry(b, h, w, c, o, k, k, ho, wo, p) == (
+        p.tiles, p.ck, p.nch, p.warps, 8 * p.nt + 8, p.smem)
 
 
 @pytest.mark.cuda

@@ -188,11 +188,14 @@ def test_k8_argument_errors_name_module_path():
 
 
 def test_k8_tile_geometry():
-    """O rounds up to the accumulator's 16, 32, 64 or 128 columns; the
-    shared memory is the [64, C + pad] row tile and W_k."""
+    """O rounds up to the accumulator's 32, 64 or 128 columns; the shared
+    memory is the weight slots (all nine taps resident at wranet's shape)
+    and each of the 16 warps' [16, C + 8] row tile and 16 samples of 48
+    bytes (four corner weights and four corner pointers)."""
     assert [k8.n_tiles(o) for o in (1, 16, 17, 24, 32, 33, 64, 100, 128)] == [
-        2, 2, 4, 4, 4, 8, 8, 16, 16]
-    assert k8.smem_bytes(128, 32) == 2 * (64 * 136 + 128 * 40)
+        4, 4, 4, 4, 4, 8, 8, 16, 16]
+    assert k8.smem_bytes(128, 1, 9, 4) == 9 * 128 * 40 * 2 + 16 * 16 * (136 * 2 + 48)
+    assert k8.smem_bytes(128, 1, 1, 4) == 128 * 40 * 2 + 16 * 16 * (136 * 2 + 48)
 
 
 # --- modules --------------------------------------------------------------------------

@@ -181,6 +181,21 @@ class DeformableConv(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
+@torch.no_grad()
+def draw_offsets(module: nn.Module, offset_scale: float, mask_scale: float, seed: int) -> None:
+    """The offset and modulator convs of every DeformableConv in ``module``
+    drawn off their zero init (std ``offset_scale`` and ``mask_scale`` over
+    sqrt(fan_in), biases unchanged) from one CPU generator: at init the
+    deformable conv is a plain conv times 0.5 and never exercises the
+    gather. Every model built from the same seed gets the same values."""
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, DeformableConv):
+            for conv_m, scale in ((m.offset_conv, offset_scale), (m.modulator_conv, mask_scale)):
+                std = scale / conv_m.weight[0].numel() ** 0.5
+                conv_m.weight.copy_(std * torch.randn(conv_m.weight.shape, generator=g))
+
+
 class DeformableResblock(nn.Module):
     """x + conv3x3(relu(deform_conv(x)))."""
 

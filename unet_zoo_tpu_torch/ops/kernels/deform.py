@@ -14,7 +14,10 @@ and weights are computed inside the kernel, where the Pallas version
 precomputes them in XLA.
 
 On a CUDA tensor :func:`deform_conv2d` launches the hand-written Hopper kernel
-in ``csrc/deform.cu`` (one grid); on a CPU tensor it runs
+in ``csrc/deform.cu`` (one persistent grid, laid out by :func:`plan`: each
+warp owns a 2-D patch of 16 output pixels and walks its taps on its own, W
+resident in shared memory where it fits, each sample formed once, one warp's
+products overlapping the other warps' gathers); on a CPU tensor it runs
 :func:`deform_conv2d_reference`, the plain PyTorch version. Layouts are the
 JAX package's: x [B, H, W, C], offset [B, Ho, Wo, 2K] with (dy, dx) pairs
 per tap, mask [B, Ho, Wo, K], weight [kh, kw, C, O].
@@ -23,7 +26,8 @@ per tap, mask [B, Ho, Wo, K], weight [kh, kw, C, O].
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,10 +37,13 @@ from unet_zoo_tpu_torch.ops.kernels import build
 # Times the wrapper launched the CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"deform_conv2d": 0}
 
-_BM = 64                 # output pixels of one block (csrc/deform.cu)
+PATCH = 16               # output pixels a warp owns (csrc/deform.cu): one m16 row tile
+CK_MAX = 128             # channels of one chunk of the gathered row tile
+MAX_CHANNELS = 8192      # C: the zero row that corners outside the image read
+SAMPLE_BYTES = 48        # a formed sample in shared memory
 MAX_OUT_CHANNELS = 128   # O: 16 n-tiles of the block's accumulator
 MAX_TAPS = 49
-_SMEM_LIMIT = 200 * 1024
+SMEM_LIMIT = 232448      # an H100 block's dynamic shared memory
 
 
 def deform_conv2d_reference(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -64,16 +71,81 @@ def deform_conv2d_reference(x: torch.Tensor, offset: torch.Tensor, mask: torch.T
     return out.reshape(b, ho, wo, o).to(x.dtype)
 
 
+class DeformPlan(NamedTuple):
+    """How one K8 launch runs (csrc/deform.cu)."""
+
+    th: int          # a warp's patch: th output rows ...
+    tw: int          # ... x tw output columns (th * tw = PATCH)
+    wy: int          # the block tile: wy patches down ...
+    wx: int          # ... x wx patches across (wy * wx = warps)
+    warps: int       # warps of a block: 16, or 8 at O > 64
+    nt: int          # 8-column MMA tiles of the accumulator: O rounded up to 32, 64 or 128
+    ck: int          # channels of a chunk: C rounded up to 16, at most CK_MAX
+    nch: int         # channel chunks: ceil(C / ck)
+    group: int       # taps whose weight slots share memory at once (all: W resident)
+    resident: bool   # group == K: W loaded once per block, no barrier in the tap loop
+    smem: int        # a block's dynamic shared memory in bytes
+    tiles: int       # block tiles: B * ceil(Ho / (wy th)) * ceil(Wo / (wx tw))
+    grid: int        # persistent blocks: one an SM, at most one a tile
+
+
 def n_tiles(o: int) -> int:
-    """8-column MMA tiles of the block's accumulator: O rounded up to 16, 32,
-    64 or 128."""
-    return max(2, 1 << (-(-o // 8) - 1).bit_length())
+    """8-column MMA tiles of the accumulator: O rounded up to 32, 64 or 128
+    (``nt_of`` in csrc/deform.cu)."""
+    return 4 if o <= 32 else 8 if o <= 64 else 16
 
 
-def smem_bytes(c: int, o: int) -> int:
-    """Shared memory of one block (``smem_bytes`` in csrc/deform.cu)."""
-    cpad = -(-c // 16) * 16
-    return 2 * (_BM * (cpad + 8) + cpad * (8 * n_tiles(o) + 8))
+def n_warps(nt: int) -> int:
+    """Warps of a block (``warps_of`` in csrc/deform.cu)."""
+    return 16 if nt <= 8 else 8
+
+
+def smem_bytes(ck: int, nch: int, group: int, nt: int) -> int:
+    """A block's shared memory (``smem_bytes`` in csrc/deform.cu): ``group``
+    taps' weight slots ([ck, 8 nt + 8] bf16 a chunk) and, for each warp, its
+    [16, ck + 8] bf16 row tile and 16 samples (four corner weights and four
+    corner pointers, SAMPLE_BYTES each)."""
+    return (group * nch * ck * (8 * nt + 8) * 2
+            + n_warps(nt) * PATCH * ((ck + 8) * 2 + SAMPLE_BYTES))
+
+
+def chunks(c: int) -> Tuple[int, int]:
+    """(ck, nch): C rounded up to 16 and cut into chunks of at most CK_MAX
+    channels (``fill_geometry`` in csrc/deform.cu)."""
+    ck = min(-(-c // 16) * 16, CK_MAX)
+    return ck, -(-c // ck)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def default_patch(wo: int) -> Tuple[int, int]:
+    """A 4 x 4 patch, or a narrower and taller one of 16 pixels where the
+    output has fewer than 3 columns."""
+    tw = min(4, _pow2_at_least(wo))
+    return PATCH // tw, tw
+
+
+def plan(b: int, c: int, o: int, taps: int, ho: int, wo: int, sms: int = 132) -> DeformPlan:
+    """The launch of x [B, H, W, C] -> [B, Ho, Wo, O] with ``taps`` taps on a
+    card of ``sms`` SMs: each warp a :func:`default_patch` of 16 pixels, a
+    block tile of at most 4 patches across (as many as the output's width
+    holds), W resident wherever every tap's slots fit beside the row tiles
+    in SMEM_LIMIT, else in the largest group of taps that fits, one
+    persistent block an SM."""
+    th, tw = default_patch(wo)
+    nt = n_tiles(o)
+    warps = n_warps(nt)
+    wx = min(4, warps, _pow2_at_least(-(-wo // tw)))
+    wy = warps // wx
+    ck, nch = chunks(c)
+    if smem_bytes(ck, nch, 1, nt) > SMEM_LIMIT:
+        raise ValueError(f"C={c}, O={o}: one tap's weights do not fit a K8 block")
+    group = max(g for g in range(1, taps + 1) if smem_bytes(ck, nch, g, nt) <= SMEM_LIMIT)
+    tiles = b * -(-ho // (wy * th)) * -(-wo // (wx * tw))
+    return DeformPlan(th, tw, wy, wx, warps, nt, ck, nch, group, group == taps,
+                      smem_bytes(ck, nch, group, nt), tiles, min(tiles, sms))
 
 
 def _check_kernel_args(x, offset, mask, weight, bias, stride, padding, dilation):
@@ -106,14 +178,16 @@ def _check_kernel_args(x, offset, mask, weight, bias, stride, padding, dilation)
             fail(f"{name} must be contiguous (channels last)")
     if bias is not None and (tuple(bias.shape) != (o,) or bias.device != x.device):
         fail(f"bias must be [{o}] on {x.device}, got {tuple(bias.shape)} on {bias.device}")
+    if c > MAX_CHANNELS:
+        fail(f"the K8 kernel takes up to {MAX_CHANNELS} input channels, not {c}")
     if not 1 <= o <= MAX_OUT_CHANNELS:
         fail(f"the K8 kernel takes up to {MAX_OUT_CHANNELS} output channels, not {o}")
     if k > MAX_TAPS:
         fail(f"the K8 kernel takes up to {MAX_TAPS} taps, not {k}")
-    if smem_bytes(c, o) > _SMEM_LIMIT:
-        fail(f"C={c}, O={o} does not fit the K8 kernel's shared memory")
-    if b * ho * wo * 2 * k >= 2**31 or b * h * w >= 2**31:
-        fail("more than 2^31 samples")
+    if smem_bytes(*chunks(c), 1, n_tiles(o)) > SMEM_LIMIT:
+        fail(f"C={c}, O={o}: one tap's weights do not fit the K8 kernel's shared memory")
+    if b * ho * wo * 2 * k >= 2**31 or x.numel() >= 2**31:
+        fail("more than 2^31 samples or elements of x")
     return b, h, w, c, ho, wo, o, kh, kw
 
 
@@ -121,10 +195,57 @@ def _lib():
     lib = build.library("deform")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.deform_conv.argtypes = [p] * 6 + [i] * 12 + [p]
+        lib.deform_conv.argtypes = [p] * 6 + [i] * 18 + [p]
         lib.deform_conv.restype = i
+        lib.deform_conv_fault.argtypes = [p] * 6 + [i] * 18 + [p]
+        lib.deform_conv_fault.restype = i
+        lib.deform_geometry.argtypes = [i] * 14 + [ctypes.POINTER(ctypes.c_int)]
+        lib.deform_geometry.restype = None
         lib._typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def source_geometry(b, h, w, c, o, kh, kw, ho, wo, p: DeformPlan) -> Tuple[int, ...]:
+    """The source's own numbers for plan ``p``: (tiles, ck, nch, warps,
+    weight slot pitch, shared memory bytes)."""
+    out = (ctypes.c_int * 6)()
+    _lib().deform_geometry(b, h, w, c, ho, wo, o, kh, kw, p.th, p.tw, p.wy, p.wx, p.group, out)
+    return tuple(out)
+
+
+def _run(x, offset, mask, weight, bias, stride, padding, dilation,
+         fault: bool = False) -> torch.Tensor:
+    """One K8 call on CUDA tensors (checked here), laid out by :func:`plan`;
+    with ``fault`` the source's ``deform_conv_fault`` instead."""
+    b, h, w, c, ho, wo, o, kh, kw = _check_kernel_args(x, offset, mask, weight, bias, stride,
+                                                       padding, dilation)
+    p = plan(b, c, o, kh * kw, ho, wo, _sms(x.device.index or 0))
+    lib = _lib()
+    bias32 = None if bias is None else bias.float().contiguous()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        out = torch.empty((b, ho, wo, o), dtype=x.dtype, device=x.device)
+        entry = lib.deform_conv_fault if fault else lib.deform_conv
+        err = entry(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
+                    None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
+                    b, h, w, c, ho, wo, o, kh, kw, stride, padding, dilation, p.th, p.tw, p.wy,
+                    p.wx, p.group, p.grid, stream)
+        if err:
+            raise RuntimeError(f"deform_conv launch failed: cudaError {err}")
+    return out
+
+
+def planted_fault(x, offset, mask, weight, bias=None, stride=1, padding=1,
+                  dilation=1) -> torch.Tensor:
+    """A planted fault for the card checks: the kernel with each tap's row
+    tile multiplied by the next tap's weights (the source's
+    ``deform_conv_fault``, a template flag). Not counted in LAUNCHES."""
+    return _run(x, offset, mask, weight, bias, stride, padding, dilation, fault=True)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -142,17 +263,6 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         return deform_conv2d_reference(x, offset, mask, weight, bias, stride, padding, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv2d runs on cuda or cpu, not {x.device}")
-    b, h, w, c, ho, wo, o, kh, kw = _check_kernel_args(x, offset, mask, weight, bias, stride,
-                                                       padding, dilation)
-    lib = _lib()
-    bias32 = None if bias is None else bias.float().contiguous()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        out = torch.empty((b, ho, wo, o), dtype=x.dtype, device=x.device)
-        err = lib.deform_conv(x.data_ptr(), offset.data_ptr(), mask.data_ptr(), weight.data_ptr(),
-                              None if bias32 is None else bias32.data_ptr(), out.data_ptr(),
-                              b, h, w, c, ho, wo, o, kh, kw, stride, padding, dilation, stream)
-        if err:
-            raise RuntimeError(f"deform_conv launch failed: cudaError {err}")
+    out = _run(x, offset, mask, weight, bias, stride, padding, dilation)
     LAUNCHES["deform_conv2d"] += 1
     return out
