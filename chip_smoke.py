@@ -8,7 +8,12 @@
 2. Builds every hand-written kernel from ``unet_zoo_tpu_torch/ops/kernels/csrc``
    (one ``nvcc`` per source, all in parallel).
 3. Holds K1 (``fused_up_concat_conv``) against its plain PyTorch version at
-   the four 256px ``unet`` decoder-stage shapes and one non-square shape.
+   the four served 256px ``unet`` decoder-stage shapes (B=8) and the edge
+   cases (non-square, Co != Cu, ragged tiles, Cu = Cs = 32, Cu 96, B = 1):
+   the error beyond one bf16 ulp as a share of the output's rms, two
+   launches bit for bit, four planted faults rejected (a halo one pixel
+   short, dx and dy swapped, the up|skip boundary off by one chunk, bt
+   dropped), and the plan's ring against the source's.
 4. Serves full-width ``unet`` in bf16 through ``make_predictor`` at B=8,
    256x256, on the kernel path and on the plain module path (same seeded
    weights): compares them, confirms with ``torch.profiler`` that K1 ran on
@@ -302,6 +307,22 @@ UNEXT_LAUNCHES = {name: sum(depths) for name, (_, depths) in UNEXT_CONFIGS.items
 # order; the planted faults read orders of magnitude above.
 K3_SHARE = 1e-3
 K8_SHARE = 1e-3
+# K1's two grids, each against its half of the plain version in f32 on the
+# same bf16 operands (the ConvT's up against convt_reference, the conv's
+# output against conv_reference on the kernel's own up; each rounded to
+# bf16 once), read as ulp_reading, at the served stage shapes and
+# K1_EDGE_CASES. The whole against the plain version: up rounds a few
+# elements the other way (f32 sums in another order), and each such flip
+# moves the outputs it feeds by up to ~1e-3 absolute, above one ulp of an
+# output near zero; so the whole keeps the parent's bar, max abs error at
+# most 1e-2 (1 + max |ref|) against the plain version in f32 (up unrounded).
+# (B, Cin, Cu, Cs, Co, Hc, Wc)
+K1_SHARE = 1e-3
+K1_EDGE_CASES = [(1, 96, 64, 32, 48, 8, 12),     # non-square, Co != Cu, B = 1
+                 (3, 64, 32, 32, 40, 5, 7),      # ragged M and N tiles
+                 (1, 64, 32, 32, 16, 4, 6),      # Cu = Cs = 32: chunks past each source
+                 (2, 160, 96, 64, 96, 9, 13),    # Cu 96, odd coarse sizes
+                 (1, 32, 32, 32, 8, 3, 2)]       # 16 x 8 tiles, Co 8
 # unext, kernel path vs plain path: relative L2 of the logits, mask agreement,
 # and the kernel path's distance to f32 compute at most UNEXT_F32_RATIO times
 # the plain path's. The paths differ only in the depthwise conv (K3 against
@@ -2853,7 +2874,7 @@ def serve_int8(torch, gen, device, name):
         PROFILE_RETAKES[0] += 1
         events = profile_forward(torch, lambda: preds["int8 kernel"](x))
         seen = sum("p2_kernel" in e.name for e in events)
-    seen_k1 = sum("fused_up_gemm" in e.name for e in events)
+    seen_k1 = sum("fused_up_" in e.name for e in events)
     log(f"profiler: {seen} P2 conv grids, {seen_k1} K1 grids in one int8 {name} forward")
     if seen != want or seen_k1:
         grids = {}
@@ -3053,12 +3074,60 @@ def check_gather(torch, gen, device):
                 bytes=nbytes, probe=probed)
 
 
-def wgmma_counts(build):
+def check_k1(torch, gen, device):
+    """K1 against its plain version at the served stage shapes (B=8) and
+    K1_EDGE_CASES: each grid's error beyond one bf16 ulp over its output's
+    rms against its half of the plain version (limit K1_SHARE), the
+    parent's max-abs bar for the whole against the plain version in f32,
+    two launches bit for bit (up and output), each planted fault's output
+    rejected by the conv's reading, and the plan's ring against the
+    source's. Returns the max abs error."""
+    from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
+
+    for tile in k1.SOURCE_TILES:
+        if k1.source_geometry(*tile) != k1.ring(*tile) or k1.ring(*tile)[0] < 2:
+            raise AssertionError(f"K1's source ring {k1.source_geometry(*tile)} is not the "
+                                 f"plan's {k1.ring(*tile)} (mode, bn, blocks an SM {tile})")
+    cases = [(SERVE_BATCH, cin, cu, cu, cu, hc, hc) for cin, cu, hc in STAGES] + K1_EDGE_CASES
+    err = 0.0
+    for b, cin, cu, cs, co, hc, wc in cases:
+        args = stage_case(torch, gen, b, cin, cu, cs, co, hc, wc, device)
+        y, skip, wt, bt, wc_, sc, bi = args
+        packed = k1.pack_kernel_weights(wt, wc_)
+        up, got = k1.kernel_stages(*args, packed)
+        up2, again = k1.kernel_stages(*args, packed)
+        up_ref = k1.convt_reference(y, wt, bt)
+        ref = k1.conv_reference(up, skip, wc_, sc, bi)
+        ref32 = k1.fused_up_concat_conv_reference(*[a.float() for a in args])
+        caught = {name: ulp_reading(k1.kernel_stages(*args, packed, name)[1], ref)
+                  for name in k1.FAULTS}
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+        if not (torch.equal(got, again) and torch.equal(up, up2)):
+            raise AssertionError(f"K1 y={[b, cin, hc, wc]}: two launches differ")
+        reading = max(ulp_reading(up, up_ref), ulp_reading(got, ref))
+        e = (got.float() - ref32).abs().max().item()
+        tol = 1e-2 * (1 + ref32.abs().max().item())
+        p = k1.plan(b, hc, wc, cin, cu, cs, co)
+        log(f"K1 y={[b, cin, hc, wc]} skip={[b, cs, 2 * hc, 2 * wc]} Co={co} (tile {p.bh}x{k1.BW}"
+            f"x{p.bn}): beyond one bf16 ulp {reading:.3e} of the output rms (limit "
+            f"{K1_SHARE:.0e}); max_abs_err {e:.3e} against f32 (bound {tol:.3e}); least of "
+            f"{len(caught)} planted faults {min(caught.values()):.3e} "
+            f"({min(caught, key=caught.get)})")
+        if not (reading <= K1_SHARE and e <= tol):
+            raise AssertionError(f"K1 disagrees with its plain version: {reading}, {e} > {tol}")
+        if not min(caught.values()) > K1_SHARE:
+            raise AssertionError(f"the K1 comparison passed a planted fault: {caught}")
+        err = max(err, e)
+    return err
+
+
+def wgmma_counts(build, stem="int8_gemm"):
     """Counts of the int8 (IGMMA) and bf16 (HGMMA) wgmma instructions in
-    ``cuobjdump -sass`` of the built P2 library."""
+    ``cuobjdump -sass`` of the built library ``stem`` (P2's by default)."""
     import os
 
-    lib = build.build_all()["int8_gemm"]
+    lib = build.build_all()[stem]
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -3113,25 +3182,9 @@ def main() -> int:
         if ptxas.exists():
             log(ptxas.read_text().strip())
 
-    # 3. K1 against its plain version, bf16 inputs, reference in f32
+    # 3. K1 against its plain version
     seeded = lambda *name: phase_gen(torch, device, *name)
-    gen = seeded("k1")
-    cases = [(2, cin, cu, cu, cu, hc, hc) for cin, cu, hc in STAGES]
-    cases.append((1, 96, 64, 32, 48, 8, 12))  # non-square, Co != Cu
-    max_err = 0.0
-    for b, cin, cu, cs, co, hc, wc in cases:
-        args = stage_case(torch, gen, b, cin, cu, cs, co, hc, wc, device)
-        got = k1.fused_up_concat_conv(*args).float()
-        ref = k1.fused_up_concat_conv_reference(*[a.float() for a in args])
-        torch.cuda.synchronize()
-        assert got.shape == ref.shape and torch.isfinite(got).all()
-        err = (got - ref).abs().max().item()
-        tol = 1e-2 * (1 + ref.abs().max().item())
-        log(f"K1 y={[b, cin, hc, wc]} skip={[b, cs, 2 * hc, 2 * wc]} Co={co}: "
-            f"max_abs_err {err:.3e} bound {tol:.3e}")
-        if not err <= tol:
-            raise AssertionError(f"K1 disagrees with its plain version: {err} > {tol}")
-        max_err = max(max_err, err)
+    max_err = check_k1(torch, seeded("k1"), device)
 
     # 4. serve unet at full width, kernel path vs plain module path
     x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=seeded("serve unet"),
@@ -3162,10 +3215,10 @@ def main() -> int:
         raise AssertionError("kernel path disagrees with the plain path")
 
     # the profiler sees K1's two grids once per decoder stage
-    kernels = [e for e in profile_forward(torch, lambda: pred_k(x)) if "fused_up_gemm" in e.name]
+    kernels = [e for e in profile_forward(torch, lambda: pred_k(x)) if "fused_up_" in e.name]
     kernels.sort(key=lambda e: e.time_range.start)
-    convt = [e for e in kernels if "<false" in e.name or "ILb0E" in e.name]
-    conv3 = [e for e in kernels if e not in convt]
+    convt = [e for e in kernels if "fused_up_convt_kernel" in e.name]
+    conv3 = [e for e in kernels if "fused_up_conv3x3_kernel" in e.name]
     log(f"profiler: {len(convt)} ConvT grids, {len(conv3)} conv3x3 grids: "
         + ", ".join(f"{a.time_range.elapsed_us():.1f}+{c.time_range.elapsed_us():.1f} us"
                     for a, c in zip(convt, conv3)))
@@ -3202,18 +3255,24 @@ def main() -> int:
             z = F.conv2d(torch.cat([up, skip], dim=1), wc4, padding=1)
             return torch.relu(z.float() * sc4 + bi4).to(torch.bfloat16)
 
-        ms = cuda_ms(torch, lambda: k1.fused_up_concat_conv(*args), 20)
+        packed = k1.pack_kernel_weights(wt, wc)
+        ms = cuda_ms(torch, lambda: k1.fused_up_concat_conv(*args, packed), 20)
+        graph = graph_ms(torch, lambda: k1.fused_up_concat_conv(*args, packed), 20)
         plain_ms = cuda_ms(torch, lambda: k1.fused_up_concat_conv_reference(*args), 5)
         chain_ms = cuda_ms(torch, chain, 20)
         flops, nbytes = work(b, cin, cu, cs, co, hc, hc)
         bound_ms, bound_by = bound(flops, nbytes)
         stages.append(dict(y=[b, cin, hc, hc], skip=[b, cs, 2 * hc, 2 * hc], co=co,
-                           flops=flops, bytes=nbytes, ms=ms, plain_ms=plain_ms,
+                           flops=flops, bytes=nbytes, ms=ms, graph_ms=graph, plain_ms=plain_ms,
                            cudnn_chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by,
                            tflops=flops / ms / 1e9))
-        log(f"stage y={[b, cin, hc, hc]}: K1 {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        log(f"stage y={[b, cin, hc, hc]}: K1 {ms:.4f} ms by events, {graph:.4f} ms by graph "
+            f"({flops / graph / 1e9:.1f} TFLOP/s), "
             f"plain {plain_ms:.4f} ms, cuDNN chain {chain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"K1 per unet forward: {sum(r['ms'] for r in stages):.4f} ms by events, "
+        f"{sum(r['graph_ms'] for r in stages):.4f} ms by graph, bound "
+        f"{sum(r['bound_ms'] for r in stages):.4f} ms")
 
     # 17-20. int8 serving through P2's conv (unet_tpu, unet), P2's GEMM and
     # P1's gather on their probes' paths, run here, early: late in the run the
@@ -3347,6 +3406,10 @@ def main() -> int:
     log(f"P2: {gmma} wgmma instructions in cuobjdump -sass of the built int8_gemm library")
     if not (gmma["IGMMA"] and gmma["HGMMA"]):
         raise AssertionError(f"the built P2 library holds no wgmma of a type: {gmma}")
+    k1_gmma = wgmma_counts(build, "fused_up")
+    log(f"K1: {k1_gmma} wgmma instructions in cuobjdump -sass of the built fused_up library")
+    if not k1_gmma["HGMMA"]:
+        raise AssertionError(f"the built K1 library holds no bf16 wgmma: {k1_gmma}")
     log(f"profiler: {PROFILE_RETAKES[0]} traces retaken after a trace that lost records")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the kernels line")
     log(json.dumps({"kernels": [{
@@ -3357,6 +3420,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "ms": total("ms"),
+        "graph_ms": total("graph_ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": bound_ms,
         "bound_by": bound_by,

@@ -50,21 +50,95 @@ def _case(gen, device, b, hc, wc, cin, cu, cs, co):
             1.0 + 0.2 * n(co), 0.1 * n(co))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,hc,wc,cin,cu,cs,co", [
+# K1: each grid against its half of the plain version on the same bf16
+# operands, the error beyond one bf16 ulp as a share of the output's rms
+# (chip_smoke.py's K1_SHARE and ulp_reading); the whole against the plain
+# version in f32 keeps the parent's bar, 1e-2 (1 + max |ref|).
+K1_SHARE = 1e-3
+K1_CASES = [
     (2, 8, 8, 128, 64, 64, 64),     # unet's last stage, narrow
     (1, 8, 12, 96, 64, 32, 48),     # non-square, Co != Cu
     (3, 5, 7, 64, 32, 32, 40),      # ragged M and N tiles
-])
+    (8, 16, 16, 1024, 512, 512, 512),   # unet's four served stages, B=8 256px
+    (8, 32, 32, 512, 256, 256, 256),
+    (8, 64, 64, 256, 128, 128, 128),
+    (8, 128, 128, 128, 64, 64, 64),
+    (1, 4, 6, 64, 32, 32, 16),      # Cu = Cs = 32, B = 1
+    (2, 9, 13, 160, 96, 64, 96),    # Cu 96: a chunk past the end of up
+    (1, 3, 2, 32, 32, 32, 8),       # 16 x 8 tiles, Co 8
+]
+
+
+def _ulp_reading(got, ref):
+    excess = (got.float() - ref.float()).abs() - 2.0 ** -7 * ref.float().abs()
+    return (excess.max() / ref.float().pow(2).mean().sqrt()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hc,wc,cin,cu,cs,co", K1_CASES)
 def test_fused_up_kernel_matches_reference(cuda_device, b, hc, wc, cin, cu, cs, co):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     args = _case(gen, cuda_device, b, hc, wc, cin, cu, cs, co)
+    y, skip, wt, bt, wc_, sc, bi = args
     ref = k1.fused_up_concat_conv_reference(*[a.float() for a in args])
     got = k1.fused_up_concat_conv(*args)
+    up, staged = k1.kernel_stages(*args)
+    up2, again = k1.kernel_stages(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.is_contiguous(memory_format=torch.channels_last)
     err = (got.float() - ref).abs().max().item()
     assert err <= 1e-2 * (1 + ref.abs().max().item()), err
+    assert torch.equal(got, staged) and torch.equal(staged, again) and torch.equal(up, up2)
+    assert _ulp_reading(up, k1.convt_reference(y, wt, bt)) <= K1_SHARE
+    assert _ulp_reading(got, k1.conv_reference(up, skip, wc_, sc, bi)) <= K1_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(k1.FAULTS))
+@pytest.mark.parametrize("b,hc,wc,cin,cu,cs,co", [K1_CASES[i] for i in (1, 2, 6, 7)])
+def test_fused_up_planted_faults_are_rejected(cuda_device, fault, b, hc, wc, cin, cu, cs, co):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    args = _case(gen, cuda_device, b, hc, wc, cin, cu, cs, co)
+    up, _ = k1.kernel_stages(*args)
+    ref = k1.conv_reference(up, args[1], *args[4:])
+    before = k1.LAUNCHES["fused_up_concat_conv"]
+    got = k1.kernel_stages(*args, fault=fault)[1]
+    torch.cuda.synchronize()
+    assert k1.LAUNCHES["fused_up_concat_conv"] == before
+    assert _ulp_reading(got, ref) > K1_SHARE
+
+
+@pytest.mark.cuda
+def test_fused_up_plan_matches_source(cuda_device):
+    for tile in k1.SOURCE_TILES:
+        assert k1.source_geometry(*tile) == k1.ring(*tile), tile
+    for b, hc, wc, cin, cu, cs, co in K1_CASES:
+        p = k1.plan(b, hc, wc, cin, cu, cs, co)
+        assert (1, p.bn, 1) in k1.SOURCE_TILES and (0, 128, p.convt_ctas) in k1.SOURCE_TILES
+
+
+@pytest.mark.cuda
+def test_unet_kernel_path_raises_without_its_kernel(cuda_device, monkeypatch):
+    # no fallback: a refused launch or a library that does not load makes
+    # the served forward raise, never run the plain version
+    x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    pred = make_predictor(create_model("unet", dtype=torch.bfloat16), None, "logits")
+
+    class Refusing:
+        def fused_up_forward(self, *a):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(k1, "_lib", lambda: Refusing())
+    with pytest.raises(RuntimeError, match="fused_up launch failed"):
+        pred(x)
+
+    def missing(stem):
+        raise RuntimeError(f"nvcc failed for {stem}")
+
+    monkeypatch.setattr(k1, "_lib", lambda: build.library("fused_up"))
+    monkeypatch.setattr(build, "library", missing)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pred(x)
 
 
 @pytest.mark.cuda

@@ -41,6 +41,7 @@ from unet_zoo_tpu_torch.ops.kernels.fused_up import (
     fused_up_concat_conv,
     pack_conv3x3_kernel,
     pack_convt_kernel,
+    pack_kernel_weights,
 )
 
 
@@ -248,6 +249,7 @@ class KernelWeights(NamedTuple):
     bi1: torch.Tensor
     w2: torch.Tensor   # [Co, Co, 3, 3], conv2 with its BN scale folded in
     b2: torch.Tensor   # [Co], conv2's folded bias; both compute dtype
+    packed: Tuple[torch.Tensor, torch.Tensor]  # wt, wc K-major, as the kernel reads them
 
 
 class UpSampleUNet(nn.Module):
@@ -295,12 +297,13 @@ class UpSampleUNet(nn.Module):
 
         sc1, bi1 = folded(op[0], op[1])
         sc2, bi2 = folded(op[3], op[4])
+        wt = pack_convt_kernel(self.up.weight.to(dt)).contiguous()
+        wc = pack_conv3x3_kernel(op[0].weight.to(dt)).contiguous()
         return KernelWeights(
-            wt=pack_convt_kernel(self.up.weight.to(dt)).contiguous(),
-            bt=self.up.bias.float().contiguous(),
-            wc=pack_conv3x3_kernel(op[0].weight.to(dt)).contiguous(),
+            wt=wt, bt=self.up.bias.float().contiguous(), wc=wc,
             sc1=sc1.contiguous(), bi1=bi1.contiguous(),
-            w2=(op[3].weight.float() * sc2.view(-1, 1, 1, 1)).to(dt), b2=bi2.to(dt))
+            w2=(op[3].weight.float() * sc2.view(-1, 1, 1, 1)).to(dt), b2=bi2.to(dt),
+            packed=pack_kernel_weights(wt, wc))
 
     def freeze_kernel_weights(self) -> None:
         """Fold and pack once for a predictor whose weights no longer change."""
@@ -315,7 +318,7 @@ class UpSampleUNet(nn.Module):
 
     def _fused(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         w = self._frozen if self._frozen is not None else self.kernel_weights()
-        out = fused_up_concat_conv(x, skip, w.wt, w.bt, w.wc, w.sc1, w.bi1)
+        out = fused_up_concat_conv(x, skip, w.wt, w.bt, w.wc, w.sc1, w.bi1, w.packed)
         return torch.relu_(F.conv2d(out, w.w2, w.b2, padding=1))
 
 

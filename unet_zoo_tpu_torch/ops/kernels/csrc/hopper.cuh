@@ -1,7 +1,8 @@
-// Device helpers for Hopper-native tile loops (sm_90a): mbarriers, TMA
-// tile loads, the async-proxy fence, warpgroup register reallocation, wgmma
-// matrix descriptors for 128- and 64-byte-swizzled K-major tiles, and the
-// wgmma instructions P2 (int8_gemm.cu) and K4 (mkblock.cu) issue:
+// Device helpers for Hopper-native tile loops (sm_90a): mbarriers, 2-D and
+// 4-D TMA tile loads, the async-proxy fence, warpgroup register reallocation,
+// wgmma matrix descriptors for 128- and 64-byte-swizzled K-major tiles, and
+// the wgmma instructions P2 (int8_gemm.cu), K4 (mkblock.cu) and K1
+// (fused_up.cu) issue:
 // m64nNk32 s8 x s8 -> s32 and m64nNk16 bf16 x bf16 -> f32 for N = 64, 128,
 // 256, both operands read from shared memory through descriptors; and
 // m64nNk16 bf16 x bf16 -> f32 with A read from registers (N = 32 to 192 in
@@ -75,6 +76,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A 4-D box of `map` at (c0 innermost, c1, c2, c3); negative and
+// out-of-range coordinates read as zeros, as in tma_load_2d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
