@@ -81,18 +81,24 @@
    plain version, the module chain it replaces and the train kernel chain.
 11. Holds K2 (``swin_window_attention``) against its plain version at every
    launch shape of both served ``swin_unet_v2`` configurations (224px with
-   window 7, 256px with window 8: N 49 and 64, nW 64/16/4 and unshifted)
-   and at an odd shape (B_ = 6, hd 16), with tau below its 0.01 clip, a
-   bias of a few units and an all-zero q row and k row; each comparison is
-   shown to reject planted faults (the bias table transposed, the mask read
-   by image, tau unclipped, the softmax over queries).
+   window 7, 256px with window 8: N 49 and 64, nW 64/16/4 and unshifted),
+   all on its mma instance, and at odd shapes (B_ = 6 with hd 16 and N 36
+   on the mma instance; N 100 and a served shape in float32 on the general
+   one), with tau below its 0.01 clip, a bias of a few units and an
+   all-zero q row and k row; each comparison is shown to reject planted
+   faults (the bias table transposed, the mask read by image, tau
+   unclipped, the softmax over queries and, on the mma instance through the
+   source's test-only entry, a block's windows given one mask index and P
+   rounded once to bf16); the mma plan's numbers are held against the
+   source's and ``HMMA`` is counted in the built library.
 12. Serves full-width ``swin_unet_v2`` (registry defaults, bf16, B=8) in
    both configurations on both paths, tau and the CPB bias sharpened alike
-   on both: K2 must run 14 times per forward, by the launch counter and by
-   the profiler; every K2 launch of the served forward is held against its
-   plain version on the model's own operands, and faults planted into K2's
-   arguments (q and k swapped, the bias transposed, the mask read by image)
-   must fail; times both paths and K2 at every launch shape against its
+   on both: K2 must run 14 times per forward on its mma instance, by the
+   launch counters and by the profiler; every K2 launch of the served
+   forward is held against its plain version on the model's own operands,
+   and faults planted into K2's arguments (q and k swapped, the bias
+   transposed, the mask read by image) must fail; times both paths and K2
+   at every launch shape, by CUDA events and by CUDA graph, against its
    bound, its plain version and the bf16 module chain it replaces.
 13. Holds K3 (``depthwise_conv2d``) against its plain version at every
    distinct launch shape of ``unext`` and ``unext_s`` (B=8, 256px) and an odd
@@ -275,9 +281,10 @@ TRAIN_BLOCK_REL_L2 = 5e-2
 # swin_unet_v2 served at full width (registry defaults, heads (3, 6, 12, 24),
 # hd 32): (image, window) of the registry default and of the YAML configs
 SWIN_CONFIGS = [(224, 7), (256, 8)]
-SWIN_HEADS = (3, 6, 12, 24)
-# one K2 launch per SwinBlockV2: 8 encoder and 6 decoder blocks
+# one K2 launch per SwinBlockV2: 8 encoder and 6 decoder blocks, each a grid
+# of the mma instance
 SWIN_LAUNCHES = 14
+K2_GRID = "window_attention_mma_kernel"
 # K2 against its plain version: the error beyond the output's bf16 rounding
 # as a share of the output's rms (k6_reading, the K6 rule)
 K2_SHARE = 1e-3
@@ -370,6 +377,14 @@ PROFILE_RETAKES = [0]
 
 def log(*a):
     print(*a, flush=True)
+
+
+def lap(name, since):
+    """Logs the seconds one phase of the run took since ``since``; returns
+    the time now."""
+    now = time.perf_counter()
+    log(f"phase {name}: {now - since:.1f} s")
+    return now
 
 
 def stage_case(torch, gen, b, cin, cu, cs, co, hc, wc, device):
@@ -1902,39 +1917,6 @@ def time_k7(torch, gen, device):
     return rows
 
 
-def swin_launch_shapes(image, window, batch=SERVE_BATCH):
-    """K2's launch shapes in one forward of registry-default swin_unet_v2
-    (embed 96, depths (2, 2, 2, 2), heads (3, 6, 12, 24), hd 32): rows of
-    (B_, nh, N, hd, nW, launches); nW 1 is an unshifted block (no mask).
-    Stages 0-2 run two encoder and two decoder blocks, the odd one of each
-    pair shifted; the last stage two encoder blocks, whose window covers
-    the stage, so neither shifts."""
-    rows = []
-    for stage, nh in enumerate(SWIN_HEADS):
-        res = image // 4 >> stage
-        w = min(window, res)
-        nw, blocks = (res // w) ** 2, 4 if stage < 3 else 2
-        shape = (batch * nw, nh, w * w, 96 * 2 ** stage // nh)
-        if res > window:
-            rows += [(*shape, nw, blocks // 2), (*shape, 1, blocks // 2)]
-        else:
-            rows.append((*shape, 1, blocks))
-    return rows
-
-
-def k2_work(b_, nh, n, hd, nw):
-    """K2: (tensor-core FLOPs, f32 operations, least bytes). q.k from the
-    bf16 q and k could run on the tensor cores (exact products); P.V is
-    float32 (P is not rounded), and so are the norms (4 hd per token) and
-    about 10 operations per (i, j): the cosine's divide, tau, bias, mask,
-    max, exp, sum and the normalisation. Bytes: q, k, v read and the
-    output written once (bf16), tau and bias [nh, N, N] and the mask
-    [nW, N, N] once (f32)."""
-    pairs = b_ * nh
-    return (2 * pairs * n * n * hd, pairs * (n * n * (2 * hd + 10) + 4 * n * hd),
-            2 * 4 * pairs * n * hd + 4 * (2 * nh + (nw if nw > 1 else 0)) * n * n)
-
-
 def k2_case(torch, gen, b_, nh, n, hd, nw, device):
     """Random K2 operands at one launch shape: q, k and v as views of one
     bf16 [B_, N, 3, nh, hd] projection (the model's layout), with an all-zero
@@ -1989,29 +1971,47 @@ def k2_faults(torch, q, k, v, tau, bias, mask):
 
 def check_k2(torch, gen, device):
     """K2 against its plain version (f32 on the same bf16 operands) at every
-    launch shape of both served swin_unet_v2 configurations and at an odd
-    shape (B_ not a multiple of 8, hd 16), each beside the planted faults
-    that the same comparison must reject; returns the max abs error."""
+    launch shape of both served swin_unet_v2 configurations, which must run
+    the mma instance, and at odd shapes of both instances, each beside the
+    planted faults that the same comparison must reject (on the mma
+    instance also the source's own); the mma plan against the source's
+    numbers. Returns the max abs error."""
     from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
 
-    cases = [(image, window, *shape[:5]) for image, window in SWIN_CONFIGS
-             for shape in swin_launch_shapes(image, window)]
-    cases.append((None, None, 6, 5, 49, 16, 3))
+    bf = torch.bfloat16
+    cases = [(f"{image}px window {window}", *shape[:5], bf, "mma") for image, window in SWIN_CONFIGS
+             for shape in k2.launch_shapes(image, window, SERVE_BATCH)]
+    cases += [("odd shape", 6, 5, 49, 16, 3, bf, "mma"), ("odd shape", 10, 4, 36, 32, 2, bf, "mma"),
+              ("odd shape", 4, 2, 100, 24, 2, bf, "general"),
+              ("float32", 64, 3, 49, 32, 64, torch.float32, "general")]
     err = 0.0
-    for image, window, b_, nh, n, hd, nw in cases:
+    for where, b_, nh, n, hd, nw, dtype, want in cases:
         args = k2_case(torch, gen, b_, nh, n, hd, nw, device)
+        args = [args[0].to(dtype), args[1].to(dtype), args[2].to(dtype), *args[3:]]
+        which = k2.instance(*args[:3])
+        if which != want:
+            raise AssertionError(f"K2 at {where} B_={b_} N={n} hd={hd} runs {which}, not {want}")
         got = k2.swin_window_attention(*args)
         f32 = [args[0].float(), args[1].float(), args[2].float(), *args[3:]]
         ref = k2.swin_window_attention_reference(*f32)
         caught = {name: k6_reading(out, ref) for name, out in k2_faults(torch, *f32)}
+        plan = ""
+        if which == "mma":
+            p = k2.plan(b_, nh, n, hd, nw)
+            source = k2.source_geometry(b_, nh, hd, nw, nw > 1, p.windows_per_block)
+            if source != (p.grid, p.threads, p.smem, p.per_group, p.chunks):
+                raise AssertionError(f"K2's plan {p} is not the source's {source}")
+            plan = f", {p.windows_per_block} windows a block, {p.grid} blocks"
+            for name in k2.FAULTS:
+                if nw > 1 or name != "one mask a block":
+                    caught[name] = k6_reading(k2.planted_fault(name, *args), ref)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got.float()).all()
         reading = k6_reading(got, ref)
         e = (got.float() - ref).abs().max().item()
-        where = f"{image}px window {window}" if image else "odd shape"
-        log(f"K2 {where}: B_={b_} nh={nh} N={n} hd={hd} nW={nw}: max_abs_err {e:.3e}; beyond "
-            f"output rounding {reading:.3e} of the output rms (limit {K2_SHARE:.0e}); least "
-            f"planted fault {min(caught.values()):.3e} ({min(caught, key=caught.get)})")
+        log(f"K2 {where}: B_={b_} nh={nh} N={n} hd={hd} nW={nw} {dtype} on {which}{plan}: "
+            f"max_abs_err {e:.3e}; beyond output rounding {reading:.3e} of the output rms (limit "
+            f"{K2_SHARE:.0e}); planted faults " + ", ".join(f"{k} {v:.3e}" for k, v in caught.items()))
         if not reading <= K2_SHARE:
             raise AssertionError(f"K2 disagrees with its plain version: {reading}")
         if not min(caught.values()) > K2_SHARE:
@@ -2104,17 +2104,19 @@ def serve_swin(torch, gen, device, image, window):
     from unet_zoo_tpu_torch.ops.kernels import window_attention as k2
 
     name = f"swin_unet_v2 {image}px window {window}"
-    preds, x, launches, agreement, refs = serve_both_paths(
-        torch, gen, device, "swin_unet_v2", SERVE_BATCH, image, [(k2, "swin_window_attention")],
+    preds, x, counts, agreement, refs = serve_both_paths(
+        torch, gen, device, "swin_unet_v2", SERVE_BATCH, image,
+        [(k2, "swin_window_attention"), (k2, "swin_window_attention_mma")],
         SWIN_REL_L2, SWIN_AGREE, SWIN_F32_RATIO, prepare=lambda m: sharpen_swin(torch, m),
         window_size=window)
-    launches = launches["swin_window_attention"]
-    if launches != SWIN_LAUNCHES:
-        raise AssertionError(f"K2 ran {launches} times in {name}, expected {SWIN_LAUNCHES}")
+    launches = counts["swin_window_attention"]
+    if launches != SWIN_LAUNCHES or counts["swin_window_attention_mma"] != SWIN_LAUNCHES:
+        raise AssertionError(f"K2 ran {counts} times in {name}, expected {SWIN_LAUNCHES} on "
+                             f"the mma instance")
     faults = swin_faults(torch, name, preds, x, refs, SWIN_REL_L2)
     events = profile_forward(torch, lambda: preds["kernel"](x))
-    seen = sum("window_attention_kernel" in e.name for e in events)
-    log(f"profiler: {seen} window_attention_kernel grids in one {name} forward")
+    seen = sum(K2_GRID in e.name for e in events)
+    log(f"profiler: {seen} {K2_GRID} grids in one {name} forward")
     if seen != SWIN_LAUNCHES:
         raise AssertionError(f"profiler saw K2 {seen} times in {name}, expected {SWIN_LAUNCHES}")
     rates, med, busy = time_paths(torch, name, preds, x, profile=True)
@@ -2159,7 +2161,7 @@ def time_k2(torch, gen, device, image, window):
     from unet_zoo_tpu_torch.utils.serving import cast_params_for_inference
 
     rows = []
-    for b_, nh, n, hd, nw, blocks in swin_launch_shapes(image, window):
+    for b_, nh, n, hd, nw, blocks in k2.launch_shapes(image, window, SERVE_BATCH):
         w = int(round(n ** 0.5))
         attn = WindowAttentionV2(nh * hd, (w, w), nh, dtype=torch.bfloat16, use_kernels=False)
         init_weights(attn, torch.Generator().manual_seed(b_ + nh))
@@ -2173,19 +2175,23 @@ def time_k2(torch, gen, device, image, window):
                    for _ in range(3))
         qs, kt, vt = (q * attn.scale).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         with torch.inference_mode():
-            ms = cuda_ms(torch, lambda: k2.swin_window_attention(qs, kt, vt, tau, bias, mask), 20)
+            kernel = lambda: k2.swin_window_attention(qs, kt, vt, tau, bias, mask)
+            ms = cuda_ms(torch, kernel, 20)
+            by_graph = graph_ms(torch, kernel, 20)
             plain_ms = cuda_ms(torch, lambda: k2.swin_window_attention_reference(
                 qs, kt, vt, tau, bias, mask), 5)
             chain_ms = cuda_ms(torch, lambda: attn.attend(q, k, v, mask), 20)
-        tc, f32, nbytes = k2_work(b_, nh, n, hd, nw)
+        tc, f32, nbytes = k2.work(b_, nh, n, hd, nw)
         bound_ms, bound_by = bound(tc, nbytes, f32)
         rows.append(dict(image=image, window=window, windows=b_, heads=nh, tokens=n, head_dim=hd,
                          mask_windows=nw, launches=blocks, tc_flops=tc, f32_ops=f32,
-                         bytes=nbytes, ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        log(f"K2 {image}px B_={b_} nh={nh} N={n} hd={hd} nW={nw} x{blocks}: {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, module chain {chain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}; {nbytes / ms / 1e6:.1f} GB/s)")
+                         bytes=nbytes, ms=ms, graph_ms=by_graph, plain_ms=plain_ms,
+                         module_chain_ms=chain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         instance=k2.instance(qs, kt, vt)))
+        log(f"K2 {image}px B_={b_} nh={nh} N={n} hd={hd} nW={nw} x{blocks}: {ms:.4f} ms by "
+            f"events, {by_graph:.4f} ms by graph, plain {plain_ms:.4f} ms, module chain "
+            f"{chain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{nbytes / by_graph / 1e6:.1f} GB/s by graph)")
     return rows
 
 
@@ -3122,16 +3128,18 @@ def check_k1(torch, gen, device):
     return err
 
 
-def wgmma_counts(build, stem="int8_gemm"):
-    """Counts of the int8 (IGMMA) and bf16 (HGMMA) wgmma instructions in
-    ``cuobjdump -sass`` of the built library ``stem`` (P2's by default)."""
+def mma_counts(build, stem="int8_gemm"):
+    """Counts of the int8 (IGMMA) and bf16 (HGMMA) wgmma instructions and of
+    the mma.sync (HMMA) instructions in ``cuobjdump -sass`` of the built
+    library ``stem`` (P2's by default)."""
     import os
 
     lib = build.build_all()[stem]
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    return {op: sum(op in line for line in sass.splitlines()) for op in ("IGMMA", "HGMMA")}
+    return {op: sum(op in line for line in sass.splitlines())
+            for op in ("IGMMA", "HGMMA", "HMMA")}
 
 
 def phase_gen(torch, device, *name):
@@ -3176,7 +3184,8 @@ def main() -> int:
     # 2. build every kernel from source
     t0 = time.perf_counter()
     paths = build.build_all()
-    log(f"build: {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+    t_built = time.perf_counter()
+    log(f"build: {sorted(paths)} in {t_built - t0:.1f} s")
     for stem in paths:
         ptxas = (build.BUILD_DIR / f"{stem}.log")
         if ptxas.exists():
@@ -3273,6 +3282,7 @@ def main() -> int:
     log(f"K1 per unet forward: {sum(r['ms'] for r in stages):.4f} ms by events, "
         f"{sum(r['graph_ms'] for r in stages):.4f} ms by graph, bound "
         f"{sum(r['bound_ms'] for r in stages):.4f} ms")
+    t_phase = lap("unet (K1)", t_built)
 
     # 17-20. int8 serving through P2's conv (unet_tpu, unet), P2's GEMM and
     # P1's gather on their probes' paths, run here, early: late in the run the
@@ -3285,11 +3295,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     gemm = check_gemm(torch, seeded("check_gemm"), device)
     gather = check_gather(torch, seeded("check_gather"), device)
+    t_phase = lap("int8 (P2, P1)", t_phase)
 
     # 5-6. mmunet: K4 and K5 checks, serving, per-shape timings
     k4_err, k5_err = check_k4_k5(torch, seeded("check_k4_k5"), device)
     mm_launches, mm_rates, mm_med, mm_busy, mm_agreement = serve_mmunet(torch, seeded("serve_mmunet"), device)
     k4_rows, k5_rows = time_k4_k5(torch, seeded("time_k4_k5"), device)
+    t_phase = lap("mmunet (K4, K5)", t_phase)
 
     # 7-8. MedT: K6 checks, gated served at full width, the other four names
     # at B=2/128px, K6 per launch shape
@@ -3299,6 +3311,7 @@ def main() -> int:
               for name in ("axialunet", "medt", "logo", "medt_logo")}
     k6_rows, k6_wopos = time_k6(torch, seeded("time_k6"), device)
     torch.cuda.empty_cache()
+    t_phase = lap("MedT serving (K6)", t_phase)
 
     # 9-10. MedT training: K7 checks, gated trained at full width on both
     # paths, axialunet briefly at 128px, K7 per launch shape
@@ -3311,6 +3324,7 @@ def main() -> int:
     axialunet_train = train_paths(torch, seeded("train_paths", "axialunet"), device, "axialunet", 2, 128, 3, profile=False)
     k7_rows = time_k7(torch, seeded("time_k7"), device)
     torch.cuda.empty_cache()
+    t_phase = lap("MedT training (K7)", t_phase)
 
     # 11-12. swin_unet_v2: K2 checks, both configurations served at full
     # width, K2 per launch shape
@@ -3320,6 +3334,7 @@ def main() -> int:
     k2_rows = {f"{image}px": time_k2(torch, seeded("time_k2", image), device, image, window)
                for image, window in SWIN_CONFIGS}
     torch.cuda.empty_cache()
+    t_phase = lap("swin_unet_v2 (K2)", t_phase)
 
     # 13-14. unext and unext_s: K3 checks, both served at full width, K3 per
     # launch shape
@@ -3327,11 +3342,13 @@ def main() -> int:
     unext = {name: serve_unext(torch, seeded("serve_unext", name), device, name) for name in UNEXT_CONFIGS}
     k3_rows = {name: time_k3(torch, seeded("time_k3", name), device, name) for name in UNEXT_CONFIGS}
     torch.cuda.empty_cache()
+    t_phase = lap("unext (K3)", t_phase)
 
     # 15-16. wranet: K8 checks, served at full width, K8 per launch shape
     k8_err = check_k8(torch, seeded("check_k8"), device)
     wranet = serve_wranet(torch, seeded("serve_wranet"), device)
     k8_rows = time_k8(torch, seeded("time_k8"), device)
+    lap("wranet (K8)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -3380,7 +3397,8 @@ def main() -> int:
     for key, rows in k2_rows.items():
         b = bound(per_forward(rows, "tc_flops"), per_forward(rows, "bytes"),
                   per_forward(rows, "f32_ops"))
-        k2_per_config[key] = dict(ms=per_forward(rows, "ms"), plain_ms=per_forward(rows, "plain_ms"),
+        k2_per_config[key] = dict(ms=per_forward(rows, "ms"), graph_ms=per_forward(rows, "graph_ms"),
+                                  plain_ms=per_forward(rows, "plain_ms"),
                                   module_chain_ms=per_forward(rows, "module_chain_ms"),
                                   bound_ms=b[0], bound_by=b[1])
         log(f"K2 per {key} forward: {k2_per_config[key]}")
@@ -3402,14 +3420,19 @@ def main() -> int:
         f"{per_forward(k8_rows, 'plain_ms'):.4f} ms, module chain "
         f"{per_forward(k8_rows, 'module_chain_ms'):.4f} ms, bound {k8_bound[0]:.4f} ms "
         f"({k8_bound[1]})")
-    gmma = wgmma_counts(build)
+    gmma = mma_counts(build)
     log(f"P2: {gmma} wgmma instructions in cuobjdump -sass of the built int8_gemm library")
     if not (gmma["IGMMA"] and gmma["HGMMA"]):
         raise AssertionError(f"the built P2 library holds no wgmma of a type: {gmma}")
-    k1_gmma = wgmma_counts(build, "fused_up")
+    k1_gmma = mma_counts(build, "fused_up")
     log(f"K1: {k1_gmma} wgmma instructions in cuobjdump -sass of the built fused_up library")
     if not k1_gmma["HGMMA"]:
         raise AssertionError(f"the built K1 library holds no bf16 wgmma: {k1_gmma}")
+    k2_mma = mma_counts(build, "window_attention")
+    log(f"K2: {k2_mma} tensor-core instructions in cuobjdump -sass of the built "
+        f"window_attention library")
+    if not k2_mma["HMMA"]:
+        raise AssertionError(f"the built K2 library holds no mma.sync: {k2_mma}")
     log(f"profiler: {PROFILE_RETAKES[0]} traces retaken after a trace that lost records")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to the kernels line")
     log(json.dumps({"kernels": [{
@@ -3511,6 +3534,7 @@ def main() -> int:
         "launches": swin["224px"]["launches"],
         "max_abs_err": k2_err,
         "ms": per_forward(main_k2, "ms"),
+        "graph_ms": per_forward(main_k2, "graph_ms"),
         "plain_ms": per_forward(main_k2, "plain_ms"),
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],

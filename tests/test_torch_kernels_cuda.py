@@ -880,14 +880,15 @@ def test_gated_train_step_runs_k7_on_both_passes(cuda_device, monkeypatch):
 K2_SHARE = 1e-3
 
 
-def _k2_case(device, b_, nh, n, hd, nw, dtype=torch.bfloat16):
+def _k2_case(device, b_, nh, n, hd, nw, dtype=torch.bfloat16, offset=0):
     """q, k, v as views of one [B_, N, 3, nh, hd] projection (the model's
-    layout), with a zero q row and a zero k row; tau from U(0.005, 0.1), so
-    some entries lie below the 0.01 clip; a bias of a few units; a random
-    0 / -100 mask of nW windows (None for nW 1)."""
+    layout; ``offset`` elements into its storage), with a zero q row and a
+    zero k row; tau from U(0.005, 0.1), so some entries lie below the 0.01
+    clip; a bias of a few units; a random 0 / -100 mask of nW windows (None
+    for nW 1)."""
     gen = torch.Generator(device=device).manual_seed(b_ + nh + n + hd + nw)
     r = lambda *s: torch.randn(*s, generator=gen, device=device)
-    qkv = r(b_, n, 3, nh, hd).to(dtype)
+    qkv = r(b_ * n * 3 * nh * hd + offset).to(dtype)[offset:].view(b_, n, 3, nh, hd)
     qkv[0, 1, 0, 0] = 0.0
     qkv[0, 2, 1, 0] = 0.0
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
@@ -917,32 +918,83 @@ def _k2_faults(monkeypatch, q, k, v, tau, bias, mask):
     return out
 
 
+def _k2_design_faults(q, k, v, tau, bias, mask):
+    """The mma instance's own planted faults (the source's
+    ``window_attention_fault``): a block's windows given one mask index
+    (where there is a mask) and P rounded once to bf16."""
+    names = [f for f in k2.FAULTS if mask is not None or f != "one mask a block"]
+    return {f: k2.planted_fault(f, q, k, v, tau, bias, mask) for f in names}
+
+
+# Every launch shape of the served swin_unet_v2 (224px/window 7, 256px/window
+# 8, B=8), odd shapes of the mma instance, and the general instance's shapes:
+# (B_, nh, N, hd, nW, dtype, storage offset, instance)
+K2_CASES = [(b_, nh, n, 32, nw, torch.bfloat16, 0, "mma")
+            for n in (49, 64) for b_, nh, nws in ((512, 3, (64, 1)), (128, 6, (16, 1)),
+                                                  (32, 12, (4, 1)), (8, 24, (1,)))
+            for nw in nws] + [
+    (6, 5, 49, 16, 3, torch.bfloat16, 0, "mma"),       # B_ not a multiple of 8, hd 16
+    (10, 4, 36, 32, 2, torch.bfloat16, 0, "mma"),      # window 6: N not a multiple of 16
+    (4, 3, 25, 16, 1, torch.bfloat16, 0, "mma"),       # window 5, two warps of padding
+    (12, 2, 16, 8, 4, torch.float32, 0, "general"),    # float32 activations
+    (4, 2, 100, 24, 2, torch.bfloat16, 0, "general"),  # window 10: four keys per lane
+    (8, 3, 49, 32, 4, torch.float32, 0, "general"),    # a served shape in float32
+    (8, 3, 49, 32, 4, torch.bfloat16, 1, "general"),   # rows off 16 bytes
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b_,nh,n,hd,nw,dtype", [
-    (512, 3, 49, 32, 64, torch.bfloat16),     # 224px stage 0, shifted (B=8)
-    (128, 6, 49, 32, 16, torch.bfloat16),     # stage 1
-    (32, 12, 49, 32, 4, torch.bfloat16),      # stage 2
-    (8, 24, 49, 32, 1, torch.bfloat16),       # stage 3: reduced window, no shift
-    (512, 3, 64, 32, 64, torch.bfloat16),     # 256px, window 8
-    (8, 24, 64, 32, 1, torch.bfloat16),
-    (6, 5, 49, 16, 3, torch.bfloat16),        # B_ not a multiple of 8, hd 16
-    (12, 2, 16, 8, 4, torch.float32),         # float32 activations
-    (4, 2, 100, 24, 2, torch.bfloat16),       # window 10: four keys per lane
-])
+@pytest.mark.parametrize("b_,nh,n,hd,nw,dtype,offset,which", K2_CASES)
 def test_swin_window_attention_kernel_matches_reference(cuda_device, monkeypatch, b_, nh, n, hd,
-                                                        nw, dtype):
-    q, k, v, tau, bias, mask = _k2_case(cuda_device, b_, nh, n, hd, nw, dtype)
+                                                        nw, dtype, offset, which):
+    q, k, v, tau, bias, mask = _k2_case(cuda_device, b_, nh, n, hd, nw, dtype, offset)
     f32 = [q.float(), k.float(), v.float(), tau, bias, mask]
     ref = k2.swin_window_attention_reference(*f32)
-    before = k2.LAUNCHES["swin_window_attention"]
+    assert k2.instance(q, k, v) == which
+    before = dict(k2.LAUNCHES)
     got = k2.swin_window_attention(q, k, v, tau, bias, mask)
     torch.cuda.synchronize()
-    assert k2.LAUNCHES["swin_window_attention"] - before == 1
+    assert k2.LAUNCHES["swin_window_attention"] - before["swin_window_attention"] == 1
+    key = f"swin_window_attention_{which}"
+    assert k2.LAUNCHES[key] - before[key] == 1
     assert got.dtype == dtype and got.shape == (b_, nh, n, hd)
     assert got.transpose(1, 2).is_contiguous()              # token-major for the projection
     assert _k6_reading(got, ref) <= K2_SHARE
+    assert torch.equal(got, k2.swin_window_attention(q, k, v, tau, bias, mask))
     for name, out in _k2_faults(monkeypatch, *f32).items():
         assert _k6_reading(out, ref) > K2_SHARE, name
+    if which == "mma":
+        for name, out in _k2_design_faults(q, k, v, tau, bias, mask).items():
+            assert _k6_reading(out, ref) > K2_SHARE, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_,nh,n,hd,nw", sorted({c[:5] for c in K2_CASES if c[7] == "mma"})
+                         + [(64, 3, 49, 32, 64), (2, 24, 64, 32, 1), (5, 7, 49, 16, 5)])
+def test_window_attention_plan_matches_source(cuda_device, b_, nh, n, hd, nw):
+    """plan()'s numbers against the built source's (window_attention_geometry)
+    at every windows a block it considers."""
+    p = k2.plan(b_, nh, n, hd, nw)
+    for wpb in range(1, k2.MAX_WINDOWS_PER_BLOCK + 1):
+        want = k2.layout(b_, nh, hd, nw, wpb)
+        got = k2.source_geometry(b_, nh, hd, nw, nw > 1, wpb)
+        assert got == (want.grid, want.threads, want.smem, want.per_group, want.chunks), wpb
+    assert p.smem * 3 <= 232448
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wpb", [1, 2, 3, 8])
+def test_window_attention_any_windows_a_block(cuda_device, monkeypatch, wpb):
+    """The mma instance launched at windows a block other than the plan's
+    (the source's entry, as the probe's sweep launches it), ragged last
+    blocks included, agrees with the plain version."""
+    for b_, nh, n, hd, nw in ((40, 3, 49, 32, 4), (13, 2, 64, 32, 1)):
+        q, k, v, tau, bias, mask = _k2_case(cuda_device, b_, nh, n, hd, nw)
+        ref = k2.swin_window_attention_reference(q.float(), k.float(), v.float(), tau, bias, mask)
+        dims = k2._check_kernel_args(q, k, v, tau, bias, mask)
+        assert k2.instance(q, k, v) == "mma"
+        got = k2._run("window_attention_mma", dims, q, k, v, tau, bias, mask, wpb)
+        assert _k6_reading(got, ref) <= K2_SHARE
 
 
 @pytest.mark.cuda
@@ -1001,9 +1053,10 @@ def test_swin_unet_v2_kernel_path_matches_plain_path(cuda_device, image, window)
     preds = [make_predictor(create_model("swin_unet_v2", dtype=torch.bfloat16, image_size=image,
                                          window_size=window, embed_dim=48, use_kernels=k),
                             None, "logits") for k in (None, False)]
-    before = k2.LAUNCHES["swin_window_attention"]
+    before = dict(k2.LAUNCHES)
     got = preds[0](x).float()
-    assert k2.LAUNCHES["swin_window_attention"] - before == 14
+    for key in ("swin_window_attention", "swin_window_attention_mma"):     # hd 16
+        assert k2.LAUNCHES[key] - before[key] == 14
     ref = preds[1](x).float()
     assert got.shape == (2, 1, image, image) and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= 3e-2
