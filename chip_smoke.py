@@ -102,15 +102,20 @@
    bound, its plain version and the bf16 module chain it replaces.
 13. Holds K3 (``depthwise_conv2d``) against its plain version at every
    distinct launch shape of ``unext`` and ``unext_s`` (B=8, 256px) and an odd
-   shape (odd H and W, C 20, k 5); each comparison is shown to reject planted
-   faults (the taps transposed, the halo read one pixel into the neighbouring
-   tile, the bias dropped).
+   shape (odd H and W, C 24), all on its stream instance, and at two odd
+   shapes of its general instance (C 20, k 5; float32), each launched twice
+   bit for bit; each comparison is shown to reject planted faults (the taps
+   transposed, the halo read one pixel into the neighbouring tile or band,
+   the bias dropped, and on the stream instance the source's own: a band's
+   halo rows from the neighbouring band, a stale ring slot).
 14. Serves ``unext`` and ``unext_s`` (registry defaults, bf16, B=8, 256px) on
-   both paths: K3 must run 13 and 6 times per forward, by the launch counter
-   and by the profiler; every K3 launch of the served forward is held against
-   its plain version on the model's own operands; times both paths and K3 at
-   every launch shape against its bound, its plain version, the bf16 module
-   chain it replaces and cuDNN's depthwise conv.
+   both paths: K3 must run 13 and 6 times per forward on its stream
+   instance, by the launch counters and by the profiler; every K3 launch of
+   the served forward is held against its plain version on the model's own
+   operands; times both paths and K3 at every launch shape (by CUDA graph,
+   by events and the wrapper's host time a call) against its bound, its
+   plain version, the bf16 module chain it replaces and cuDNN's depthwise
+   conv.
 15. Holds K8 (``deform_conv2d``) against its plain version at both ``wranet``
    launch shapes, an odd shape (C 40, O 24), C not a multiple of 8, O 128, a
    7x7 kernel, stride 2 and dilation 2, each with offsets of std 0, 1, 3 and
@@ -2219,16 +2224,18 @@ def k3_work(b, h, w, c, k=3):
     return 2 * k * k * b * h * w * c, 2 * (2 * b * h * w * c + k * k * c + c)
 
 
-def k3_case(torch, gen, b, h, w, c, k, device):
-    """bf16 K3 operands: x, a [k, k, C] kernel of O(1 / k) taps, a bias."""
+def k3_case(torch, gen, b, h, w, c, k, device, dtype=None):
+    """K3 operands (bf16 unless ``dtype``): x, a [k, k, C] kernel of O(1 / k)
+    taps, a bias."""
+    dtype = torch.bfloat16 if dtype is None else dtype
     r = lambda *s: torch.randn(*s, generator=gen, device=device)
-    return (r(b, h, w, c).to(torch.bfloat16), (r(k, k, c) / k).to(torch.bfloat16),
-            r(c).to(torch.bfloat16))
+    return r(b, h, w, c).to(dtype), (r(k, k, c) / k).to(dtype), r(c).to(dtype)
 
 
 def k3_halo_displaced(torch, x, kern, bias, th=8, tw=16):
-    """K3's plain version as a kernel whose tiles (th x tw, csrc/depthwise.cu)
-    read their halo one pixel further into the neighbouring tile's interior."""
+    """K3's plain version as a kernel whose tiles (th x tw: the general
+    instance's 8 x 16, or the stream instance's bands and strips) read their
+    halo one pixel further into the neighbouring tile's interior."""
     b, h, w, c = x.shape
     k = kern.shape[0]
     p = (k - 1) // 2
@@ -2251,37 +2258,74 @@ def k3_halo_displaced(torch, x, kern, bias, th=8, tw=16):
     return (acc + bias.float()).to(x.dtype)
 
 
+def k3_fault_layout(k3, x):
+    """The stream layout the planted faults run on: plan()'s, with bands of
+    half the image where the plan has one band, so that a band has a
+    neighbour to read its halo from."""
+    b, h, w, c = x.shape
+    p = k3.plan(b, h, w, c)
+    return p if p.bands > 1 else k3.layout(b, h, w, c, p.lcv, max(1, h // 2), p.ring)
+
+
 def check_k3(torch, gen, device):
-    """K3 against its plain version (the same bf16 operands) at every distinct
+    """K3 against its plain version (the same operands) at every distinct
     launch shape of unext and unext_s at B=8/256px and an odd shape (odd H
-    and W, C 20, k 5), each beside planted faults that the same comparison
-    must reject: the taps transposed, the halo read one pixel into the
-    neighbouring tile, the bias dropped. Returns the max abs error."""
+    and W, C 24), all on the stream instance, and on the general instance at
+    odd shapes (C 20, k 5; float32, C 37), each beside planted faults that
+    the same comparison must reject: the taps transposed, the halo read one
+    pixel into the neighbouring tile (the instance's own geometry: the
+    stream instance's bands and strips, the general one's 8 x 16 tiles), the
+    bias dropped, and on the stream instance the source's design faults (a
+    band's halo rows from the neighbouring band, each row from the ring slot
+    of the row before it). Every case runs twice, bit for bit. Returns the
+    max abs error."""
     from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
 
-    cases = sorted({(*row[:4], 3) for name in UNEXT_CONFIGS for row in unext_launch_shapes(name)})
-    cases.append((2, 37, 45, 20, 5))
+    cases = sorted({(*row[:4], 3, "stream") for name in UNEXT_CONFIGS
+                    for row in unext_launch_shapes(name)})
+    cases += [(2, 37, 45, 24, 3, "stream"), (2, 37, 45, 20, 5, "general"),
+              (1, 9, 7, 37, 3, "general f32")]
     err = 0.0
-    for b, h, w, c, k in cases:
-        x, kern, bias = k3_case(torch, gen, b, h, w, c, k, device)
+    for b, h, w, c, k, which in cases:
+        dtype = torch.float32 if which.endswith("f32") else torch.bfloat16
+        x, kern, bias = k3_case(torch, gen, b, h, w, c, k, device, dtype)
+        assert k3.instance(x, kern) == which.split()[0]
+        before = dict(k3.LAUNCHES)
         got = k3.depthwise_conv2d(x, kern, bias)
+        key = f"depthwise_conv2d_{which.split()[0]}"
+        if k3.LAUNCHES[key] - before[key] != 1:
+            raise AssertionError(f"K3 [{b}, {h}, {w}, {c}] did not run the {which} instance")
         ref = k3.depthwise_conv2d_reference(x, kern, bias)
-        faults = {"taps transposed": k3.depthwise_conv2d_reference(
-                      x, kern.transpose(0, 1).contiguous(), bias),
-                  "halo from the neighbour's interior": k3_halo_displaced(torch, x, kern, bias),
-                  "bias dropped": k3.depthwise_conv2d_reference(x, kern)}
-        caught = {name: ulp_reading(got, out) for name, out in faults.items()}
+        if which == "stream":
+            p = k3_fault_layout(k3, x)
+            faults = {name: k3.planted_fault(name, x, kern, bias, p) for name in k3.FAULTS}
+            faults["halo from the neighbour's interior"] = k3_halo_displaced(
+                torch, x, kern, bias, p.bh, p.tw)
+            geometry = (f"plan bands of {k3.plan(b, h, w, c).bh} rows, strips of "
+                        f"{p.tw}, chunks of {8 * p.cv}, ring {p.ring}")
+        else:
+            faults = {"halo from the neighbour's interior": k3_halo_displaced(
+                torch, x, kern, bias)}
+            geometry = "8 x 16 tiles"
+        faults["taps transposed"] = k3.depthwise_conv2d_reference(
+            x, kern.transpose(0, 1).contiguous(), bias)
+        faults["bias dropped"] = k3.depthwise_conv2d_reference(x, kern)
+        caught = {name: ulp_reading(out, ref) for name, out in faults.items()}
+        again = k3.depthwise_conv2d(x, kern, bias)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and torch.isfinite(got.float()).all()
         reading = ulp_reading(got, ref)
         e = (got.float() - ref.float()).abs().max().item()
-        log(f"K3 [{b}, {h}, {w}, {c}] k={k}: max_abs_err {e:.3e}; beyond one bf16 ulp "
-            f"{reading:.3e} of the output rms (limit {K3_SHARE:.0e}); least planted fault "
-            f"{min(caught.values()):.3e} ({min(caught, key=caught.get)})")
+        log(f"K3 [{b}, {h}, {w}, {c}] k={k} {which} instance ({geometry}): max_abs_err "
+            f"{e:.3e}; beyond one bf16 ulp {reading:.3e} of the output rms (limit "
+            f"{K3_SHARE:.0e}); least planted fault {min(caught.values()):.3e} "
+            f"({min(caught, key=caught.get)}); twice bit for bit {torch.equal(got, again)}")
         if not reading <= K3_SHARE:
             raise AssertionError(f"K3 disagrees with its plain version: {reading}")
         if not min(caught.values()) > K3_SHARE:
             raise AssertionError(f"the K3 comparison passed a planted fault: {caught}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 [{b}, {h}, {w}, {c}] differs between two launches")
         err = max(err, e)
     return err
 
@@ -2314,11 +2358,14 @@ def serve_unext(torch, gen, device, name):
 
     want = UNEXT_LAUNCHES[name]
     preds, x, launches, agreement, _ = serve_both_paths(
-        torch, gen, device, name, SERVE_BATCH, IMAGE, [(k3, "depthwise_conv2d")],
+        torch, gen, device, name, SERVE_BATCH, IMAGE,
+        [(k3, "depthwise_conv2d"), (k3, "depthwise_conv2d_stream")],
         UNEXT_REL_L2, UNEXT_AGREE, UNEXT_F32_RATIO)
+    stream = launches["depthwise_conv2d_stream"]
     launches = launches["depthwise_conv2d"]
-    if launches != want:
-        raise AssertionError(f"K3 ran {launches} times in {name}, expected {want}")
+    if launches != want or stream != want:
+        raise AssertionError(f"K3 ran {launches} times in {name}, {stream} on the stream "
+                             f"instance, expected {want}")
     _, readings = checked_launches(torch, k3, "depthwise_conv2d",
                                    k3.depthwise_conv2d_reference, lambda: preds["kernel"](x))
     log(f"{name}: its {len(readings)} K3 launches against the plain version on the model's "
@@ -2326,12 +2373,13 @@ def serve_unext(torch, gen, device, name):
     if len(readings) != want or not max(readings) <= K3_SHARE:
         raise AssertionError(f"{name}: K3 disagrees with its plain version in the served model")
     events = profile_forward(torch, lambda: preds["kernel"](x))
-    seen = sum("depthwise_kernel" in e.name for e in events)
-    log(f"profiler: {seen} depthwise_kernel grids in one {name} forward")
+    seen = sum("depthwise_stream_kernel" in e.name for e in events)
+    log(f"profiler: {seen} depthwise_stream_kernel grids in one {name} forward")
     if seen != want:
         raise AssertionError(f"profiler saw K3 {seen} times in {name}, expected {want}")
     rates, med, busy = time_paths(torch, name, preds, x, profile=True)
-    return dict(launches=launches, profiler_grids=seen, launch_reading_max=max(readings),
+    return dict(launches=launches, stream_launches=stream, profiler_grids=seen,
+                launch_reading_max=max(readings),
                 serve_img_per_s=rates, forward_ms=med, device_busy_ms=busy, **agreement)
 
 
@@ -2341,11 +2389,14 @@ def time_k3(torch, gen, device, name):
     version, bound, the bf16 module chain it replaces (``DWConv``'s module
     path on the same [B, H, W, C] tokens) and cuDNN's depthwise conv
     (``F.conv2d(groups=C)`` on the channels_last view: library_ms, used
-    nowhere in the port)."""
+    nowhere in the port); beside them the kernel by CUDA events around 20
+    back-to-back calls (``events_ms``) and the wrapper's host time a call
+    (``host_us``: the wall time to issue 20 calls, median of 5)."""
     import torch.nn.functional as F
 
     from unet_zoo_tpu_torch.nn.transformer import DWConv
     from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
+    from unet_zoo_tpu_torch.probes.window_grids import host_us
 
     rows = []
     for b, h, w, c, n in unext_launch_shapes(name):
@@ -2357,15 +2408,19 @@ def time_k3(torch, gen, device, name):
         weight, bias_l, xc = dw.dwconv.weight.to(torch.bfloat16), bias, x.permute(0, 3, 1, 2)
         with torch.inference_mode():
             ms = graph_ms(torch, lambda: k3.depthwise_conv2d(x, kern, bias), 20)
+            events_ms = cuda_ms(torch, lambda: k3.depthwise_conv2d(x, kern, bias), 20)
+            host = host_us(lambda: k3.depthwise_conv2d(x, kern, bias), 20)
             plain_ms = graph_ms(torch, lambda: k3.depthwise_conv2d_reference(x, kern, bias), 5)
             chain_ms = graph_ms(torch, lambda: dw(x), 20)
             lib_ms = graph_ms(torch, lambda: F.conv2d(xc, weight, bias_l, padding=1, groups=c), 20)
         f32, nbytes = k3_work(b, h, w, c)
         bound_ms, bound_by = bound(0, nbytes, f32)
         rows.append(dict(model=name, b=b, h=h, w=w, c=c, launches=n, f32_ops=f32, bytes=nbytes,
-                         ms=ms, plain_ms=plain_ms, module_chain_ms=chain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        log(f"K3 {name} [{b}, {h}, {w}, {c}] x{n}: {ms:.4f} ms, plain {plain_ms:.4f} ms, module "
+                         ms=ms, events_ms=events_ms, host_us=host, plain_ms=plain_ms,
+                         module_chain_ms=chain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, plan=k3.plan(b, h, w, c)._asdict()))
+        log(f"K3 {name} [{b}, {h}, {w}, {c}] x{n}: {ms:.4f} ms by graph, {events_ms:.4f} ms by "
+            f"events, host {host:.1f} us a call, plain {plain_ms:.4f} ms, module "
             f"chain {chain_ms:.4f} ms, cuDNN depthwise {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {nbytes / ms / 1e6:.1f} GB/s)")
     return rows
@@ -3406,6 +3461,8 @@ def main() -> int:
     for name, rows in k3_rows.items():
         b = bound(0, per_forward(rows, "bytes"), per_forward(rows, "f32_ops"))
         k3_per_config[name] = dict(launches=unext[name]["launches"], ms=per_forward(rows, "ms"),
+                                   events_ms=per_forward(rows, "events_ms"),
+                                   host_us=per_forward(rows, "host_us"),
                                    plain_ms=per_forward(rows, "plain_ms"),
                                    module_chain_ms=per_forward(rows, "module_chain_ms"),
                                    library_ms=per_forward(rows, "library_ms"),
@@ -3551,6 +3608,7 @@ def main() -> int:
         "launches": unext["unext"]["launches"],
         "max_abs_err": k3_err,
         "ms": k3_per_config["unext"]["ms"],
+        "events_ms": k3_per_config["unext"]["events_ms"],
         "plain_ms": k3_per_config["unext"]["plain_ms"],
         "bound_ms": k3_per_config["unext"]["bound_ms"],
         "bound_by": k3_per_config["unext"]["bound_by"],

@@ -1073,30 +1073,115 @@ def _ulp_reading(got, ref):
     return (excess.max() / ref.float().pow(2).mean().sqrt()).item()
 
 
+# K3's cases: the six served launch shapes of unext / unext_s (B=8, 256px)
+# and odd shapes on the stream instance; float32, k 5 and 7, C 20 and a
+# misaligned x on the general one: (B, H, W, C, k, dtype, storage offset,
+# instance)
+K3_CASES = [(8, hw, hw, c, 3, torch.bfloat16, 0, "stream")
+            for hw, c in ((64, 512), (32, 640), (16, 1024), (64, 256), (32, 512), (16, 640))] + [
+    (2, 13, 21, 24, 3, torch.bfloat16, 0, "stream"),    # odd H, W
+    (1, 5, 6, 520, 3, torch.bfloat16, 0, "stream"),     # C 520: a partial last chunk
+    (3, 9, 7, 8, 3, torch.bfloat16, 0, "stream"),       # C 8
+    (1, 70, 3, 40, 3, torch.bfloat16, 0, "stream"),     # tall, narrow
+    (2, 13, 21, 20, 5, torch.bfloat16, 0, "general"),   # odd H, W; C not a multiple of 8; k 5
+    (1, 15, 15, 6, 7, torch.bfloat16, 0, "general"),    # k 7
+    (1, 9, 7, 37, 3, torch.float32, 0, "general"),      # odd C, float32
+    (2, 11, 9, 16, 5, torch.float32, 0, "general"),     # float32, k 5
+    (1, 12, 10, 24, 7, torch.float32, 0, "general"),    # float32, k 7
+    (2, 10, 12, 20, 3, torch.bfloat16, 0, "general"),   # C 20 at k 3
+    (2, 10, 12, 16, 3, torch.bfloat16, 4, "general"),   # x 8 bytes off 16
+]
+
+
+def _k3_case(device, b, h, w, c, k, dtype, offset=0, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed + b + h + c + k)
+    r = lambda *s: torch.randn(*s, generator=gen, device=device).to(dtype)
+    n = b * h * w * c
+    x = torch.empty(n + offset, device=device, dtype=dtype)[offset:].view(b, h, w, c)
+    x.copy_(r(b, h, w, c))
+    return x, r(k, k, c) / k, r(c)
+
+
+def _k3_faults(x, kern, bias):
+    """K3's plain version with a fault planted each: the taps transposed,
+    the bias dropped."""
+    return {"taps transposed": k3.depthwise_conv2d_reference(
+                x, kern.transpose(0, 1).contiguous(), bias),
+            "bias dropped": k3.depthwise_conv2d_reference(x, kern)}
+
+
+def _k3_design_faults(x, kern, bias):
+    """The stream instance's own planted faults (the source's
+    ``depthwise_stream_fault``), on plan()'s layout with bands of at most
+    half the image, so that a band has a neighbour."""
+    b, h, w, c = x.shape
+    p = k3.plan(b, h, w, c)
+    if p.bands == 1:
+        p = k3.layout(b, h, w, c, p.lcv, max(1, h // 2), p.ring)
+    return {f: k3.planted_fault(f, x, kern, bias, p) for f in k3.FAULTS}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w,c,k,dtype", [
-    (8, 64, 64, 512, 3, torch.bfloat16),      # unext stage 1 at 256px (B=8)
-    (8, 16, 16, 1024, 3, torch.bfloat16),     # unext stage 3
-    (2, 13, 21, 20, 5, torch.bfloat16),       # odd H, W; C not a multiple of 8; k 5
-    (1, 15, 15, 6, 7, torch.bfloat16),        # k 7
-    (1, 9, 7, 37, 3, torch.float32),          # odd C, float32
-])
-def test_depthwise_kernel_matches_reference(cuda_device, b, h, w, c, k, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(b + h + c + k)
-    r = lambda *s: torch.randn(*s, generator=gen, device=cuda_device).to(dtype)
-    x, kern, bias = r(b, h, w, c), r(k, k, c) / k, r(c)
+@pytest.mark.parametrize("b,h,w,c,k,dtype,offset,which", K3_CASES)
+def test_depthwise_kernel_matches_reference(cuda_device, b, h, w, c, k, dtype, offset, which):
+    x, kern, bias = _k3_case(cuda_device, b, h, w, c, k, dtype, offset)
     ref = k3.depthwise_conv2d_reference(x, kern, bias)
-    before = k3.LAUNCHES["depthwise_conv2d"]
+    assert k3.instance(x, kern) == which
+    before = dict(k3.LAUNCHES)
     got = k3.depthwise_conv2d(x, kern, bias)
     torch.cuda.synchronize()
-    assert k3.LAUNCHES["depthwise_conv2d"] - before == 1
+    assert k3.LAUNCHES["depthwise_conv2d"] - before["depthwise_conv2d"] == 1
+    key = f"depthwise_conv2d_{which}"
+    assert k3.LAUNCHES[key] - before[key] == 1
     assert got.dtype == dtype and got.shape == x.shape
     assert _ulp_reading(got, ref) <= K3_SHARE
+    assert torch.equal(got, k3.depthwise_conv2d(x, kern, bias))
     assert _ulp_reading(k3.depthwise_conv2d(x, kern), k3.depthwise_conv2d_reference(x, kern)
                         ) <= K3_SHARE
-    for fault in (k3.depthwise_conv2d_reference(x, kern.transpose(0, 1).contiguous(), bias),
-                  k3.depthwise_conv2d_reference(x, kern)):
-        assert _ulp_reading(got, fault) > K3_SHARE
+    for name, fault in _k3_faults(x, kern, bias).items():
+        assert _ulp_reading(got, fault) > K3_SHARE, name
+    if which == "stream":
+        for name, fault in _k3_design_faults(x, kern, bias).items():
+            assert _ulp_reading(fault, ref) > K3_SHARE, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c", sorted({c[:4] for c in K3_CASES if c[7] == "stream"})
+                         + [(1, 16, 16, 640), (1, 64, 64, 256), (4, 32, 32, 512)])
+def test_depthwise_plan_matches_source(cuda_device, b, h, w, c):
+    """plan()'s numbers against the built source's (depthwise_geometry) at
+    every chunk width, ring and a few band heights, and the blocks an SM the
+    plan counts on against the CUDA runtime's occupancy of the instance."""
+    p = k3.plan(b, h, w, c)
+    for lcv in k3.LCVS:
+        for ring in k3.RINGS:
+            for bh in sorted({1, max(1, h // 3), p.bh, h}):
+                want = k3.layout(b, h, w, c, lcv, bh, ring)
+                got = k3.source_geometry(b, h, w, c, lcv, bh, ring, want.per_chunk)
+                assert got == (want.grid, want.threads, want.smem, want.strips, want.bands,
+                               want.chunks, want.items), (lcv, ring, bh)
+    assert k3.source_occupancy(p.ring, p.smem) >= k3.BLOCKS_PER_SM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,c,lcv,bh,ring,per_chunk", [
+    (2, 12, 40, 32, 2, 5, 3, 3),         # several items a block, a partial last band
+    (2, 11, 17, 64, 3, 4, 4, 2),         # partial strip, ring 4
+    (1, 10, 9, 136, 4, 3, 6, 1),         # chunks of 16 vectors, C past the last chunk
+    (3, 7, 33, 16, 2, 2, 6, 5),          # two-row bands
+    (8, 64, 64, 512, 2, 8, 6, 16),       # a served shape streamed as a persistent grid
+    (8, 16, 16, 1024, 3, 16, 3, 8),      # whole-image bands
+])
+def test_depthwise_stream_any_layout(cuda_device, b, h, w, c, lcv, bh, ring, per_chunk):
+    """The stream instance laid out otherwise than by plan() (the source's
+    entry, as the probe's sweep launches it) agrees with the plain version,
+    twice bit for bit."""
+    x, kern, bias = _k3_case(cuda_device, b, h, w, c, 3, torch.bfloat16)
+    p = k3.layout(b, h, w, c, lcv, bh, ring, per_chunk)
+    got = k3.run_stream(x, kern, bias, p)
+    torch.cuda.synchronize()
+    assert _ulp_reading(got, k3.depthwise_conv2d_reference(x, kern, bias)) <= K3_SHARE
+    assert torch.equal(got, k3.run_stream(x, kern, bias, p))
 
 
 @pytest.mark.cuda
@@ -1113,6 +1198,24 @@ def test_depthwise_outside_kernel_shapes_raises(cuda_device):
     assert k3.LAUNCHES["depthwise_conv2d"] == before
 
 
+@pytest.mark.cuda
+def test_depthwise_refused_stream_launch_raises(cuda_device, monkeypatch):
+    """A stream launch that the source refuses (a ring it has no instance
+    for) raises, from the wrapper and from a served unext_s forward; nothing
+    runs the general instance or the plain version instead."""
+    x, kern, bias = _k3_case(cuda_device, 2, 16, 16, 64, 3, torch.bfloat16)
+    ints = list(k3._served_ints(2, 16, 16, 64))
+    ints[6] = 5                                   # ring 5: no such instance
+    monkeypatch.setattr(k3, "_served_ints", lambda *shape: (*shape, *ints[4:]))
+    before = dict(k3.LAUNCHES)
+    with pytest.raises(RuntimeError, match="depthwise_stream launch failed"):
+        k3.depthwise_conv2d(x, kern, bias)
+    pred = make_predictor(create_model("unext_s", dtype=torch.bfloat16), None, "logits")
+    with pytest.raises(RuntimeError, match="depthwise_stream launch failed"):
+        pred(torch.randn(1, 3, 64, 64, device=cuda_device))
+    assert k3.LAUNCHES == before
+
+
 # unext / wranet, kernel path vs plain path (bf16 logits, relative L2), the
 # limits chip_smoke.py holds the full-width forwards to
 UNEXT_REL_L2, WRANET_REL_L2 = 1e-2, 3e-2
@@ -1124,9 +1227,10 @@ def test_unext_kernel_path_matches_plain_path(cuda_device, name, launches):
     x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)).to(cuda_device)
     preds = [make_predictor(create_model(name, dtype=torch.bfloat16, use_kernels=k), None,
                             "logits") for k in (None, False)]
-    before = k3.LAUNCHES["depthwise_conv2d"]
+    before = dict(k3.LAUNCHES)
     got = preds[0](x).float()
-    assert k3.LAUNCHES["depthwise_conv2d"] - before == launches
+    for key in ("depthwise_conv2d", "depthwise_conv2d_stream"):
+        assert k3.LAUNCHES[key] - before[key] == launches
     ref = preds[1](x).float()
     assert got.shape == (2, 1, 64, 64) and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= UNEXT_REL_L2
