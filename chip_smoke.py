@@ -159,7 +159,20 @@
    (``IGMMA`` and ``HGMMA`` in ``cuobjdump -sass``).
 20. P1's row gather at its probe's shape, bit for bit against
    ``index_select``, timed by CUDA graph replay against its bytes bound.
-21. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+21. Trains full-width ``unet`` (bf16 compute on float32 parameters, B=8,
+   256x256, uint8 blob images with on-device flips) through the training
+   loop (``train/loop.py::train_model``) for 2 epochs, then resumes from the
+   last checkpoint for a third: the restored weights, AdamW state, step,
+   learning rate, scheduler and early stopping must equal what was saved,
+   bit for bit; every validation batch must run K1 on all four decoder
+   stages (by counter and by profiler); each epoch's validation through K1
+   must agree with the same validation on the plain module path; the train
+   loss must fall from epoch 1 to 3; the best and last checkpoints must
+   exist; ``evaluate_model`` runs on the best. ``gated`` trains one epoch of
+   4 steps through the same loop: K7 in every step, K6 in every validation
+   batch, both counted. Logs train and validation img/s, epoch seconds and
+   peak memory.
+22. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Steps 17-20 run right after step 4.
@@ -375,6 +388,18 @@ INT8_FLOAT_REL_L2, INT8_FLOAT_AGREE = 0.10, 0.95
 GEMM_SIZE = 4096
 GEMM_TILE = (128, 256)
 GATHER_ROWS, GATHER_C, GATHER_N = 4096, 128, 4096
+# the training loop (train/loop.py::train_model) at full width: unet in bf16
+# on float32 parameters at B=8/256px over uint8 blob images (LOOP_TRAIN train,
+# LOOP_VALID valid) with on-device flips, 2 epochs, then resumed for a third;
+# gated for LOOP_GATED_STEPS steps. The default training config's schedule
+# but for the patiences (1 and 2, so that a short run moves them) and the rate.
+LOOP_TRAIN, LOOP_VALID, LOOP_GATED_STEPS = 64, 16, 4
+LOOP_TRAINING = {"batch_size": SERVE_BATCH, "learning_rate": 1e-3, "early_stopping_patience": 2,
+                 "lr_scheduler_patience": 1, "lr_scheduler_factor": 0.2, "min_lr": 1e-7,
+                 "num_classes": 1, "seed": 0}
+# each epoch's validation through K1 against the same validation on the plain
+# module path, same weights and batches: loss relative, Dice absolute
+LOOP_VAL_REL, LOOP_DICE_ABS = 1e-2, 1e-2
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -3183,6 +3208,265 @@ def check_k1(torch, gen, device):
     return err
 
 
+class ArrayDataset:
+    """In-memory items in the BoneDataset layout: uint8 HWC images, {0, 1}
+    uint8 HW1 masks."""
+
+    def __init__(self, images, masks):
+        self.images, self.masks = images, masks
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return self.images[i], self.masks[i], f"smoke://{i}"
+
+
+def blob_data(seed, n, size):
+    """n uint8 images of noise brightened inside a circular blob, and the
+    blobs as masks, made in bulk from ``seed`` (SyntheticDataset's recipe
+    in uint8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cy, cx = rng.integers(size // 4, 3 * size // 4, size=(2, n, 1, 1))
+    r = rng.integers(size // 8, size // 4, size=(n, 1, 1))
+    yy, xx = np.mgrid[:size, :size]
+    masks = ((yy - cy) ** 2 + (xx - cx) ** 2 < r * r).astype(np.uint8)
+    noise = rng.standard_normal((n, size, size, 3), dtype=np.float32)
+    images = np.clip(96 + 32 * noise + 64 * masks[..., None], 0, 255).astype(np.uint8)
+    return images, masks[..., None]
+
+
+def loop_config(root, epochs):
+    """The loop's config: LOOP_TRAINING for ``epochs``, flips on the device."""
+    from unet_zoo_tpu_torch.config import Config
+
+    return Config({"general": {"project_name": "chip_smoke", "working_dir": root},
+                   "data": {"dataset_dir": "in memory", "num_workers": 0, "image_size": IMAGE,
+                            "augment": True, "augment_on_device": True},
+                   "training": dict(LOOP_TRAINING, epochs=epochs),
+                   "tpu": {"compute_dtype": "bfloat16"}, "run_timestamp": "smoke"})
+
+
+def same_tree(torch, a, b, where):
+    """Raise unless two nested containers of tensors and plain values are
+    equal, every tensor bit for bit (compared on the host)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())):
+            raise AssertionError(f"resume: {where} differs from what was saved")
+    elif isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"resume: {where} keys differ: {sorted(set(a) ^ set(b))}")
+        for k in a:
+            same_tree(torch, a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"resume: {where} lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(torch, x, y, f"{where}[{i}]")
+    elif a != b:
+        raise AssertionError(f"resume: {where} is {a!r}, saved {b!r}")
+
+
+def train_loop(torch, device):
+    """Phase 21: full-width bf16 unet through train_model (2 epochs, then a
+    resume for a third) and evaluate_model on the best checkpoint; gated
+    through train_model for one epoch. Returns the readings."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.data import create_loader
+    from unet_zoo_tpu_torch.ops.kernels import axial_attention as k6
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+    from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
+    from unet_zoo_tpu_torch.train import create_train_state, make_eval_step
+    from unet_zoo_tpu_torch.train.early_stopping import EarlyStopping
+    from unet_zoo_tpu_torch.train.loop import (evaluate_model, restore_checkpoint, train_model,
+                                               validate_one_epoch)
+    from unet_zoo_tpu_torch.train.lr_scheduler import DiceScheduler
+    from unet_zoo_tpu_torch.utils.checkpoint import checkpoint_exists, load_checkpoint
+    from unet_zoo_tpu_torch.utils.logger import Logger
+
+    t0 = time.perf_counter()
+    images, masks = blob_data(zlib.crc32(b"train_loop"), LOOP_TRAIN + LOOP_VALID, IMAGE)
+    train_set = ArrayDataset(images[:LOOP_TRAIN], masks[:LOOP_TRAIN])
+    valid_set = ArrayDataset(images[LOOP_TRAIN:], masks[LOOP_TRAIN:])
+    loader = lambda ds, shuffle: create_loader(ds, SERVE_BATCH, shuffle=shuffle, drop_last=shuffle,
+                                               num_workers=0, pin_memory=True)
+    train_loader, val_loader = loader(train_set, True), loader(valid_set, False)
+    val_batches = len(val_loader)
+    bf16 = torch.bfloat16
+    plain = create_model("unet", dtype=bf16, seed=0, use_kernels=False)
+    plain_eval = make_eval_step(plain)
+    epochs = []
+
+    class EpochLog(Logger):
+        """The loop's logger; at each epoch block (after that epoch's
+        validation, with the weights it validated) it reads the block and
+        runs the same validation on the plain module path."""
+
+        def __init__(self, model):
+            super().__init__(None)
+            self.model, self.mark = model, time.perf_counter()
+
+        def log_both(self, message):
+            super().log_both(message)
+            if " - Epoch " not in message:
+                return
+            t_epoch = time.perf_counter() - self.mark
+            n = k1.LAUNCHES["fused_up_concat_conv"]
+            plain.module.load_state_dict(self.model.module.state_dict())
+            loss, dice = validate_one_epoch(plain_eval, None, val_loader, "unet plain", self, device)
+            if k1.LAUNCHES["fused_up_concat_conv"] != n:
+                raise AssertionError("the plain module path launched K1")
+            read = lambda key: float(re.search(key + r":\s+([-\d.e+]+)", message).group(1))
+            epochs.append(dict(epoch=int(re.search(r"Epoch (\d+)/", message).group(1)),
+                               train_loss=read("Train Loss"), val_loss=read("Val Loss"),
+                               val_dice=read("Val DICE"), lr=read("Learning Rate"),
+                               train_img_per_s=read("Train throughput"), epoch_s=t_epoch,
+                               plain_val_loss=loss, plain_val_dice=dice))
+            self.mark = time.perf_counter()
+
+    root = tempfile.mkdtemp(prefix="_scratch_loop_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        best, last = os.path.join(root, "unet_best"), os.path.join(root, "unet_last")
+        kern = create_model("unet", dtype=bf16, seed=0)
+        state = create_train_state(kern, LOOP_TRAINING["learning_rate"])
+        runs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for n_epochs, resume in ((2, False), (3, True)):
+            if resume:
+                # the live state at the end of the first run, as saved
+                saved = load_checkpoint(last)
+                same_tree(torch, dict(kern.module.state_dict()), saved["variables"], "state_dict")
+                same_tree(torch, state.optimizer.adamw.state_dict(), saved["opt_state"], "AdamW")
+                if saved["step"] != state.step or saved["meta"]["epoch"] != 2:
+                    raise AssertionError(f"resume: saved step {saved['step']}, epoch "
+                                         f"{saved['meta']['epoch']}; trained {state.step}, 2")
+                # a model of other weights, restored from the last checkpoint
+                kern = create_model("unet", dtype=bf16, seed=1)
+                state = create_train_state(kern, LOOP_TRAINING["learning_rate"])
+                sched = DiceScheduler(lr=1.0, verbose=False)
+                stop = EarlyStopping(verbose=False)
+                if restore_checkpoint(last, state, sched, stop) != 2:
+                    raise AssertionError("resume: the last checkpoint is not epoch 2's")
+                same_tree(torch, dict(kern.module.state_dict()), saved["variables"], "state_dict")
+                same_tree(torch, state.optimizer.adamw.state_dict(), saved["opt_state"], "AdamW")
+                same_tree(torch, [state.step, state.optimizer.lr, sched.state_dict(),
+                                  stop.state_dict()],
+                          [saved["step"], saved["scheduler"]["lr"], saved["scheduler"],
+                           saved["early_stopping"]], "step, lr, scheduler, early stopping")
+                log(f"resume: state_dict, AdamW state, step {state.step}, lr {state.optimizer.lr}, "
+                    f"scheduler and early stopping restored bit for bit as saved")
+            k1.LAUNCHES["fused_up_concat_conv"] = 0
+            logger = EpochLog(kern)
+            out = train_model(kern, train_loader, val_loader, loop_config(root, n_epochs), "unet",
+                              best, last, logger, state=state, resume=resume)
+            torch.cuda.synchronize()
+            runs.append(dict(epochs=len(out[0]), launches=k1.LAUNCHES["fused_up_concat_conv"],
+                             train_loss=out[0], val_loss=out[2], val_dice=out[3]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        returned = zip(*(sum((r[key] for r in runs), []) for key in
+                         ("train_loss", "val_loss", "val_dice")))
+        for e, (train_loss, val_loss, val_dice) in zip(epochs, returned):
+            e.update(train_loss=train_loss, val_loss=val_loss, val_dice=val_dice)
+        k1_launches = sum(r["launches"] for r in runs)
+        n_epochs = sum(r["epochs"] for r in runs)
+        log(f"main path: K1 launches {k1_launches} in {n_epochs} epochs of the unet loop "
+            f"({val_batches} validation batches an epoch)")
+        if [r["epochs"] for r in runs] != [2, 1] or len(epochs) != 3:
+            raise AssertionError(f"the loop ran {[r['epochs'] for r in runs]} epochs, expected 2 and 1")
+        for r in runs:
+            if r["launches"] != len(STAGES) * val_batches * r["epochs"]:
+                raise AssertionError(f"K1 ran {r['launches']} times in {r['epochs']} epochs, "
+                                     f"expected {len(STAGES)} a validation batch")
+        for e in epochs:
+            rel = abs(e["val_loss"] - e["plain_val_loss"]) / abs(e["plain_val_loss"])
+            dd = abs(e["val_dice"] - e["plain_val_dice"])
+            log(f"loop unet epoch {e['epoch']}: train {e['train_img_per_s']:.1f} img/s (loader + "
+                f"step), epoch {e['epoch_s']:.2f} s, train loss {e['train_loss']:.6f}, val loss "
+                f"{e['val_loss']:.6f} through K1 / {e['plain_val_loss']:.6f} plain (rel "
+                f"{rel:.2e} <= {LOOP_VAL_REL:.0e}), Dice {e['val_dice']:.6f} / "
+                f"{e['plain_val_dice']:.6f} (diff {dd:.2e} <= {LOOP_DICE_ABS:.0e}), lr {e['lr']:.2e}")
+            if not (rel <= LOOP_VAL_REL and dd <= LOOP_DICE_ABS):
+                raise AssertionError(f"epoch {e['epoch']}: validation through K1 disagrees with "
+                                     "the plain module path")
+        if not epochs[2]["train_loss"] < epochs[0]["train_loss"]:
+            raise AssertionError("the train loss of epoch 3 is not below that of epoch 1")
+        if not (checkpoint_exists(best) and checkpoint_exists(last)):
+            raise AssertionError("the best or last checkpoint is missing")
+
+        # validation rate through K1 (the trained model), then its grids by profiler
+        eval_step = make_eval_step(kern)
+        validate_one_epoch(eval_step, None, val_loader, "unet", logger, device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        validate_one_epoch(eval_step, None, val_loader, "unet", logger, device)
+        torch.cuda.synchronize()
+        val_rate = LOOP_VALID / (time.perf_counter() - t)
+        grids = {g: sum(g in e.name for e in profile_forward(
+            torch, lambda: validate_one_epoch(eval_step, None, val_loader, "unet", logger, device)))
+            for g in ("fused_up_convt_kernel", "fused_up_conv3x3_kernel")}
+        log(f"profiler: {grids} K1 grids in one validation pass of {val_batches} batches; "
+            f"validation {val_rate:.1f} img/s; peak memory {peak:.2f} GiB")
+        if grids != dict.fromkeys(grids, len(STAGES) * val_batches):
+            raise AssertionError(f"profiler saw K1 grids {grids}, expected "
+                                 f"{len(STAGES) * val_batches} each")
+
+        restored = load_checkpoint(best)
+        test_loss, test_dice = evaluate_model(kern, restored["variables"], val_loader, "unet", logger)
+        if not (test_loss == test_loss and abs(test_loss) < float("inf") and 0 <= test_dice <= 1):
+            raise AssertionError(f"evaluate_model on the best checkpoint: {test_loss}, {test_dice}")
+        log(f"evaluate_model on the best checkpoint (epoch {restored['meta']['epoch']}): loss "
+            f"{test_loss:.6f}, Dice {test_dice:.6f}")
+        unet = dict(epochs=epochs, k1_launches=k1_launches, val_batches=val_batches,
+                    val_img_per_s=val_rate, peak_gib=peak, profiler_grids=grids,
+                    best_epoch=restored["meta"]["epoch"], test_loss=test_loss, test_dice=test_dice)
+        del kern, plain, state
+        torch.cuda.empty_cache()
+
+        # gated through the same loop: K7 in every step, K6 in every validation batch
+        steps = LOOP_GATED_STEPS
+        g_loader = loader(ArrayDataset(images[:steps * SERVE_BATCH], masks[:steps * SERVE_BATCH]), True)
+        gated = create_model("gated", dtype=bf16, seed=0, image_size=IMAGE)
+        for key in K7_GRIDS:
+            k7.LAUNCHES[key] = 0
+        k6.LAUNCHES["fused_axial_attention"] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = train_model(gated, g_loader, val_loader, loop_config(root, 1), "gated",
+                          os.path.join(root, "gated_best"), os.path.join(root, "gated_last"),
+                          Logger(None))
+        torch.cuda.synchronize()
+        g_seconds = time.perf_counter() - t
+        k7_loop = {key: k7.LAUNCHES[key] for key in K7_GRIDS}
+        k6_loop = k6.LAUNCHES["fused_axial_attention"]
+        passes = MEDT_LAUNCHES["gated"]
+        gated_run = dict(steps=steps, k7_launches=k7_loop, k6_launches=k6_loop, epoch_s=g_seconds,
+                         train_loss=out[0][0], val_loss=out[2][0], val_dice=out[3][0],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        log(f"main path: gated loop, one epoch of {steps} steps and {val_batches} validation "
+            f"batches: K7 {k7_loop}, K6 {k6_loop}; {g_seconds:.2f} s, peak memory "
+            f"{gated_run['peak_gib']:.2f} GiB")
+        if k7_loop != dict.fromkeys(K7_GRIDS, passes * steps) or k6_loop != passes * val_batches:
+            raise AssertionError(f"gated loop: K7 {k7_loop}, K6 {k6_loop}; expected "
+                                 f"{passes * steps} a grid and {passes * val_batches}")
+        del gated
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"training loop phase: {seconds:.1f} s")
+    return dict(unet=unet, gated=gated_run, seconds=seconds)
+
+
 def mma_counts(build, stem="int8_gemm"):
     """Counts of the int8 (IGMMA) and bf16 (HGMMA) wgmma instructions and of
     the mma.sync (HMMA) instructions in ``cuobjdump -sass`` of the built
@@ -3403,7 +3687,13 @@ def main() -> int:
     k8_err = check_k8(torch, seeded("check_k8"), device)
     wranet = serve_wranet(torch, seeded("serve_wranet"), device)
     k8_rows = time_k8(torch, seeded("time_k8"), device)
-    lap("wranet (K8)", t_phase)
+    torch.cuda.empty_cache()
+    t_phase = lap("wranet (K8)", t_phase)
+
+    # 21. the training loop: unet (K1 in every validation pass) and gated (K7
+    # in every step, K6 in every validation batch) through train_model
+    loop = train_loop(torch, device)
+    lap("training loop (K1, K6, K7)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -3506,6 +3796,8 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "cudnn_chain_ms": total("cudnn_chain_ms"),
+        "loop_launches": loop["unet"]["k1_launches"],
+        "training_loop": loop,
         "serve_img_per_s": rates,
         "stages": stages,
     }, {
@@ -3557,6 +3849,7 @@ def main() -> int:
         "bound_by": k6_bound[1],
         "library_ms": None,
         "module_chain_ms": per_forward(k6_rows, "module_chain_ms"),
+        "loop_launches": loop["gated"]["k6_launches"],
         "gated": gated,
         "others": others,
         "wopos": k6_wopos,
@@ -3578,6 +3871,7 @@ def main() -> int:
         "autograd_ms": per_forward(k7_rows, "autograd_ms"),
         "module_chain_ms": per_forward(k7_rows, "module_chain_ms"),
         "kernel_chain_ms": per_forward(k7_rows, "kernel_chain_ms"),
+        "loop_launches": sum(loop["gated"]["k7_launches"].values()),
         "readings_max": k7_worst,
         "gated_train": gated_train,
         "gated_grad_noise": noise,

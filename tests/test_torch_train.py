@@ -296,7 +296,7 @@ def test_eval_step_matches_jax(tiny_models):
     assert set(variables_of(state)) == set(variables)
 
 
-@pytest.mark.parametrize("flag", ["augment", "remat"])
+@pytest.mark.parametrize("flag", ["remat"])
 def test_train_step_options_not_ported_raise(tiny_models, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(tiny_models[1], **{flag: True})

@@ -1,10 +1,15 @@
-"""Input handling of the port (so far only the on-device batch preparation)."""
+"""Input pipeline of the port: paired image/mask datasets, the batching
+loader and device feeding, on-device flips and batch preparation."""
 
 from unet_zoo_tpu_torch.data.datasets import (
     IMAGENET_MEAN,
     IMAGENET_STD,
+    BoneDataset,
+    SyntheticDataset,
     prepare_images,
     prepare_masks,
 )
+from unet_zoo_tpu_torch.data.loader import DataLoader, create_loader, prefetch_to_device
 
-__all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "prepare_images", "prepare_masks"]
+__all__ = ["IMAGENET_MEAN", "IMAGENET_STD", "BoneDataset", "DataLoader", "SyntheticDataset",
+           "create_loader", "prefetch_to_device", "prepare_images", "prepare_masks"]

@@ -1,7 +1,8 @@
 """Segmentation metrics. Counterpart of ``unet_zoo_tpu/train/metrics.py:14-116``.
 
 ``dice_coefficient`` and ``iou_score`` stay on the device (no ``.item()``);
-``boundary_f1`` is a host metric over numpy masks.
+``boundary_f1`` is a host metric over numpy masks; ``check_dataset_integrity``
+logs a few masks' values before a run.
 """
 
 from __future__ import annotations
@@ -31,6 +32,32 @@ def iou_score(prediction_logits: torch.Tensor, target: torch.Tensor,
     union = pred.sum() + tgt.sum() - inter
     iou = (inter + epsilon) / (union + epsilon)
     return torch.where(union == 0, torch.ones_like(iou), iou)
+
+
+def check_dataset_integrity(dataset_path: str, logger) -> None:
+    """Log the unique values and shape of the first three masks of each
+    split (``{split}/masks``); PIL is imported only where such a directory
+    exists."""
+    import os
+
+    import numpy as np
+
+    logger.log_both("Checking dataset integrity...")
+    for split in ["train", "test", "valid"]:
+        masks_path = os.path.join(dataset_path, split, "masks")
+        if os.path.exists(masks_path):
+            from PIL import Image
+
+            mask_files = [
+                f for f in os.listdir(masks_path)
+                if f.endswith((".png", ".jpg", ".jpeg"))
+            ][:3]
+            for mask_file in mask_files:
+                mask = Image.open(os.path.join(masks_path, mask_file)).convert("L")
+                arr = np.array(mask)
+                logger.log_both(
+                    f"{split}/{mask_file}: unique values = {np.unique(arr)}, "
+                    f"shape = {arr.shape}")
 
 
 def boundary_f1(pred_mask, target_mask, tolerance: int = 2) -> float:

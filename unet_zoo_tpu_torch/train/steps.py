@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 import torch
 from torch import nn
 
+from unet_zoo_tpu_torch.data.augment import random_flips, step_generator
 from unet_zoo_tpu_torch.data.datasets import prepare_images, prepare_masks
 from unet_zoo_tpu_torch.models import ZooModel
 from unet_zoo_tpu_torch.train.losses import bce_with_logits, multi_output_loss
@@ -113,17 +114,16 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     """``step(state, images, masks) -> {'loss', 'dice'}`` (device scalars).
 
     ``images`` [B, C, H, W] (uint8 pixels are normalised on the device) and
-    ``masks`` [B, 1, H, W] go to the module's device. ``accum_steps = k > 1``
-    runs k microbatches of B / k in turn, sums their gradients and takes
-    one update with the mean; BatchNorm statistics update per microbatch,
-    and loss and Dice are the microbatch means, as in the JAX step.
+    ``masks`` [B, 1, H, W] go to the module's device. ``augment=True`` flips
+    the batch on the device (``data/augment.py``), drawing from a generator
+    seeded from ``state.step``. ``accum_steps = k > 1`` runs k microbatches
+    of B / k in turn, sums their gradients and takes one update with the
+    mean; BatchNorm statistics update per microbatch, and loss and Dice are
+    the microbatch means, as in the JAX step.
     """
-    if augment:
-        raise NotImplementedError("augment=True needs the port of data/augment.py "
-                                  "(ROADMAP Queue 1 item 7)")
     if remat:
         raise NotImplementedError("remat=True (recomputing the forward in the backward) is "
-                                  "not ported yet (ROADMAP Queue 1 item 6)")
+                                  "not ported yet (ROADMAP Queue 1 item 12)")
     module = model.module
     device = next(module.parameters()).device
 
@@ -131,6 +131,8 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
              ) -> Dict[str, torch.Tensor]:
         images = prepare_images(images.to(device, non_blocking=True))
         masks = prepare_masks(masks.to(device, non_blocking=True))
+        if augment:
+            images, masks = random_flips(step_generator(state.step, device), images, masks)
         if images.shape[0] % accum_steps:
             raise ValueError(f"batch {images.shape[0]} not divisible by accum_steps "
                              f"{accum_steps}")

@@ -1,1 +1,1 @@
-"""Weight conversion and serving helpers of the port."""
+"""Weight conversion, serving, checkpoints, logging and result summaries of the port."""
