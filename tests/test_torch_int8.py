@@ -245,15 +245,15 @@ def test_kernel_quantisation_rule_is_the_true_division():
 def _served_conv_shapes():
     import chip_smoke
 
-    return [(name, row) for name in ("unet_tpu", "unet")
+    return [(name, row) for name in ("unet_tpu", "unet", "attention_unet")
             for row in chip_smoke.int8_launch_shapes(name)]
 
 
 @pytest.mark.parametrize("name,row", _served_conv_shapes())
 def test_conv_plan_fills_the_card(name, row):
-    """Every int8 conv launch shape of unet_tpu and unet at B=8/256px gets
-    at least one block per SM (132), or as many as its K has stages; no split
-    is left without K; the tile is one the kernel takes."""
+    """Every int8 conv launch shape of unet_tpu, unet and attention_unet at
+    B=8/256px gets at least one block per SM (132), or as many as its K has
+    stages; no split is left without K; the tile is one the kernel takes."""
     b, h, w, ci, co, stride, _ = row
     m = b * p2.conv_out_size(h, stride) * p2.conv_out_size(w, stride)
     kpad = -(-9 * ci // p2.K_ALIGN) * p2.K_ALIGN

@@ -1425,6 +1425,10 @@ def _ties_away(x, s_x):
     (2, 32, 32, 16, 24, 1, torch.float32),        # halo, Ci 16: 8 taps a stage
     (2, 32, 32, 32, 40, 1, torch.bfloat16),       # halo, Ci 32: 4 taps a stage
     (2, 64, 64, 64, 64, 1, torch.float32),        # halo, Ci 64: 2 taps a stage
+    (2, 32, 32, 1024, 512, 1, torch.bfloat16),    # attention_unet up5 and upconv5's first conv
+    (2, 16, 16, 1024, 1024, 1, torch.bfloat16),   # attention_unet conv5's second conv
+    (2, 256, 256, 128, 64, 1, torch.bfloat16),    # attention_unet upconv2's first conv
+    (2, 256, 256, 3, 64, 1, torch.bfloat16),      # attention_unet conv1's first conv, bf16 out
 ])
 def test_int8_conv_kernel_matches_reference(cuda_device, xdtype, b, h, w, ci, co, stride, dtype):
     x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, xdtype)
@@ -1555,7 +1559,9 @@ def test_new_sources_build_without_spills(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,dtype,launches", [("unet_tpu", torch.bfloat16, 17),
-                                                 ("unet", torch.float32, 18)])
+                                                 ("unet", torch.float32, 18),
+                                                 ("attention_unet", torch.bfloat16, 22),
+                                                 ("nested_unet", torch.bfloat16, 30)])
 def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
     """Calibrated int8 serving (B=2, 64px): the int8 conv kernel on every
     gated conv, K1 not at all in the float32 unet; the kernel path's logits
@@ -1574,3 +1580,30 @@ def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
     assert p2.LAUNCHES["int8_conv3x3"] - before[0] == launches
     assert k1.LAUNCHES["fused_up_concat_conv"] == before[1]
     assert torch.isfinite(got).all() and torch.equal(got, preds[1](x))
+
+
+@pytest.mark.cuda
+def test_attention_unet_int8_launches_read_x_in_place(cuda_device, monkeypatch):
+    """int8 attention_unet (bf16, B=2, 64px): each of the 22 P2 launches of a
+    forward, the convs on nearest-upsampled and on concatenated activations
+    among them, reads its x in place (no copy to channels-last) and equals
+    the plain version on its own operands bit for bit; a 1x1 or dilated
+    gated conv (resunet, u2net) makes the predictor raise instead."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(9)).to(cuda_device)
+    model = create_model("attention_unet", dtype=torch.bfloat16)
+    pred = make_predictor(model, None, "logits", quant=calibrate_int8(model, [x]))
+    kernel, seen = p2.int8_conv3x3, []
+
+    def launch(x_, *args):
+        got = kernel(x_, *args)
+        seen.append((x_.is_contiguous(), torch.equal(got, p2.int8_conv3x3_reference(x_, *args))))
+        return got
+
+    monkeypatch.setattr(p2, "int8_conv3x3", launch)
+    copies = p2.X_COPIES["int8_conv3x3"]
+    assert torch.isfinite(pred(x)).all()
+    assert seen == [(True, True)] * 22 and p2.X_COPIES["int8_conv3x3"] == copies
+    for name in ("resunet", "u2net"):
+        other = create_model(name, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="the int8 conv takes 3x3 convs"):
+            make_predictor(other, None, "logits", quant=calibrate_int8(other, [x]))

@@ -135,8 +135,10 @@ def test_registry_surface():
     from unet_zoo_tpu.models import _REGISTRY as JAX_REGISTRY
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
-    assert list_models() == ["axialunet", "gated", "logo", "medt", "medt_logo", "mmunet",
-                             "swin_unet_v2", "unet", "unet_tpu", "unext", "unext_s", "wranet"]
+    assert list_models() == ["attention_unet", "axialunet", "gated", "logo", "medt",
+                             "medt_logo", "mmunet", "nested_unet", "resunet", "swin_unet_v2",
+                             "u2net", "u2net_tpu", "u2netp", "unet", "unet_tpu", "unext",
+                             "unext_s", "wranet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)
@@ -155,5 +157,11 @@ def test_registry_surface():
             assert model.loss_weight(key) == jax_spec.loss_weight(key)
     with pytest.raises(ValueError, match="not both"):
         create_model("unet", device="cpu", use_pallas=True, use_kernels=True)
+    from unet_zoo_tpu_torch.models import _REGISTRY
+
+    for name in ("attention_unet", "nested_unet", "resunet", "u2net", "u2netp", "u2net_tpu"):
+        assert get_model_config(name) == {}
+        for key in ("main", "side1", "side4"):
+            assert _REGISTRY[name].loss_weight(key) == JAX_REGISTRY[name].loss_weight(key)
     with pytest.raises(ValueError, match="Unknown model"):
-        create_model("attention_unet", device="cpu")
+        create_model("transatt_unet", device="cpu")

@@ -13,9 +13,14 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
+from unet_zoo_tpu_torch.models.attention_unet import AttentionUNet
 from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
+from unet_zoo_tpu_torch.models.nested_unet import NestedUNet
+from unet_zoo_tpu_torch.models.resunet import ResUnet
 from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinUNetV2
+from unet_zoo_tpu_torch.models.u2net import U2Net
+from unet_zoo_tpu_torch.models.u2net_tpu import U2NetTPU
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.models.unet_tpu import UNetTPU
 from unet_zoo_tpu_torch.models.unext import UNext
@@ -164,6 +169,49 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
 @register_model("unet")
 def _build_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
     return UNet(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
+
+
+@register_model("attention_unet")
+def _build_attention_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return AttentionUNet(in_channels=in_channels, num_classes=num_classes, depth=depth,
+                         dtype=dtype, **kw)
+
+
+@register_model("nested_unet")
+def _build_nested_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return NestedUNet(in_channels=in_channels, num_classes=num_classes,
+                      deep_supervision=kw.pop("deep_supervision", False), dtype=dtype, **kw)
+
+
+@register_model("resunet")
+def _build_resunet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return ResUnet(in_channels=in_channels, num_classes=num_classes,
+                   filters=tuple(kw.pop("filters", (64, 128, 256, 512))), dtype=dtype, **kw)
+
+
+# the JAX registry's unit side weights (unet_zoo_tpu/models/__init__.py:260-263, :374-376)
+_U2NET_LOSS_WEIGHTS = {key: 1.0 for key in ("main", "side1", "side2", "side3", "side4",
+                                            "side5", "side6")}
+_U2NET_TPU_LOSS_WEIGHTS = {key: 1.0 for key in ("main", "side1", "side2", "side3", "side4")}
+
+
+@register_model("u2net", loss_weights=_U2NET_LOSS_WEIGHTS)
+def _build_u2net(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return U2Net(in_channels=in_channels, num_classes=num_classes, small=False, dtype=dtype,
+                 **kw)
+
+
+@register_model("u2netp", loss_weights=_U2NET_LOSS_WEIGHTS)
+def _build_u2netp(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return U2Net(in_channels=in_channels, num_classes=num_classes, small=True, dtype=dtype,
+                 **kw)
+
+
+@register_model("u2net_tpu", loss_weights=_U2NET_TPU_LOSS_WEIGHTS)
+def _build_u2net_tpu(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return U2NetTPU(in_channels=in_channels, num_classes=num_classes,
+                    widths=tuple(kw.pop("widths", (128, 256, 512, 512))),
+                    levels=tuple(kw.pop("levels", (2, 2, 1))), dtype=dtype, **kw)
 
 
 @register_model("unet_tpu")

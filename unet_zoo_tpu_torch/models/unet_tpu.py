@@ -34,6 +34,22 @@ from unet_zoo_tpu_torch.ops import resize_bilinear, upsample2x_nearest
 HEAD_MODES = ("dts", "bilinear")
 
 
+def stem(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype
+         ) -> torch.Tensor:
+    """The patchify stem: the 4x4/s4 conv, BatchNorm, tanh-form GELU."""
+    return F.gelu(batch_norm(conv(x, conv_m, dtype), bn), approximate="tanh")
+
+
+def dts_logits(hd: torch.Tensor, num_classes: int, size) -> torch.Tensor:
+    """Depth-to-space of a stride-4 head [B, 16 nc, h, w] to float32 logits
+    [B, nc, 4h, 4w], ``out[4i + a, 4j + b, c] = head[i, j, (a, b, c)]``,
+    bilinearly resized to ``size`` where the stem did not divide it."""
+    b, _, hs, ws = hd.shape
+    logits = hd.reshape(b, 4, 4, num_classes, hs, ws).permute(0, 3, 4, 1, 5, 2).reshape(
+        b, num_classes, 4 * hs, 4 * ws).float()
+    return resize_bilinear(logits, size, align_corners=False)
+
+
 class UNetTPU(nn.Module):
     def __init__(self, in_channels: int = 3, num_classes: int = 1,
                  widths: Sequence[int] = (128, 256, 512, 512), head_mode: str = "dts",
@@ -63,7 +79,7 @@ class UNetTPU(nn.Module):
         """x: [B, C, H, W] images; returns ``{'main': float32 logits [B, classes, H, W]}``."""
         x = x.to(dtype=self.dtype, memory_format=torch.channels_last)
         h_in, w_in = x.shape[-2:]
-        h = F.gelu(batch_norm(conv(x, self.stem, self.dtype), self.stem_bn), approximate="tanh")
+        h = stem(x, self.stem, self.stem_bn, self.dtype)
         skips = []
         for i in range(self.depth - 1):
             h = getattr(self, f"enc{i}")(h)
@@ -75,11 +91,7 @@ class UNetTPU(nn.Module):
             h = getattr(self, f"dec{i}")(h)
 
         if self.head_mode == "dts":
-            nc = self.num_classes
-            hd = conv(h, self.head_dts, self.dtype)
-            b, _, hs, ws = hd.shape
-            logits = hd.reshape(b, 4, 4, nc, hs, ws).permute(0, 3, 4, 1, 5, 2).reshape(
-                b, nc, 4 * hs, 4 * ws).float()
-            return {"main": resize_bilinear(logits, (h_in, w_in), align_corners=False)}
+            return {"main": dts_logits(conv(h, self.head_dts, self.dtype), self.num_classes,
+                                       (h_in, w_in))}
         logits = conv(h, self.head, self.dtype).float()
         return {"main": resize_bilinear(logits, (h_in, w_in), align_corners=False)}

@@ -15,13 +15,17 @@ Train-mode BatchNorm (:func:`batch_norm`) follows Flax, not
 updates ``running_var`` with the biased one too (decay 0.9, i.e. torch
 momentum 0.1), where ``F.batch_norm`` would update it with the unbiased.
 
-Every :func:`conv_norm_act` conv is int8-gated, as the JAX package's
+Every :func:`conv_norm_act` conv and :class:`ResidualConv`'s three convs
+are int8-gated (:func:`gated_conv`), as the JAX package's
 ``conv_maybe_int8`` (``nn/blocks.py:104-141``): inside
 :func:`recording_conv_inputs` it records ``max |x|`` of its input in float32
 (calibration); in eval, once :func:`attach_int8` has given it quantised
 weights (``conv.int8``, an attribute outside the ``state_dict``, as JAX keeps
 the ``quant`` collection apart from the float parameters), it runs int8.
-Training ignores them. K1's fused decoder stage reads the float weights and
+Training ignores them. The int8 conv (P2) takes 3x3 convs with padding 1 and
+stride 1 or 2: :func:`attach_int8` refuses any other gated conv by name (a
+dilated or a 1x1 one, which JAX serves int8), so no model is served partly
+int8 and partly float. K1's fused decoder stage reads the float weights and
 ignores them too, as ``UpSampleUNet._fused`` does in JAX.
 """
 
@@ -34,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, quant
+from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, quant, upsample2x_nearest
 from unet_zoo_tpu_torch.ops.kernels import int8_gemm, use_kernel
 from unet_zoo_tpu_torch.ops.kernels.fused_up import (
     fold_conv_bn,
@@ -96,13 +100,15 @@ class Int8Conv(NamedTuple):
     stride: int
 
 
-def prepare_int8_conv(conv_m: nn.Conv2d, absmax: torch.Tensor) -> Int8Conv:
+def prepare_int8_conv(conv_m: nn.Conv2d, absmax: torch.Tensor, name: str) -> Int8Conv:
     """Quantise ``conv_m``'s weight (as served: already bf16-rounded by a
     bf16 cast) per output channel and take the activation scale from the
-    calibrated ``absmax``."""
+    calibrated ``absmax``. Raises, naming the conv ``name``, for a conv that
+    the int8 conv kernel does not take."""
     if (conv_m.kernel_size != (3, 3) or conv_m.padding != (1, 1) or conv_m.groups != 1
-            or conv_m.dilation != (1, 1) or conv_m.stride[0] != conv_m.stride[1]):
-        raise ValueError(f"the int8 conv takes 3x3 convs with padding 1, not {conv_m}")
+            or conv_m.dilation != (1, 1) or conv_m.stride not in ((1, 1), (2, 2))):
+        raise ValueError(f"{name}: the int8 conv takes 3x3 convs with padding 1 and stride 1 "
+                         f"or 2, not {conv_m}")
     k = conv_m.weight.detach()
     s_w = quant.weight_scale(k)
     s_x = quant.activation_scale(absmax.detach().to(k.device))
@@ -147,47 +153,74 @@ def recording_conv_inputs() -> Iterator[Dict[nn.Module, torch.Tensor]]:
 def attach_int8(module: nn.Module, stats: Mapping[str, torch.Tensor]) -> None:
     """Quantise each conv named in ``stats`` ({module name: calibrated
     absmax}, from ``utils.serving.calibrate_int8``) once, from its current
-    weights: its eval forwards then run int8."""
+    weights: its eval forwards then run int8. Raises for a conv the int8
+    kernel does not take (:func:`prepare_int8_conv`), before any is served."""
     for name, absmax in stats.items():
         conv_m = module.get_submodule(name)
         if not isinstance(conv_m, nn.Conv2d):
             raise ValueError(f"{name} is a {type(conv_m).__name__}, not an int8-gated conv")
-        conv_m.int8 = prepare_int8_conv(conv_m, torch.as_tensor(absmax, dtype=torch.float32))
+        conv_m.int8 = prepare_int8_conv(conv_m, torch.as_tensor(absmax, dtype=torch.float32),
+                                        name)
 
 
-def conv_norm_act(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d,
-                  dtype: torch.dtype, use_kernels: Optional[bool] = None) -> torch.Tensor:
-    """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``), the conv
-    int8-gated (module docstring; ``use_kernels`` as :func:`int8_conv`).
-
-    A function over the two modules rather than a module of its own, so
-    that ``DoubleConv`` keeps the original zoo's flat ``conv_op`` indices.
-    """
+def gated_conv(x: torch.Tensor, conv_m: nn.Conv2d, dtype: torch.dtype,
+               use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """``conv_m`` on ``x``, int8-gated (module docstring; ``use_kernels`` as
+    :func:`int8_conv`): records ``max |x|`` inside :func:`recording_conv_inputs`
+    and runs int8 in eval once :func:`attach_int8` has quantised it."""
     if _RECORD is not None:
         m = x.detach().float().abs().amax()
         prev = _RECORD.get(conv_m)
         _RECORD[conv_m] = m if prev is None else torch.maximum(prev, m)
     q = getattr(conv_m, "int8", None)
     if q is not None and not conv_m.training:
-        y = int8_conv(x, q, dtype, use_kernels)
-    else:
-        y = conv(x, conv_m, dtype)
-    return torch.relu(batch_norm(y, bn))
+        return int8_conv(x, q, dtype, use_kernels)
+    return conv(x, conv_m, dtype)
+
+
+def conv_norm_act(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d,
+                  dtype: torch.dtype, use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``), the conv
+    int8-gated (:func:`gated_conv`).
+
+    A function over the two modules rather than a module of its own, so
+    that ``DoubleConv`` keeps the original zoo's flat ``conv_op`` indices.
+    """
+    return torch.relu(batch_norm(gated_conv(x, conv_m, dtype, use_kernels), bn))
+
+
+def _bn(channels: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class ConvNormAct(nn.Module):
-    """One conv(3x3, stride, padding 1) -> BN -> ReLU block, int8-gated."""
+    """One conv(3x3, stride, dilation, size-keeping padding) -> BN -> ReLU
+    block, int8-gated (JAX ``ConvNormAct``)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None,
+                 dilation: int = 1):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=1)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=dilation,
+                              dilation=dilation)
+        self.bn = _bn(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_norm_act(x, self.conv, self.bn, self.dtype, self.use_kernels)
+
+
+def _double_conv(in_channels: int, out_channels: int) -> nn.Sequential:
+    """The original zoo's (conv3x3 -> BN -> ReLU) x 2 Sequential."""
+    return nn.Sequential(
+        nn.Conv2d(in_channels, out_channels, 3, padding=1),
+        _bn(out_channels),
+        nn.ReLU(inplace=True),
+        nn.Conv2d(out_channels, out_channels, 3, padding=1),
+        _bn(out_channels),
+        nn.ReLU(inplace=True),
+    )
 
 
 class DoubleConv(nn.Module):
@@ -198,19 +231,94 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
-        self.conv_op = nn.Sequential(
-            nn.Conv2d(in_channels, out_channels, 3, padding=1),
-            nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
-            nn.ReLU(inplace=True),
-            nn.Conv2d(out_channels, out_channels, 3, padding=1),
-            nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1),
-            nn.ReLU(inplace=True),
-        )
+        self.conv_op = _double_conv(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        op = self.conv_op
-        x = conv_norm_act(x, op[0], op[1], self.dtype, self.use_kernels)
-        return conv_norm_act(x, op[3], op[4], self.dtype, self.use_kernels)
+        x = conv_norm_act(x, self.conv_op[0], self.conv_op[1], self.dtype, self.use_kernels)
+        return conv_norm_act(x, self.conv_op[3], self.conv_op[4], self.dtype, self.use_kernels)
+
+
+class ConvBlock(nn.Module):
+    """``DoubleConv`` as the original zoo's Attention UNet names it
+    (``conv.{0,1,3,4}``; JAX ``ConvBlock``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.conv = _double_conv(in_channels, out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_norm_act(x, self.conv[0], self.conv[1], self.dtype, self.use_kernels)
+        return conv_norm_act(x, self.conv[3], self.conv[4], self.dtype, self.use_kernels)
+
+
+class DoubleConvMid(nn.Module):
+    """conv3x3 -> BN -> ReLU to ``mid_channels``, then to ``out_channels``,
+    both convs int8-gated (JAX ``DoubleConvMid``; the original zoo's
+    ``VGGBlock`` names ``conv1``, ``bn1``, ``conv2``, ``bn2``)."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.conv1 = nn.Conv2d(in_channels, mid_channels, 3, padding=1)
+        self.bn1 = _bn(mid_channels)
+        self.conv2 = nn.Conv2d(mid_channels, out_channels, 3, padding=1)
+        self.bn2 = _bn(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv_norm_act(x, self.conv1, self.bn1, self.dtype, self.use_kernels)
+        return conv_norm_act(x, self.conv2, self.bn2, self.dtype, self.use_kernels)
+
+
+class UpConvBlock(nn.Module):
+    """Nearest 2x upsample -> conv3x3 -> BN -> ReLU, the conv int8-gated (JAX
+    ``UpConvBlock``; the original zoo's ``up.{1,2}``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.up = nn.Sequential(nn.Upsample(scale_factor=2),
+                                nn.Conv2d(in_channels, out_channels, 3, padding=1),
+                                _bn(out_channels), nn.ReLU(inplace=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_norm_act(upsample2x_nearest(x), self.up[1], self.up[2], self.dtype,
+                             self.use_kernels)
+
+
+class ResidualConv(nn.Module):
+    """ResUnet's pre-activation residual block (JAX ``ResidualConv``): BN ->
+    ReLU -> conv3x3(stride) -> BN -> ReLU -> conv3x3, plus a 1x1
+    conv (stride) and BN on the skip. The three convs have no bias and are
+    int8-gated; the original zoo's names ``conv_block.{0,2,3,5}`` and
+    ``conv_skip.{0,1}``."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.conv_block = nn.Sequential(
+            _bn(in_channels), nn.ReLU(inplace=True),
+            nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=1, bias=False),
+            _bn(out_channels), nn.ReLU(inplace=True),
+            nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False))
+        self.conv_skip = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 1, stride=stride, bias=False),
+            _bn(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        blk, dt, use = self.conv_block, self.dtype, self.use_kernels
+        h = gated_conv(torch.relu(batch_norm(x, blk[0])), blk[2], dt, use)
+        h = gated_conv(torch.relu(batch_norm(h, blk[3])), blk[5], dt, use)
+        skip = batch_norm(gated_conv(x, self.conv_skip[0], dt, use), self.conv_skip[1])
+        return h + skip
 
 
 class DownSample(nn.Module):

@@ -32,11 +32,22 @@ UNET_TPU_WIDTHS = (128, 256, 512, 512)
 
 def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
     """The int8 conv's launch shapes in one forward of ``name`` (unet 64 ->
-    1024 channels; unet_tpu at ``widths``, the stem to image / 4): rows of
-    (B, H, W, Ci, Co, stride, launches), H and W the conv's input, in the
-    order of first launch."""
+    1024 channels; attention_unet at depth 5, 64 -> 1024, each decoder level
+    a conv after the nearest 2x upsampling and a ConvBlock; unet_tpu at
+    ``widths``, the stem to image / 4): rows of (B, H, W, Ci, Co, stride,
+    launches), H and W the conv's input, in the order of first launch."""
     convs = []
-    if name == "unet":
+    if name == "attention_unet":
+        chans, cin, size = (64, 128, 256, 512, 1024), 3, image
+        for i, c in enumerate(chans):
+            size = size // 2 if i else size
+            convs += [(size, cin, c, 1), (size, c, c, 1)]
+            cin = c
+        for i in range(4, 0, -1):
+            size *= 2
+            c = chans[i - 1]
+            convs += [(size, chans[i], c, 1), (size, 2 * c, c, 1), (size, c, c, 1)]
+    elif name == "unet":
         chans, cin, size = (64, 128, 256, 512), 3, image
         for c in chans:
             convs += [(size, cin, c, 1), (size, c, c, 1)]

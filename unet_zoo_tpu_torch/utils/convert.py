@@ -22,9 +22,18 @@ loads with ``strict=True``. It is the inverse of the JAX package's
 * LayerNorm: scale/bias -> weight/bias; SwinV2's ``tau`` and
   ``absolute_pos_embed`` as they are; its ``cpb_fc1``/``cpb_fc2`` ->
   ``cpb.fc1``/``cpb.fc2`` and ``mlp_fc1``/``mlp_fc2`` -> ``mlp.fc1``/``mlp.fc2``;
-* unet_tpu: the JAX names kept (``stem``, ``stem_bn``, ``enc{i}``,
-  ``down{i}``, ``bottleneck``, ``dec{i}``, ``head_dts``/``head``); a
-  ``ConvNormAct``'s ``Conv_0``/``BatchNorm_0`` -> ``conv``/``bn``.
+* unet_tpu and u2net_tpu: the JAX names kept (``stem``, ``stem_bn``,
+  ``enc{i}``, ``down{i}``, ``bottleneck``, ``dec{i}``, the heads); a
+  ``ConvNormAct``'s ``Conv_0``/``BatchNorm_0`` -> ``conv``/``bn``;
+* attention_unet, nested_unet, u2net/u2netp and resunet: the inverses of the
+  JAX package's ``convert_attention_unet``, ``convert_nested_unet``,
+  ``convert_u2net`` and ``convert_resunet`` (``utils/convert.py:104-213``),
+  so the original zoo's names (``conv{i}.conv.{0,1,3,4}``, ``up{i}.up.{1,2}``,
+  ``att{i}.{w_g,w_x,psi}.{0,1}``, ``conv{r}_{c}.{conv1,bn1,conv2,bn2}``,
+  ``stage{n}[d].rebnconv*.{conv_s1,bn_s1}``, ``input_layer.{0,1,3}``,
+  ``conv_block.{0,2,3,5}``, ``conv_skip.{0,1}``, ``upsample_{i}.upsample``);
+  attention_unet's depth is read from the variables (JAX's converter
+  assumes 5).
 
 ``quant_from_jax(model_name, quant)`` takes the ``quant`` collection that the
 JAX package's ``calibrate_int8`` adds (each gated conv's ``in_absmax``) and
@@ -100,6 +109,97 @@ def _unet_tpu(variables) -> Dict[str, torch.Tensor]:
             _conv(sd, f"{name}.conv", p[name]["Conv_0"])
             _bn(sd, f"{name}.bn", p[name]["BatchNorm_0"], s[name]["BatchNorm_0"])
     _conv(sd, "head_dts" if "head_dts" in p else "head", p.get("head_dts", p.get("head")))
+    return sd
+
+
+def _cna(sd, key, conv_key, bn_key, p, s):
+    """A JAX ``ConvNormAct`` (``Conv_0``, ``BatchNorm_0``) -> ``{key}.{conv_key}``,
+    ``{key}.{bn_key}``."""
+    _conv(sd, f"{key}.{conv_key}", p["Conv_0"])
+    _bn(sd, f"{key}.{bn_key}", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def _attention_unet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    depth = sum(1 for k in p if k.startswith("conv") and k[4:].isdigit())
+    for i in range(1, depth + 1):
+        _double_conv(sd, f"conv{i}.conv", p[f"conv{i}"], s[f"conv{i}"])
+    for i in range(depth, 1, -1):
+        _cna(sd, f"up{i}.up", "1", "2", p[f"up{i}"]["ConvNormAct_0"],
+             s[f"up{i}"]["ConvNormAct_0"])
+        a, sa = p[f"att{i}"], s[f"att{i}"]
+        for j, name in enumerate(("w_g", "w_x", "psi")):
+            _conv(sd, f"att{i}.{name}.0", a[f"Conv_{j}"])
+            _bn(sd, f"att{i}.{name}.1", a[f"BatchNorm_{j}"], sa[f"BatchNorm_{j}"])
+        _double_conv(sd, f"upconv{i}.conv", p[f"upconv{i}"], s[f"upconv{i}"])
+    _conv(sd, "conv_1x1", p["conv_1x1"])
+    return sd
+
+
+def _nested_unet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in p:
+        if name.startswith("final"):
+            _conv(sd, name, p[name])
+        else:
+            for i in (1, 2):
+                _cna(sd, name, f"conv{i}", f"bn{i}", p[name][f"ConvNormAct_{i - 1}"],
+                     s[name][f"ConvNormAct_{i - 1}"])
+    return sd
+
+
+def _u2net(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in p:
+        if name.startswith("stage"):
+            for blk in p[name]:
+                _cna(sd, f"{name}.{blk}", "conv_s1", "bn_s1", p[name][blk], s[name][blk])
+        else:
+            _conv(sd, name, p[name])
+    return sd
+
+
+RESUNET_BLOCKS = ("residual_conv_1", "residual_conv_2", "bridge", "up_residual_conv1",
+                  "up_residual_conv2", "up_residual_conv3")
+
+
+def _resunet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "input_layer.0", p["Conv_0"])
+    _bn(sd, "input_layer.1", p["BatchNorm_0"], s["BatchNorm_0"])
+    _conv(sd, "input_layer.3", p["Conv_1"])
+    _conv(sd, "input_skip.0", p["Conv_2"])
+    for i, name in enumerate(RESUNET_BLOCKS):
+        rp, rs = p[f"ResidualConv_{i}"], s[f"ResidualConv_{i}"]
+        for bn, key in (("BatchNorm_0", "conv_block.0"), ("BatchNorm_1", "conv_block.3"),
+                        ("BatchNorm_2", "conv_skip.1")):
+            _bn(sd, f"{name}.{key}", rp[bn], rs[bn])
+        for cv, key in (("Conv_0", "conv_block.2"), ("Conv_1", "conv_block.5"),
+                        ("Conv_2", "conv_skip.0")):
+            _conv(sd, f"{name}.{key}", rp[cv])
+    for i in range(3):
+        _conv_transpose(sd, f"upsample_{i + 1}.upsample", p[f"TransposedUp_{i}"]["ConvTranspose_0"])
+    _conv(sd, "output_layer.0", p["Conv_3"])
+    return sd
+
+
+def _u2net_tpu(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _conv(sd, "stem", p["stem"])
+    _bn(sd, "stem_bn", p["stem_bn"], s["stem_bn"])
+    for name, sub in p.items():
+        if name.startswith(("enc", "dec")) or name == "bottleneck":
+            for cna in sub:
+                _cna(sd, f"{name}.{cna}", "conv", "bn", sub[cna], s[name][cna])
+        elif name.startswith("down"):
+            _cna(sd, name, "conv", "bn", sub, s[name])
+        elif name.startswith(("side", "outconv")):
+            _conv(sd, name, sub)
     return sd
 
 
@@ -335,10 +435,11 @@ def _wranet(variables) -> Dict[str, torch.Tensor]:
 
 
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
-    "axialunet": _medt_family, "gated": _medt_family, "logo": _medt_family,
-    "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet,
-    "swin_unet_v2": _swin_unet_v2, "unet": _unet, "unet_tpu": _unet_tpu, "unext": _unext,
-    "unext_s": _unext, "wranet": _wranet}
+    "attention_unet": _attention_unet, "axialunet": _medt_family, "gated": _medt_family,
+    "logo": _medt_family, "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet,
+    "nested_unet": _nested_unet, "resunet": _resunet, "swin_unet_v2": _swin_unet_v2,
+    "u2net": _u2net, "u2net_tpu": _u2net_tpu, "u2netp": _u2net, "unet": _unet,
+    "unet_tpu": _unet_tpu, "unext": _unext, "unext_s": _unext, "wranet": _wranet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
@@ -381,7 +482,26 @@ def _unet_tpu_quant(q) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _attention_unet_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in q.items():
+        if name.startswith("up") and not name.startswith("upconv"):
+            _absmax(out, f"{name}.up.1", sub.get("ConvNormAct_0", {}))
+        else:
+            _double_conv_quant(out, f"{name}.conv", sub)
+    return out
+
+
+def _nested_unet_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in q.items():
+        for i in (1, 2):
+            _absmax(out, f"{name}.conv{i}", sub.get(f"ConvNormAct_{i - 1}", {}))
+    return out
+
+
 QUANT_CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
+    "attention_unet": _attention_unet_quant, "nested_unet": _nested_unet_quant,
     "unet": _unet_quant, "unet_tpu": _unet_tpu_quant}
 
 
