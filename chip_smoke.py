@@ -187,7 +187,21 @@
    (these random weights put JAX's own int8 forward above its 0.10 bar: see
    ``INT8_FLOAT_BARS``) and JAX's 0.95 on masks, and the conv at each launch
    shape against its bound.
-23. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+23. Holds K3 against its plain version, with the planted faults of step 13,
+   at every launch shape that ``missformer`` (512px and 256px) and
+   ``unext_moe`` (256px) add at B=8: bands of 1 and 2 rows at the bridge's
+   8x8 and 16x16 tokens, 64 rows at 512px's first stage. Serves
+   ``missformer`` (registry defaults, bf16, B=8) at 512px and 256px and
+   ``unext_moe`` at 256px on both paths as step 14 serves ``unext``: 32 and
+   3 K3 launches a forward on its stream instance by counter and by
+   profiler, each against its plain version on its own operands; the
+   logits and masks against the plain path, each path's distance to float32
+   compute; img/s, busy, idle share, peak memory; each MoE block's share of
+   tokens dropped at capacity. Times K3 at every launch shape of the three
+   forwards. Trains ``missformer`` and ``unext_moe`` at 256px for 5 steps
+   through ``make_train_step``: the loss falls, K3 never launches, and
+   ``unext_moe``'s load-balancing terms are finite and in the loss.
+24. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Steps 17-20, with step 22's int8 ``attention_unet``, run right after step 4.
@@ -440,6 +454,27 @@ CORE_TRAIN, CORE_TRAIN_STEPS = ("u2net", "nested_unet"), 5
 # side weights, nested_unet's sides at the default 0.5
 CORE_LOSS_WEIGHTS = {"u2net": {"main": 1.0, **{f"side{i}": 1.0 for i in range(1, 7)}},
                      "nested_unet": {"main": 1.0, "side1": 0.5, "side2": 0.5, "side3": 0.5}}
+# phase 23: the K3 carriers of this slice, in bf16 at B=8. missformer at 512px
+# (the registry default) and 256px: one K3 launch per MixFFN_skip, on 4 x the
+# stage width at each stage's resolution image / 2^(s + 2) in the encoder's
+# and the decoder's two blocks a stage, and on 4 x 64 at every scale in each
+# of the bridge's four layers (32 a forward). unext_moe at 256px: unext_s with
+# the second MiT block of each stage a Switch-MoE (no depthwise conv): 3.
+MISSFORMER_IMAGES = (512, 256)
+MISSFORMER_DIMS = (64, 128, 320, 512)
+MISSFORMER_LAUNCHES = 32
+UNEXT_MOE_DIMS = (64, 128, 160)
+UNEXT_MOE_LAUNCHES = 3
+# missformer, kernel path vs plain path: the paths differ only in the
+# depthwise conv (K3 against cuDNN's bf16 grouped conv, each rounding the f32
+# sums once), but 32 of them feed LayerNorms, attention and GELUs through 12
+# transformer layers of random weights; the kernel path within 1.25 times the
+# plain path's distance to f32 compute. unext_moe keeps unext's bars.
+MISSFORMER_REL_L2, MISSFORMER_AGREE, MISSFORMER_F32_RATIO = 3e-2, 0.99, 1.25
+# both trained 5 steps at the default training config's learning rate (1e-4):
+# at 1e-3 the unext family's loss swings up tenfold in the first steps from
+# random weights (unext_s as unext_moe: 1.7 -> 23.4 -> 5.4 in float32)
+CARRIER_TRAIN_STEPS, CARRIER_LR = 5, 1e-4
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -2332,11 +2367,12 @@ def k3_fault_layout(k3, x):
     return p if p.bands > 1 else k3.layout(b, h, w, c, p.lcv, max(1, h // 2), p.ring)
 
 
-def check_k3(torch, gen, device):
+def check_k3(torch, gen, device, shapes=None):
     """K3 against its plain version (the same operands) at every distinct
     launch shape of unext and unext_s at B=8/256px and an odd shape (odd H
     and W, C 24), all on the stream instance, and on the general instance at
-    odd shapes (C 20, k 5; float32, C 37), each beside planted faults that
+    odd shapes (C 20, k 5; float32, C 37), or at ``shapes`` ([B, H, W, C] on
+    the stream instance) where given, each beside planted faults that
     the same comparison must reject: the taps transposed, the halo read one
     pixel into the neighbouring tile (the instance's own geometry: the
     stream instance's bands and strips, the general one's 8 x 16 tiles), the
@@ -2346,10 +2382,13 @@ def check_k3(torch, gen, device):
     max abs error."""
     from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
 
-    cases = sorted({(*row[:4], 3, "stream") for name in UNEXT_CONFIGS
-                    for row in unext_launch_shapes(name)})
-    cases += [(2, 37, 45, 24, 3, "stream"), (2, 37, 45, 20, 5, "general"),
-              (1, 9, 7, 37, 3, "general f32")]
+    if shapes is not None:
+        cases = [(*shape, 3, "stream") for shape in shapes]
+    else:
+        cases = sorted({(*row[:4], 3, "stream") for name in UNEXT_CONFIGS
+                        for row in unext_launch_shapes(name)})
+        cases += [(2, 37, 45, 24, 3, "stream"), (2, 37, 45, 20, 5, "general"),
+                  (1, 9, 7, 37, 3, "general f32")]
     err = 0.0
     for b, h, w, c, k, which in cases:
         dtype = torch.float32 if which.endswith("f32") else torch.bfloat16
@@ -2414,18 +2453,20 @@ def checked_launches(torch, module, attr, reference, fn):
         setattr(module, attr, kernel)
 
 
-def serve_unext(torch, gen, device, name):
-    """Registry-default ``name`` (unext or unext_s), bf16, B=8, 256px, on both
-    paths: one K3 launch per MiT block by the counter and by the profiler,
-    every K3 launch of the served forward against its plain version,
-    agreement, rates and the device-time breakdown."""
+def serve_k3_carrier(torch, gen, device, name, image, want, rel_l2_max, agree_min, f32_ratio):
+    """Registry-default ``name`` in bf16 at B=8 and ``image`` on both paths:
+    ``want`` K3 launches a forward on its stream instance by the counter and
+    by the profiler, every K3 launch of the served forward against its plain
+    version on its own operands, agreement, rates, the device-time
+    breakdown, idle share and peak memory of one kernel-path forward, and
+    each Switch-MoE block's dropped share in the served module's last
+    kernel-path forward (none in missformer)."""
     from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
 
-    want = UNEXT_LAUNCHES[name]
     preds, x, launches, agreement, _ = serve_both_paths(
-        torch, gen, device, name, SERVE_BATCH, IMAGE,
+        torch, gen, device, name, SERVE_BATCH, image,
         [(k3, "depthwise_conv2d"), (k3, "depthwise_conv2d_stream")],
-        UNEXT_REL_L2, UNEXT_AGREE, UNEXT_F32_RATIO)
+        rel_l2_max, agree_min, f32_ratio)
     stream = launches["depthwise_conv2d_stream"]
     launches = launches["depthwise_conv2d"]
     if launches != want or stream != want:
@@ -2433,23 +2474,35 @@ def serve_unext(torch, gen, device, name):
                              f"instance, expected {want}")
     _, readings = checked_launches(torch, k3, "depthwise_conv2d",
                                    k3.depthwise_conv2d_reference, lambda: preds["kernel"](x))
-    log(f"{name}: its {len(readings)} K3 launches against the plain version on the model's "
-        f"own operands: at most {max(readings):.3e} (<= {K3_SHARE:.0e})")
+    log(f"{name} {image}px: its {len(readings)} K3 launches against the plain version on the "
+        f"model's own operands: at most {max(readings):.3e} (<= {K3_SHARE:.0e})")
     if len(readings) != want or not max(readings) <= K3_SHARE:
         raise AssertionError(f"{name}: K3 disagrees with its plain version in the served model")
     events = profile_forward(torch, lambda: preds["kernel"](x))
     seen = sum("depthwise_stream_kernel" in e.name for e in events)
-    log(f"profiler: {seen} depthwise_stream_kernel grids in one {name} forward")
+    log(f"profiler: {seen} depthwise_stream_kernel grids in one {name} {image}px forward")
     if seen != want:
         raise AssertionError(f"profiler saw K3 {seen} times in {name}, expected {want}")
-    rates, med, busy = time_paths(torch, name, preds, x, profile=True)
-    return dict(launches=launches, stream_launches=stream, profiler_grids=seen,
-                launch_reading_max=max(readings),
-                serve_img_per_s=rates, forward_ms=med, device_busy_ms=busy, **agreement)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    preds["kernel"](x)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rates, med, busy = time_paths(torch, f"{name} {image}px", preds, x, profile=True)
+    idle = {path: 1 - busy[path] / med[path] for path in busy}
+    preds["kernel"](x)
+    drops = moe_drop_shares(preds["kernel"].module)
+    log(f"serve {name} {image}px kernel path: peak {peak:.2f} GiB, idle share {idle}"
+        + (f", dropped share a MoE block {drops}" if drops else ""))
+    return dict(image=image, launches=launches, stream_launches=stream, profiler_grids=seen,
+                launch_reading_max=max(readings), serve_img_per_s=rates, forward_ms=med,
+                device_busy_ms=busy, idle_share=idle, peak_gib=peak, drop_shares=drops,
+                **agreement)
 
 
-def time_k3(torch, gen, device, name):
-    """K3 at each launch shape of one B=8 forward of ``name`` (graph_ms: each
+def time_k3(torch, gen, device, name, shapes=None):
+    """K3 at each launch shape of one B=8 forward of ``name`` (``shapes``,
+    rows of (B, H, W, C, launches), where given; graph_ms: each
     launch takes less device time than its host cost): kernel, plain
     version, bound, the bf16 module chain it replaces (``DWConv``'s module
     path on the same [B, H, W, C] tokens) and cuDNN's depthwise conv
@@ -2464,7 +2517,7 @@ def time_k3(torch, gen, device, name):
     from unet_zoo_tpu_torch.probes.window_grids import host_us
 
     rows = []
-    for b, h, w, c, n in unext_launch_shapes(name):
+    for b, h, w, c, n in (shapes or unext_launch_shapes(name)):
         x, kern, bias = k3_case(torch, gen, b, h, w, c, 3, device)
         dw = DWConv(c, torch.bfloat16, use_kernels=False).to(device).eval()
         with torch.no_grad():
@@ -3623,6 +3676,143 @@ def train_core(torch, gen, device, name):
     return dict(losses=losses, loss_weights=weighted[0], train_img_per_s=rate, peak_gib=peak)
 
 
+def missformer_launch_shapes(image, batch=SERVE_BATCH):
+    """K3's launch shapes in one missformer forward: rows of (B, H, W, C,
+    launches). At stage s (image / 2^(s + 2)) the encoder's and the
+    decoder's two MixFFN_skips a stage run on 4 x dims[s], and each of the
+    bridge's four layers runs one on 4 x dims[0] at every scale."""
+    rows = {}
+    for s, d in enumerate(MISSFORMER_DIMS):
+        hw = image >> (s + 2)
+        for c in (4 * d, 4 * MISSFORMER_DIMS[0]):
+            rows[(hw, c)] = rows.get((hw, c), 0) + 4
+    return [(batch, hw, hw, c, n) for (hw, c), n in rows.items()]
+
+
+def unext_moe_launch_shapes(image=IMAGE, batch=SERVE_BATCH):
+    """K3's launch shapes in one unext_moe forward: the first MiT block of
+    each stage (the second has the Switch-MoE FFN)."""
+    return [(batch, image >> (s + 2), image >> (s + 2), 4 * d, 1)
+            for s, d in enumerate(UNEXT_MOE_DIMS)]
+
+
+def moe_drop_shares(module):
+    """Each Switch-MoE block's share of its last forward's real tokens that
+    were dropped at capacity, by module name."""
+    from unet_zoo_tpu_torch.nn.moe import SwitchMoEMLP
+
+    shares = {}
+    for name, m in module.named_modules():
+        if isinstance(m, SwitchMoEMLP) and m.last_routing is not None:
+            kept = m.last_routing["kept"].reshape(-1)[:m.last_routing["tokens"]]
+            shares[name] = 1.0 - kept.float().mean().item()
+    return shares
+
+
+def train_k3_carrier(torch, gen, device, name, image):
+    """Registry-default ``name`` in bf16 on float32 parameters trained for
+    CARRIER_TRAIN_STEPS steps at CARRIER_LR on one seeded B=8 batch at
+    ``image`` through ``make_train_step``: the loss must fall and K3 must not
+    launch (training runs the module path: K3 has no backward). One
+    train-mode forward on the batch before the steps leaves the auxiliary
+    losses that the step adds (unext_moe's load-balancing terms, one a MoE
+    block), which must be finite; each MoE block's dropped share by step.
+    Train img/s after the first step, peak memory."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.data import prepare_images
+    from unet_zoo_tpu_torch.nn.moe import aux_loss_modules, pop_aux_losses
+    from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+
+    model = create_model(name, dtype=torch.bfloat16, seed=0, image_size=image)
+    state = create_train_state(model, learning_rate=CARRIER_LR)
+    images, masks = train_batch(torch, gen, SERVE_BATCH, image, device)
+    model.module.train()
+    with torch.no_grad():
+        model.module(prepare_images(images))
+    aux = [float(t) for t in pop_aux_losses(aux_loss_modules(model.module))]
+    step = make_train_step(model)
+    k3.LAUNCHES["depthwise_conv2d"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, drops, t0 = [], [], None
+    for i in range(CARRIER_TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(state, images, masks)["loss"])
+        drops.append(moe_drop_shares(state.module))
+    torch.cuda.synchronize()
+    rate = SERVE_BATCH * (CARRIER_TRAIN_STEPS - 1) / (time.perf_counter() - t0)
+    k3_launches = k3.LAUNCHES["depthwise_conv2d"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    log(f"train {name} bf16 B={SERVE_BATCH} {image}px: losses {[round(v, 5) for v in losses]}, "
+        f"{rate:.1f} img/s after the first step, peak {peak:.2f} GiB, K3 launches {k3_launches} "
+        f"(0); auxiliary losses of the batch before the steps {[round(t, 6) for t in aux]}"
+        + (f"; dropped share a MoE block, first and last step {drops[0]}, {drops[-1]}"
+           if drops[0] else ""))
+    if k3_launches:
+        raise AssertionError(f"{name}: K3 launched {k3_launches} times in training")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    if not all(map(math.isfinite, aux)):
+        raise AssertionError(f"{name}: an auxiliary loss is not finite: {aux}")
+    return dict(image=image, losses=losses, aux_losses=aux, drop_shares=drops,
+                train_img_per_s=rate, peak_gib=peak, k3_launches=k3_launches)
+
+
+def k3_carriers(torch, seeded, device):
+    """Phase 23: K3 at the launch shapes missformer and unext_moe add; both
+    served (missformer at 512px and 256px) and trained; K3 per launch shape
+    of each served forward."""
+    known = {row[:4] for name in UNEXT_CONFIGS for row in unext_launch_shapes(name)}
+    shapes = {image: missformer_launch_shapes(image) for image in MISSFORMER_IMAGES}
+    fresh = sorted({row[:4] for rows in shapes.values() for row in rows} - known,
+                   key=lambda r: (-r[1], r[3]))
+    err = check_k3(torch, seeded("check_k3", "carriers"), device, fresh)
+    served = {f"missformer_{image}px": serve_k3_carrier(
+        torch, seeded("serve_k3_carrier", "missformer", image), device, "missformer", image,
+        MISSFORMER_LAUNCHES, MISSFORMER_REL_L2, MISSFORMER_AGREE, MISSFORMER_F32_RATIO)
+        for image in MISSFORMER_IMAGES}
+    torch.cuda.empty_cache()
+    served["unext_moe"] = serve_k3_carrier(
+        torch, seeded("serve_k3_carrier", "unext_moe"), device, "unext_moe", IMAGE,
+        UNEXT_MOE_LAUNCHES, UNEXT_REL_L2, UNEXT_AGREE, UNEXT_F32_RATIO)
+    if len(served["unext_moe"]["drop_shares"]) != len(UNEXT_MOE_DIMS):
+        raise AssertionError(f"unext_moe: served routing of {served['unext_moe']['drop_shares']},"
+                             f" expected one a MoE block")
+    rows = {f"missformer_{image}px": time_k3(torch, seeded("time_k3", "missformer", image),
+                                             device, "missformer", shapes[image])
+            for image in MISSFORMER_IMAGES}
+    rows["unext_moe"] = time_k3(torch, seeded("time_k3", "unext_moe"), device, "unext_moe",
+                                unext_moe_launch_shapes())
+    torch.cuda.empty_cache()
+    trained = {"missformer": train_k3_carrier(torch, seeded("train_k3_carrier", "missformer"),
+                                              device, "missformer", IMAGE)}
+    torch.cuda.empty_cache()
+    trained["unext_moe"] = train_k3_carrier(torch, seeded("train_k3_carrier", "unext_moe"),
+                                            device, "unext_moe", IMAGE)
+    if [len(trained[n]["aux_losses"]) for n in ("missformer", "unext_moe")] != \
+            [0, len(UNEXT_MOE_DIMS)]:
+        raise AssertionError("a training forward did not leave one load-balancing loss a MoE "
+                             "block (and none in missformer)")
+    torch.cuda.empty_cache()
+    per_config = {}
+    for key, r in rows.items():
+        b = bound(0, per_forward(r, "bytes"), per_forward(r, "f32_ops"))
+        per_config[key] = dict(launches=served[key]["launches"], ms=per_forward(r, "ms"),
+                               events_ms=per_forward(r, "events_ms"),
+                               host_us=per_forward(r, "host_us"),
+                               plain_ms=per_forward(r, "plain_ms"),
+                               module_chain_ms=per_forward(r, "module_chain_ms"),
+                               library_ms=per_forward(r, "library_ms"),
+                               bound_ms=b[0], bound_by=b[1])
+        log(f"K3 per {key} forward: {per_config[key]}")
+    return dict(max_abs_err=err, served=served, trained=trained, per_config=per_config,
+                shapes=rows)
+
+
 def mma_counts(build, stem="int8_gemm"):
     """Counts of the int8 (IGMMA) and bf16 (HGMMA) wgmma instructions and of
     the mma.sync (HMMA) instructions in ``cuobjdump -sass`` of the built
@@ -3835,7 +4025,9 @@ def main() -> int:
     # 13-14. unext and unext_s: K3 checks, both served at full width, K3 per
     # launch shape
     k3_err = check_k3(torch, seeded("check_k3"), device)
-    unext = {name: serve_unext(torch, seeded("serve_unext", name), device, name) for name in UNEXT_CONFIGS}
+    unext = {name: serve_k3_carrier(torch, seeded("serve_unext", name), device, name, IMAGE,
+                                    UNEXT_LAUNCHES[name], UNEXT_REL_L2, UNEXT_AGREE,
+                                    UNEXT_F32_RATIO) for name in UNEXT_CONFIGS}
     k3_rows = {name: time_k3(torch, seeded("time_k3", name), device, name) for name in UNEXT_CONFIGS}
     torch.cuda.empty_cache()
     t_phase = lap("unext (K3)", t_phase)
@@ -3860,7 +4052,12 @@ def main() -> int:
     core_train = {name: train_core(torch, seeded("train_core", name), device, name)
                   for name in CORE_TRAIN}
     torch.cuda.empty_cache()
-    lap("core members", t_phase)
+    t_phase = lap("core members", t_phase)
+
+    # 23. the K3 carriers of this slice: missformer (512px and 256px) and
+    # unext_moe served and trained, K3 at the launch shapes they add
+    carriers = k3_carriers(torch, seeded, device)
+    lap("K3 carriers (missformer, unext_moe)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -4067,7 +4264,7 @@ def main() -> int:
         "source": "unet_zoo_tpu_torch/ops/kernels/csrc/depthwise.cu",
         "replaces": "unet_zoo_tpu/ops/pallas/depthwise.py:66",
         "launches": unext["unext"]["launches"],
-        "max_abs_err": k3_err,
+        "max_abs_err": max(k3_err, carriers["max_abs_err"]),
         "ms": k3_per_config["unext"]["ms"],
         "events_ms": k3_per_config["unext"]["events_ms"],
         "plain_ms": k3_per_config["unext"]["plain_ms"],
@@ -4075,9 +4272,11 @@ def main() -> int:
         "bound_by": k3_per_config["unext"]["bound_by"],
         "library_ms": k3_per_config["unext"]["library_ms"],
         "module_chain_ms": k3_per_config["unext"]["module_chain_ms"],
-        "per_config": k3_per_config,
+        "per_config": {**k3_per_config, **carriers["per_config"]},
+        "carrier_shapes_max_abs_err": carriers["max_abs_err"],
         "unext": unext,
-        "shapes": k3_rows,
+        "carriers": {"served": carriers["served"], "trained": carriers["trained"]},
+        "shapes": {**k3_rows, **carriers["shapes"]},
     }, {
         "name": "deform_conv2d",
         "route": "cuda",

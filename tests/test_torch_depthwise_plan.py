@@ -30,6 +30,11 @@ K3_SHARE = 1e-3            # chip_smoke.py's K3_SHARE
 SERVED = [(64, 512), (32, 640), (16, 1024), (64, 256), (32, 512), (16, 640)]
 ODD = [(2, 13, 21, 24), (1, 5, 6, 520), (3, 9, 7, 8), (1, 1, 1, 8), (2, 37, 45, 16),
        (1, 70, 3, 40)]
+# missformer at 512px and 256px and unext_moe at 256px (B=8): (H = W, C) of
+# each K3 launch shape not in SERVED; the plan gives the bridge's 16x16 and
+# 8x8 tokens bands of 2 and 1 rows, and 512px's first stage bands of 64
+MISSFORMER = [(128, 256), (32, 1280), (32, 256), (16, 2048), (16, 256), (16, 1280), (8, 2048),
+              (8, 256)]
 
 
 def ulp_reading(got, ref):
@@ -126,7 +131,8 @@ def case(b, h, w, c, seed=0):
             bf(rng.standard_normal(c)))
 
 
-PLAN_CASES = sorted({(b, hw, hw, c) for b in range(1, 9) for hw, c in SERVED}) + ODD
+PLAN_CASES = (sorted({(b, hw, hw, c) for b in range(1, 9) for hw, c in SERVED}) + ODD
+              + [(8, hw, hw, c) for hw, c in MISSFORMER])
 
 
 @pytest.mark.parametrize("b,h,w,c", PLAN_CASES)
@@ -202,7 +208,7 @@ EMULATED = [
     (2, 11, 17, 64, dict(lcv=3, bh=4, ring=4, per_chunk=2)),
     (1, 10, 9, 136, dict(lcv=4, bh=3, ring=6, per_chunk=1)),
     (3, 7, 33, 16, dict(lcv=2, bh=2, ring=6, per_chunk=5)),
-]
+] + [(8, hw, hw, c, {}) for hw, c in MISSFORMER]
 
 
 def _layout(b, h, w, c, over):
@@ -238,6 +244,18 @@ def test_emulated_planted_faults_read_above_the_bar(b, h, w, c, over):
     faults = ["stale ring slot"] + (["halo row from the neighbouring band"] if p.bands > 1 else [])
     for fault in faults:
         assert ulp_reading(emulate(x, kern, bias, p, fault), ref) > K3_SHARE, fault
+
+
+def test_missformer_plans_reach_thin_and_tall_bands():
+    """The launch shapes added for missformer and unext_moe take the plan's
+    extreme band heights, which the emulation above covers: one-row bands
+    (each band reads 3 input rows for 1 output row) at [8, 8, 8, 256],
+    two-row bands at [8, 16, 16, 256], 64-row bands at [8, 128, 128, 256]."""
+    bh = {(hw, c): k3.plan(8, hw, hw, c).bh for hw, c in MISSFORMER}
+    assert bh[(8, 256)] == 1 and bh[(16, 256)] == 2 and bh[(128, 256)] == 64
+    for hw, c in MISSFORMER:
+        p = k3.plan(8, hw, hw, c)
+        assert p.bands * p.bh >= hw and p.strips * p.tw >= hw
 
 
 def test_served_plans_stream_bands_of_rows():

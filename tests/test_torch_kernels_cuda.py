@@ -1073,12 +1073,16 @@ def _ulp_reading(got, ref):
     return (excess.max() / ref.float().pow(2).mean().sqrt()).item()
 
 
-# K3's cases: the six served launch shapes of unext / unext_s (B=8, 256px)
-# and odd shapes on the stream instance; float32, k 5 and 7, C 20 and a
-# misaligned x on the general one: (B, H, W, C, k, dtype, storage offset,
-# instance)
+# K3's cases: the six served launch shapes of unext / unext_s (B=8, 256px),
+# the further ones of missformer (512px and 256px) and unext_moe (B=8: the
+# bridge's 16x16 and 8x8 tokens take bands of 2 and 1 rows, 512px's first
+# stage bands of 64) and odd shapes on the stream instance; float32, k 5 and
+# 7, C 20 and a misaligned x on the general one: (B, H, W, C, k, dtype,
+# storage offset, instance)
 K3_CASES = [(8, hw, hw, c, 3, torch.bfloat16, 0, "stream")
-            for hw, c in ((64, 512), (32, 640), (16, 1024), (64, 256), (32, 512), (16, 640))] + [
+            for hw, c in ((64, 512), (32, 640), (16, 1024), (64, 256), (32, 512), (16, 640),
+                          (128, 256), (32, 1280), (32, 256), (16, 2048), (16, 256), (16, 1280),
+                          (8, 2048), (8, 256))] + [
     (2, 13, 21, 24, 3, torch.bfloat16, 0, "stream"),    # odd H, W
     (1, 5, 6, 520, 3, torch.bfloat16, 0, "stream"),     # C 520: a partial last chunk
     (3, 9, 7, 8, 3, torch.bfloat16, 0, "stream"),       # C 8
@@ -1216,13 +1220,13 @@ def test_depthwise_refused_stream_launch_raises(cuda_device, monkeypatch):
     assert k3.LAUNCHES == before
 
 
-# unext / wranet, kernel path vs plain path (bf16 logits, relative L2), the
-# limits chip_smoke.py holds the full-width forwards to
-UNEXT_REL_L2, WRANET_REL_L2 = 1e-2, 3e-2
+# unext / wranet / missformer, kernel path vs plain path (bf16 logits,
+# relative L2), the limits chip_smoke.py holds the full-width forwards to
+UNEXT_REL_L2, WRANET_REL_L2, MISSFORMER_REL_L2 = 1e-2, 3e-2, 3e-2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,launches", [("unext_s", 6), ("unext", 13)])
+@pytest.mark.parametrize("name,launches", [("unext_s", 6), ("unext", 13), ("unext_moe", 3)])
 def test_unext_kernel_path_matches_plain_path(cuda_device, name, launches):
     x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)).to(cuda_device)
     preds = [make_predictor(create_model(name, dtype=torch.bfloat16, use_kernels=k), None,
@@ -1234,6 +1238,37 @@ def test_unext_kernel_path_matches_plain_path(cuda_device, name, launches):
     ref = preds[1](x).float()
     assert got.shape == (2, 1, 64, 64) and torch.isfinite(got).all()
     assert ((got - ref).norm() / ref.norm()).item() <= UNEXT_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [64, 32])
+def test_missformer_kernel_path_matches_plain_path(cuda_device, size):
+    """missformer (bf16, B=2): K3 on all 32 MixFFN_skip convs on its stream
+    instance, every launch within K3's bar of its plain version on its own
+    operands, and the logits against the plain path's (at 32px the stages
+    are 8, 4, 2 and 1 pixels)."""
+    x = torch.randn(2, 3, size, size, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    preds = [make_predictor(create_model("missformer", dtype=torch.bfloat16, image_size=size,
+                                         use_kernels=k), None, "logits") for k in (None, False)]
+    real, readings = k3.depthwise_conv2d, []
+
+    def checked(*a):
+        got = real(*a)
+        readings.append(_ulp_reading(got, k3.depthwise_conv2d_reference(*a)))
+        return got
+
+    before = dict(k3.LAUNCHES)
+    k3.depthwise_conv2d = checked
+    try:
+        got = preds[0](x).float()
+    finally:
+        k3.depthwise_conv2d = real
+    for key in ("depthwise_conv2d", "depthwise_conv2d_stream"):
+        assert k3.LAUNCHES[key] - before[key] == 32
+    assert len(readings) == 32 and max(readings) <= K3_SHARE
+    ref = preds[1](x).float()
+    assert got.shape == (2, 1, size, size) and torch.isfinite(got).all()
+    assert ((got - ref).norm() / ref.norm()).item() <= MISSFORMER_REL_L2
 
 
 def _deform_case(device, b, h, w, c, o, scale=3.0, seed=0, k=3, stride=1, pad=1, dil=1):

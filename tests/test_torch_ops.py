@@ -136,9 +136,9 @@ def test_registry_surface():
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
     assert list_models() == ["attention_unet", "axialunet", "gated", "logo", "medt",
-                             "medt_logo", "mmunet", "nested_unet", "resunet", "swin_unet_v2",
-                             "u2net", "u2net_tpu", "u2netp", "unet", "unet_tpu", "unext",
-                             "unext_s", "wranet"]
+                             "medt_logo", "missformer", "mmunet", "nested_unet", "resunet",
+                             "swin_unet_v2", "u2net", "u2net_tpu", "u2netp", "unet", "unet_tpu",
+                             "unext", "unext_moe", "unext_s", "wranet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)

@@ -15,6 +15,7 @@ import flax
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -22,6 +23,9 @@ from unet_zoo_tpu.models import _REGISTRY as JAX_REGISTRY
 from unet_zoo_tpu.models import create_model as jax_create_model
 from unet_zoo_tpu.nn import transformer as jtr
 from unet_zoo_tpu.ops.pallas import depthwise as jax_k3
+from unet_zoo_tpu.train.steps import TrainState as JaxTrainState
+from unet_zoo_tpu.train.steps import make_optimizer as jax_make_optimizer
+from unet_zoo_tpu.train.steps import make_train_step as jax_make_train_step
 from unet_zoo_tpu.utils.convert import convert_state_dict
 from unet_zoo_tpu_torch import create_model, list_models
 from unet_zoo_tpu_torch.nn import transformer as ptr
@@ -268,9 +272,37 @@ def test_overlap_patch_embed_matches_jax(patch, stride, cin):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_mit_block_rejects_moe():
-    with pytest.raises(NotImplementedError, match="unext_moe"):
-        ptr.MiTBlock(16, 2, moe_experts=4)
+def _moe_block_sd(p):
+    sd = {}
+    port_convert._ln(sd, "norm1", p["norm1"])
+    port_convert._ln(sd, "norm2", p["norm2"])
+    sd.update(_attn_sd("attn.", p["attn"]))
+    for name, a in p["moe_mlp"].items():
+        sd[f"moe_mlp.{name}"] = _t(a)
+    return sd
+
+
+@pytest.mark.parametrize("sr", [1, 2])
+def test_mit_block_with_moe_matches_jax(sr):
+    """MiTBlock(moe_experts=4) against JAX's MiT block with the Switch-MoE
+    FFN (``moe_mlp``, expert biases drawn off zero), float32, eval: 1e-5. It
+    has no depthwise conv, so no K3 on either path."""
+    rng = np.random.default_rng(20 + sr)
+    x = rng.standard_normal((2, 8, 8, 16)).astype(np.float32)
+    jm = jtr.MiTBlock(num_heads=2, sr_ratio=sr, moe_experts=4, drop_path=0.1)
+    v = _jax_init(jm, jnp.asarray(x))
+    _off_init(rng, v["params"])
+    for name in ("expert_fc1_bias", "expert_fc2_bias"):
+        b = v["params"]["moe_mlp"][name]
+        v["params"]["moe_mlp"][name] = (0.1 * rng.standard_normal(b.shape)).astype(np.float32)
+    want = np.asarray(jm.apply(v, jnp.asarray(x)))
+    pm = ptr.MiTBlock(16, 2, sr_ratio=sr, drop_path=0.1, moe_experts=4, use_kernels=True).eval()
+    pm.load_state_dict(_moe_block_sd(v["params"]), strict=True)
+    assert not hasattr(pm, "mlp")
+    before = k3.LAUNCHES["depthwise_conv2d"]
+    with torch.no_grad():
+        np.testing.assert_allclose(pm(_t(x)).numpy(), want, rtol=0, atol=1e-5)
+    assert k3.LAUNCHES["depthwise_conv2d"] == before
 
 
 # --- the whole models -------------------------------------------------------------------
@@ -372,8 +404,12 @@ def test_unext_keeps_user_values_and_three_stages():
     full = create_model("unext", device="cpu").module
     assert [len(getattr(full, f"block{s}")) for s in (1, 2, 3)] == [3, 4, 6]
     assert full.block1[0].mlp.dwconv.dwconv.out_channels == 512
-    with pytest.raises(NotImplementedError, match="unext_moe"):
-        create_model("unext", device="cpu", moe_experts=4)
+    # moe_experts > 0: block i of a stage has the Switch-MoE FFN where i % 2 == 1
+    moe = create_model("unext", device="cpu", moe_experts=4).module
+    for s in (1, 2, 3):
+        blocks = getattr(moe, f"block{s}")
+        assert [hasattr(b, "moe_mlp") for b in blocks] == [i % 2 == 1 for i in range(len(blocks))]
+        assert [hasattr(b, "mlp") for b in blocks] == [i % 2 == 0 for i in range(len(blocks))]
 
 
 def test_unext_s_trains_on_module_path(monkeypatch):
@@ -393,3 +429,44 @@ def test_unext_s_trains_on_module_path(monkeypatch):
     monkeypatch.setattr(k3, "depthwise_conv2d", lambda *a: calls.append(1) or real(*a))
     losses = [float(step(state, images, masks)["loss"]) for _ in range(5)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0] and calls == []
+
+
+# --- one train step against JAX ---------------------------------------------------------
+
+
+def _adam_first_moment(opt_state):
+    return next(s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)).mu
+
+
+@pytest.mark.parametrize("name,size", [("unext", 64), ("unext_s", 32)])
+def test_train_step_matches_jax(name, size):
+    """One port step (module path, float32, drop_path_rate 0) from the
+    variables of ``_jax_case`` on a seeded uint8 batch of 2 against JAX's
+    make_train_step: loss and Dice at 1e-5, every clipped first-step gradient
+    (AdamW's first moment over 0.1) within 1e-2 of its tensor's largest
+    entry plus 1e-5."""
+    v, _, _ = _jax_case(name)
+    rng = np.random.default_rng(size)
+    images = rng.integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    masks = (rng.random((2, size, size, 1)) > 0.5).astype(np.uint8)
+    m = jax_create_model(name, drop_path_rate=0.0)
+    state = JaxTrainState.create(apply_fn=m.module.apply, params=v["params"], batch_stats={},
+                                 tx=jax_make_optimizer(1e-4))
+    state, metrics = jax_make_train_step(m)(state, jnp.asarray(images), jnp.asarray(masks))
+    grads = jax.tree_util.tree_map(lambda mu: np.asarray(mu) / 0.1,
+                                   _adam_first_moment(state.opt_state))
+    grads_ref = from_jax_variables(name, {"params": grads})
+
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+
+    model = create_model(name, device="cpu", drop_path_rate=0.0)
+    model.module.load_state_dict(from_jax_variables(name, v), strict=True)
+    got = make_train_step(model)(create_train_state(model), _nchw(images), _nchw(masks))
+    np.testing.assert_allclose(got["loss"].item(), float(metrics["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(got["dice"].item(), float(metrics["dice"]), rtol=1e-5)
+    for pname, p in model.module.named_parameters():
+        g_ref = grads_ref[pname].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), g_ref, rtol=0,
+                                   atol=1e-2 * np.abs(g_ref).max() + 1e-5, err_msg=f"grad {pname}")

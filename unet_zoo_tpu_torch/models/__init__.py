@@ -15,6 +15,7 @@ from torch import nn
 
 from unet_zoo_tpu_torch.models.attention_unet import AttentionUNet
 from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
+from unet_zoo_tpu_torch.models.missformer import MISSFormer
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
 from unet_zoo_tpu_torch.models.nested_unet import NestedUNet
 from unet_zoo_tpu_torch.models.resunet import ResUnet
@@ -333,10 +334,26 @@ def _build_unext_s(in_channels, num_classes, image_size, depth, dtype, **kw):
     return _build_unext_family(True, in_channels, num_classes, dtype, kw)
 
 
+@register_model("unext_moe")
+def _build_unext_moe(in_channels, num_classes, image_size, depth, dtype, **kw):
+    # unext_s with every other MiT block's FFN a Switch-MoE (nn/moe.py), as in JAX
+    kw.setdefault("moe_experts", 4)
+    return _build_unext_family(True, in_channels, num_classes, dtype, kw)
+
+
 @register_model("wranet")
 def _build_wranet(in_channels, num_classes, image_size, depth, dtype, **kw):
     return WRANet(in_channels=in_channels, num_classes=num_classes,
                   feature_channels=kw.pop("feature_channels", 128), dtype=dtype, **kw)
+
+
+@register_model("missformer", default_image_size=512)
+def _build_missformer(in_channels, num_classes, image_size, depth, dtype, **kw):
+    # the JAX registry's entry: two reference kwargs accepted and dropped; the
+    # layers do not depend on the image size
+    kw.pop("token_mlp_mode", None)
+    kw.pop("encoder_pretrained", None)
+    return MISSFormer(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
 
 
 __all__ = [

@@ -1,4 +1,4 @@
-"""UNext / UNext-S (``unext``, ``unext_s``). Counterpart of
+"""UNext / UNext-S (``unext``, ``unext_s``, ``unext_moe``). Counterpart of
 ``unet_zoo_tpu/models/unext.py``.
 
 A three-stage tokenized encoder (overlap patch embedding, MiT blocks of
@@ -18,7 +18,11 @@ float32 and cast to the compute ``dtype`` at use.
 
 Kernel (``use_kernels``, the shared rule of ``ops.kernels.use_kernel``): each
 MiT block's ``DWConv`` runs K3, ``depthwise_conv2d``: 13 launches per
-``unext`` forward (depths 3, 4, 6), 6 per ``unext_s``.
+``unext`` forward (depths 3, 4, 6), 6 per ``unext_s``, 3 per ``unext_moe``.
+
+``unext_moe`` is ``unext_s`` with ``moe_experts`` 4: block i of a stage
+whose ``i % moe_every == moe_every - 1`` has the Switch-MoE FFN
+(``block{s}.{i}.moe_mlp``, ``nn/moe.py``), which has no depthwise conv.
 """
 
 from __future__ import annotations

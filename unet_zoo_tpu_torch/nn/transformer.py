@@ -2,7 +2,7 @@
 Counterpart of ``unet_zoo_tpu/nn/transformer.py``: stochastic depth and
 dropout (``swin_unet_v2``, UNext), overlap patch embedding,
 spatial-reduction attention, the depthwise-conv MLP and the MiT block
-(UNext).
+(UNext; with the Switch-MoE FFN of ``nn/moe.py`` in ``unext_moe``).
 
 Random draws come from an explicit ``torch.Generator`` (``None``: PyTorch's
 default one), drawn on the generator's device and moved to the input's.
@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_zoo_tpu_torch.nn.blocks import conv
+from unet_zoo_tpu_torch.nn.moe import SwitchMoEMLP
 from unet_zoo_tpu_torch.ops.kernels import depthwise as k3
 from unet_zoo_tpu_torch.ops.kernels import use_kernel
 
@@ -215,25 +216,29 @@ class DWConvMLP(nn.Module):
 
 class MiTBlock(nn.Module):
     """Pre-norm transformer block: x + attn(LN(x)), then x + mlp(LN(x)),
-    each branch through DropPath. x: [B, H, W, C]."""
+    each branch through DropPath. x: [B, H, W, C]. With ``moe_experts`` > 0
+    the FFN is ``moe_mlp``, a Switch-MoE of that many experts of the same
+    hidden width (no depthwise conv), in place of ``mlp``."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, sr_ratio: int = 1,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path: float = 0.0, moe_experts: int = 0,
                  dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "the Switch-MoE FFN of unext_moe (moe_experts > 0) is not ported yet")
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = SRAttention(dim, num_heads, sr_ratio, qkv_bias, qk_scale, attn_drop, drop,
                                 dtype)
         self.drop_path = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = DWConvMLP(dim, int(dim * mlp_ratio), drop=drop, dtype=dtype,
-                             use_kernels=use_kernels)
+        if moe_experts > 0:
+            self.moe_mlp = SwitchMoEMLP(dim, moe_experts, int(dim * mlp_ratio), dtype=dtype)
+        else:
+            self.mlp = DWConvMLP(dim, int(dim * mlp_ratio), drop=drop, dtype=dtype,
+                                 use_kernels=use_kernels)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         x = x + self.drop_path(self.attn(layer_norm(x, self.norm1), generator), generator)
-        return x + self.drop_path(self.mlp(layer_norm(x, self.norm2), generator), generator)
+        h = layer_norm(x, self.norm2)
+        h = self.moe_mlp(h) if hasattr(self, "moe_mlp") else self.mlp(h, generator)
+        return x + self.drop_path(h, generator)

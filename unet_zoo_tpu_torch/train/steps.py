@@ -4,6 +4,9 @@ Counterpart of ``unet_zoo_tpu/train/steps.py:33-196``. One step is the
 forward in train mode, the weighted multi-output loss, the backward, a
 clip of the global gradient norm to 1.0 and AdamW (weight decay 1e-5),
 with optax's semantics (:class:`ClipAdamW`), then the thresholded Dice.
+Every auxiliary loss that a module leaves in its training forward (the
+Switch-MoE load-balancing loss of ``nn/moe.py``) joins the segmentation
+loss, as JAX's step adds its ``aux_loss`` collection.
 Loss and Dice stay device scalars (no ``.item()``). The step updates the
 module, the optimizer and the step count in place, where the JAX step
 returns a new state.
@@ -20,6 +23,7 @@ from torch import nn
 from unet_zoo_tpu_torch.data.augment import random_flips, step_generator
 from unet_zoo_tpu_torch.data.datasets import prepare_images, prepare_masks
 from unet_zoo_tpu_torch.models import ZooModel
+from unet_zoo_tpu_torch.nn.moe import aux_loss_modules, pop_aux_losses
 from unet_zoo_tpu_torch.train.losses import bce_with_logits, multi_output_loss
 from unet_zoo_tpu_torch.train.metrics import dice_coefficient
 
@@ -119,13 +123,15 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     seeded from ``state.step``. ``accum_steps = k > 1`` runs k microbatches
     of B / k in turn, sums their gradients and takes one update with the
     mean; BatchNorm statistics update per microbatch, and loss and Dice are
-    the microbatch means, as in the JAX step.
+    the microbatch means, as in the JAX step. The loss of each microbatch
+    includes the auxiliary losses of its forward (:func:`pop_aux_losses`).
     """
     if remat:
         raise NotImplementedError("remat=True (recomputing the forward in the backward) is "
                                   "not ported yet (ROADMAP Queue 1 item 12)")
     module = model.module
     device = next(module.parameters()).device
+    aux_modules = aux_loss_modules(module)
 
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
@@ -143,6 +149,8 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
         for xb, mb in zip(images.chunk(accum_steps), masks.chunk(accum_steps)):
             outputs = state.module(xb)
             loss = multi_output_loss(outputs, mb, model.loss_weight, criterion)
+            for aux in pop_aux_losses(aux_modules):
+                loss = loss + aux
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             dice_sum = dice_sum + dice_coefficient(outputs["main"].detach(), mb)

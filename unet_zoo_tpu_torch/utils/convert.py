@@ -16,7 +16,12 @@ loads with ``strict=True``. It is the inverse of the JAX package's
 * MedT's qkv Dense -> ``qkv_transform.conv`` (``Conv1d`` k=1):
   ``kernel.T[:, :, None]``; ``relative`` and the scalar gates as they are;
 * UNext: ``DWConv_0.dwconv`` -> ``mlp.dwconv.dwconv`` (the grouped conv rule),
-  ``attn.sr_norm`` -> ``attn.norm``;
+  ``attn.sr_norm`` -> ``attn.norm``; unext_moe's ``moe_mlp`` (the router and
+  the expert-stacked FFN) one to one, JAX's names and shapes;
+* missformer: the inverse of the JAX package's ``convert_missformer``
+  (``utils/convert.py:576``), so the original zoo's names: ``DWConv_0.dwconv``
+  -> ``mlp.dwconv.dwconv``, a bridge layer's ``attn.sr{i}``/``attn.sr_norm`` ->
+  ``attn.scale_reduce.sr_convs.{i}``/``attn.scale_reduce.norm``;
 * WRANet: ``alpha`` [1, 1, 1, C] -> [1, C, 1, 1]; the deformable weight
   [k, k, C, O] (HWIO) -> ``rdb.convs.0.conv.weight`` [O, C, k, k];
 * LayerNorm: scale/bias -> weight/bias; SwinV2's ``tau`` and
@@ -386,14 +391,79 @@ def _unext(variables) -> Dict[str, torch.Tensor]:
             if "sr" in blk["attn"]:
                 _conv(sd, f"{t}.attn.sr", blk["attn"]["sr"])
                 _ln(sd, f"{t}.attn.norm", blk["attn"]["sr_norm"])
-            _dense(sd, f"{t}.mlp.fc1", blk["mlp"]["fc1"])
-            _conv(sd, f"{t}.mlp.dwconv.dwconv", blk["mlp"]["DWConv_0"]["dwconv"])
-            _dense(sd, f"{t}.mlp.fc2", blk["mlp"]["fc2"])
+            if "moe_mlp" in blk:                          # unext_moe: one to one
+                for name, a in blk["moe_mlp"].items():
+                    sd[f"{t}.moe_mlp.{name}"] = _t(a)
+            else:
+                _dense(sd, f"{t}.mlp.fc1", blk["mlp"]["fc1"])
+                _conv(sd, f"{t}.mlp.dwconv.dwconv", blk["mlp"]["DWConv_0"]["dwconv"])
+                _dense(sd, f"{t}.mlp.fc2", blk["mlp"]["fc2"])
             i += 1
         _ln(sd, f"norm{s}", p[f"norm{s}"])
     for d in (1, 2, 3):
         _conv(sd, f"decoder_level{d}", p[f"decoder_level{d}"])
     _conv(sd, "final_conv", p["final_conv"])
+    return sd
+
+
+def _mixffn(sd, t, p):
+    _dense(sd, f"{t}.fc1", p["fc1"])
+    _conv(sd, f"{t}.dwconv.dwconv", p["DWConv_0"]["dwconv"])
+    _ln(sd, f"{t}.norm1", p["norm1"])
+    _dense(sd, f"{t}.fc2", p["fc2"])
+
+
+def _mf_block(sd, t, p):
+    _ln(sd, f"{t}.norm1", p["norm1"])
+    _ln(sd, f"{t}.norm2", p["norm2"])
+    for name in ("q", "kv", "proj"):
+        _dense(sd, f"{t}.attn.{name}", p["attn"][name])
+    if "sr" in p["attn"]:
+        _conv(sd, f"{t}.attn.sr", p["attn"]["sr"])
+        _ln(sd, f"{t}.attn.norm", p["attn"]["sr_norm"])
+    _mixffn(sd, f"{t}.mlp", p["mlp"])
+
+
+def _missformer(variables) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    bb = p["backbone"]
+    for s in (1, 2, 3, 4):
+        _conv(sd, f"backbone.patch_embed{s}.proj", bb[f"patch_embed{s}"]["proj"])
+        _ln(sd, f"backbone.patch_embed{s}.norm", bb[f"patch_embed{s}"]["norm"])
+        i = 0
+        while f"block{s}_{i}" in bb:
+            _mf_block(sd, f"backbone.block{s}.{i}", bb[f"block{s}_{i}"])
+            i += 1
+        _ln(sd, f"backbone.norm{s}", bb[f"norm{s}"])
+    br = p["bridge"]
+    for li in (1, 2, 3, 4):
+        layer, t = br[f"bridge_layer{li}"], f"bridge.bridge_layer{li}"
+        _ln(sd, f"{t}.norm1", layer["norm1"])
+        _ln(sd, f"{t}.norm2", layer["norm2"])
+        for c in (1, 2, 3, 4):
+            if f"proj_c{c}" in layer:
+                _dense(sd, f"{t}.proj_c{c}", layer[f"proj_c{c}"])
+        a = layer["attn"]
+        for name in ("q", "kv", "proj"):
+            _dense(sd, f"{t}.attn.{name}", a[name])
+        _ln(sd, f"{t}.attn.scale_reduce.norm", a["sr_norm"])
+        for i in (0, 1, 2):
+            _conv(sd, f"{t}.attn.scale_reduce.sr_convs.{i}", a[f"sr{i}"])
+        for m in (1, 2, 3, 4):
+            _mixffn(sd, f"{t}.mixffn{m}", layer[f"mixffn{m}"])
+    for c in (1, 2, 3, 4):
+        _dense(sd, f"bridge.proj_back_c{c}", br[f"proj_back_c{c}"])
+    for d in (3, 2, 1, 0):
+        dp, t = p[f"decoder_{d}"], f"decoder_{d}"
+        if "concat_linear" in dp:
+            _dense(sd, f"{t}.concat_linear", dp["concat_linear"])
+        for name in ("layer_former_1", "layer_former_2"):
+            _mf_block(sd, f"{t}.{name}", dp[name])
+        _dense(sd, f"{t}.layer_up.expand", dp["layer_up"]["expand"])
+        _ln(sd, f"{t}.layer_up.norm", dp["layer_up"]["norm"])
+        if "last_layer" in dp:
+            _conv(sd, f"{t}.last_layer", dp["last_layer"])
     return sd
 
 
@@ -436,10 +506,12 @@ def _wranet(variables) -> Dict[str, torch.Tensor]:
 
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "attention_unet": _attention_unet, "axialunet": _medt_family, "gated": _medt_family,
-    "logo": _medt_family, "medt": _medt_family, "medt_logo": _medt_logo, "mmunet": _mmunet,
+    "logo": _medt_family, "medt": _medt_family, "medt_logo": _medt_logo,
+    "missformer": _missformer, "mmunet": _mmunet,
     "nested_unet": _nested_unet, "resunet": _resunet, "swin_unet_v2": _swin_unet_v2,
     "u2net": _u2net, "u2net_tpu": _u2net_tpu, "u2netp": _u2net, "unet": _unet,
-    "unet_tpu": _unet_tpu, "unext": _unext, "unext_s": _unext, "wranet": _wranet}
+    "unet_tpu": _unet_tpu, "unext": _unext, "unext_moe": _unext, "unext_s": _unext,
+    "wranet": _wranet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:

@@ -92,8 +92,8 @@ def make_predictor(
     ``quant`` (from :func:`calibrate_int8`) serves those convs int8: their
     served weights (bf16-rounded when ``cast_bf16``) are quantised once,
     here, as JAX folds them into the program at trace time. The predictor
-    works on a frozen copy of the module: later changes to ``model`` do not
-    reach it.
+    works on a frozen copy of the module (``predict.module``): later changes
+    to ``model`` do not reach it.
     """
     if output not in _OUTPUTS:
         raise ValueError(f"output must be one of {_OUTPUTS}, got {output!r}")
@@ -129,4 +129,5 @@ def make_predictor(
             return probs
         return (probs > threshold).to(torch.uint8)
 
+    predict.module = net
     return predict
