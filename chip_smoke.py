@@ -201,10 +201,24 @@
    forwards. Trains ``missformer`` and ``unext_moe`` at 256px for 5 steps
    through ``make_train_step``: the loss falls, K3 never launches, and
    ``unext_moe``'s load-balancing terms are finite and in the loss.
-24. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+24. The convolutional members: serves ``raunet`` (its encoder from the
+   vendored synthetic-pretrained file, the load timed), ``transatt_unet``
+   (PAM's gamma drawn off zero), ``unet_transformer``, ``multiresunet`` and
+   ``vnet`` at registry defaults in bf16 at B=8, 256px as step 22 serves its
+   members (no kernel launches; the same bars). Trains each for 5 steps
+   through ``make_train_step`` at the default training config's learning
+   rate (the loss falls with every key at its spec's weight; vnet's and
+   transatt_unet's dropout drawn alike at every step). Calibrates and serves
+   ``transatt_unet`` and ``unet_transformer`` int8 in bf16 as step 18 serves
+   ``unet_tpu``: P2's conv 18 and 14 times a forward by counter and by
+   profiler, every launch bit for bit against its plain version, int8
+   against float within JAX's bars, and the conv at every launch shape
+   against its bound and cuDNN's bf16 conv.
+25. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
-Steps 17-20, with step 22's int8 ``attention_unet``, run right after step 4.
+Steps 17-20, with step 22's int8 ``attention_unet`` and step 24's int8
+``transatt_unet`` and ``unet_transformer``, run right after step 4.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the repository; it imports nothing of JAX.
@@ -408,12 +422,15 @@ WRANET_MASK_SCALE = 1.5
 # (float32 activations), so the kernel and the plain path quantise the same
 # convs.
 UNET_TPU_WIDTHS = (128, 256, 512, 512)
-INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18, "attention_unet": 22}
+INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18, "attention_unet": 22, "transatt_unet": 18,
+                 "unet_transformer": 14}
 # the int8 models served in bf16 with bf16-rounded weights (unet: float32);
 # attention_unet (registry depth 5) is phase 22's, run with 17-20; its 22
 # gated convs: 10 in the encoder, 4 after the nearest 2x upsamplings, 8 in
-# the decoder
-INT8_BF16 = ("unet_tpu", "attention_unet")
+# the decoder. transatt_unet and unet_transformer are phase 24's, run with
+# 17-20 too: the double convs of the encoder (5 and 4) and of the decoder
+# (4 and 3)
+INT8_BF16 = ("unet_tpu", "attention_unet", "transatt_unet", "unet_transformer")
 # int8 kernel path against the int8 plain path (the same integer sums and
 # epilogue: expected bit for bit), and int8 against the float predictor of
 # the same type: JAX's own bars (tests/test_quant.py:57-60)
@@ -471,10 +488,21 @@ UNEXT_MOE_LAUNCHES = 3
 # transformer layers of random weights; the kernel path within 1.25 times the
 # plain path's distance to f32 compute. unext_moe keeps unext's bars.
 MISSFORMER_REL_L2, MISSFORMER_AGREE, MISSFORMER_F32_RATIO = 3e-2, 0.99, 1.25
-# both trained 5 steps at the default training config's learning rate (1e-4):
+# both trained CORE_TRAIN_STEPS steps at the default training config's learning rate (1e-4):
 # at 1e-3 the unext family's loss swings up tenfold in the first steps from
 # random weights (unext_s as unext_moe: 1.7 -> 23.4 -> 5.4 in float32)
-CARRIER_TRAIN_STEPS, CARRIER_LR = 5, 1e-4
+CARRIER_LR = 1e-4
+# phase 24: the convolutional members at registry defaults, served in bf16
+# (B=8, 256px) against float32 compute at phase 22's bars and trained
+# CORE_TRAIN_STEPS steps at the default training config's learning rate
+# (CARRIER_LR). transatt_unet's PAM gamma (zero at init: the spatial
+# attention would add nothing) is set to PAM_GAMMA on every model built.
+# vnet's channel dropout (0.5) and transatt_unet's attention dropout (0.1)
+# draw from a generator re-seeded to DROPOUT_SEED before every step, so that
+# the steps descend one objective.
+CONV_MEMBERS = ("raunet", "transatt_unet", "unet_transformer", "multiresunet", "vnet")
+PAM_GAMMA = 0.5
+DROPOUT_SEED = 7
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -2909,8 +2937,9 @@ def int8_faults(torch, x, s_x, wq, scale, bias, stride, dtype):
 
 def check_int8_conv(torch, gen, device):
     """P2's int8 conv against its plain version, bit for bit, at every
-    distinct launch shape of the served unet_tpu (bf16 x and out) and unet
-    (float32) at B=8/256px and at odd shapes (Ci 3 and 20, odd H and W,
+    distinct launch shape of the served unet_tpu (bf16 x and out), unet
+    (float32), transatt_unet and unet_transformer (bf16) at B=8/256px and at
+    odd shapes (Ci 3 and 20, odd H and W,
     stride 2 on an odd size, Co not a multiple of the tile), x drawn by
     int8_conv_case; the comparison is shown to reject planted faults
     (int8_faults) on the first image of each shape. Returns the max abs error
@@ -2919,6 +2948,9 @@ def check_int8_conv(torch, gen, device):
 
     cases = [(*row[:6], torch.bfloat16) for row in int8_launch_shapes("unet_tpu")]
     cases += [(*row[:6], torch.float32) for row in int8_launch_shapes("unet")]
+    # the shapes phase 24's int8 transatt_unet and unet_transformer add
+    cases += sorted({(*row[:6], torch.bfloat16) for name in ("transatt_unet", "unet_transformer")
+                     for row in int8_launch_shapes(name)} - set(cases), key=str)
     cases += [(2, 37, 45, 3, 24, 1, torch.bfloat16), (1, 33, 29, 20, 40, 2, torch.float32),
               (2, 31, 31, 48, 130, 2, torch.bfloat16)]
     err = 0.0
@@ -2990,8 +3022,8 @@ def serve_int8(torch, gen, device, name):
     tpu = name in INT8_BF16
     dtype, want = (torch.bfloat16 if tpu else torch.float32), INT8_LAUNCHES[name]
     float_rel_l2, float_agree = INT8_FLOAT_BARS.get(name, (INT8_FLOAT_REL_L2, INT8_FLOAT_AGREE))
-    kern = create_model(name, dtype=dtype, seed=0)
-    plain = create_model(name, dtype=dtype, seed=0, use_kernels=False)
+    kern = member_model(torch, name, dtype)
+    plain = member_model(torch, name, dtype, use_kernels=False)
     log(f"{name} ({str(dtype)[6:]}): {sum(p.numel() for p in kern.module.parameters()) / 1e6:.2f}"
         " M parameters")
     batches = [torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
@@ -3574,20 +3606,30 @@ def kernel_counters():
     return [mod.LAUNCHES for mod in mods if hasattr(mod, "LAUNCHES")]
 
 
+def member_model(torch, name, dtype, **kw):
+    """``create_model(name)`` at its registry defaults, CORE_MEMBERS' options
+    over them, from seed 0, with transatt_unet's PAM gamma at PAM_GAMMA."""
+    from unet_zoo_tpu_torch import create_model
+
+    model = create_model(name, dtype=dtype, seed=0, **CORE_MEMBERS.get(name, {}), **kw)
+    if name == "transatt_unet":
+        with torch.no_grad():
+            model.module.pam.gamma.fill_(PAM_GAMMA)
+    return model
+
+
 def serve_core(torch, gen, device, name):
-    """``name`` at its CORE_MEMBERS registry defaults, served in bf16 through
+    """``name`` (``member_model``), served in bf16 through
     ``make_predictor`` at B=8/256px, against float32 compute on the same
     bf16-rounded weights: every output key finite and of the input's size,
     the main logits' rel L2 and mask agreement within CORE_REL_L2 and
     CORE_AGREE; img/s, device busy and idle share by the profiler, peak
     memory. No hand-written kernel runs on these float paths: every kernel
     counter must read 0 after the forward."""
-    from unet_zoo_tpu_torch import create_model
     from unet_zoo_tpu_torch.utils.serving import make_predictor
 
-    kw = CORE_MEMBERS[name]
     x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
-    bf16 = create_model(name, dtype=torch.bfloat16, seed=0, **kw)
+    bf16 = member_model(torch, name, torch.bfloat16)
     params = sum(p.numel() for p in bf16.module.parameters()) / 1e6
     pred = make_predictor(bf16, None, "logits")
     with torch.inference_mode():
@@ -3605,7 +3647,7 @@ def serve_core(torch, gen, device, name):
     lb = pred(x).float()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    f32 = create_model(name, dtype=torch.float32, seed=0, **kw)
+    f32 = member_model(torch, name, torch.float32)
     lf = make_predictor(f32, None, "logits")(x).float()
     del f32
     launches = {k: n for counts in counters for k, n in counts.items() if n}
@@ -3628,19 +3670,21 @@ def serve_core(torch, gen, device, name):
                 device_busy_ms=busy, idle_share=1 - busy / med, peak_gib=peak, **readings)
 
 
-def train_core(torch, gen, device, name):
-    """``name`` (CORE_MEMBERS defaults) trained in bf16 on float32 parameters
+def train_core(torch, gen, device, name, learning_rate=1e-3):
+    """``name`` (``member_model``) trained in bf16 on float32 parameters
     through ``make_train_step`` for CORE_TRAIN_STEPS steps on one seeded
     B=8/256px batch: the loss must fall, and every output key must enter it
     at its spec's weight (``multi_output_loss`` read through a wrapper);
-    train img/s over the steps after the first, peak memory."""
-    from unet_zoo_tpu_torch import create_model
+    train img/s over the steps after the first, peak memory. The step's
+    dropout generator is re-seeded to DROPOUT_SEED before every step (the
+    same units dropped each step, where the forward draws any)."""
     from unet_zoo_tpu_torch.train import steps as train_steps
     from unet_zoo_tpu_torch.train import create_train_state, make_train_step
 
-    model = create_model(name, dtype=torch.bfloat16, seed=0, **CORE_MEMBERS[name])
-    state = create_train_state(model, learning_rate=1e-3)
+    model = member_model(torch, name, torch.bfloat16)
+    state = create_train_state(model, learning_rate=learning_rate)
     images, masks = train_batch(torch, gen, SERVE_BATCH, IMAGE, device)
+    drop_gen = torch.Generator(device=device)
     weighted = []
     loss_fn = train_steps.multi_output_loss
 
@@ -3650,7 +3694,7 @@ def train_core(torch, gen, device, name):
 
     train_steps.multi_output_loss = recording
     try:
-        step = make_train_step(model)
+        step = make_train_step(model, generator=drop_gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         losses, t0 = [], None
@@ -3658,6 +3702,7 @@ def train_core(torch, gen, device, name):
             if i == 1:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+            drop_gen.manual_seed(DROPOUT_SEED)
             losses.append(step(state, images, masks)["loss"])
         torch.cuda.synchronize()
         rate = SERVE_BATCH * (CORE_TRAIN_STEPS - 1) / (time.perf_counter() - t0)
@@ -3665,7 +3710,7 @@ def train_core(torch, gen, device, name):
         train_steps.multi_output_loss = loss_fn
     losses = [float(v) for v in losses]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = CORE_LOSS_WEIGHTS[name]
+    want = CORE_LOSS_WEIGHTS.get(name, {"main": 1.0})
     log(f"train {name} bf16 B={SERVE_BATCH} {IMAGE}px: losses {[round(v, 5) for v in losses]}, "
         f"{rate:.1f} img/s after the first step, peak {peak:.2f} GiB; keys and weights in the "
         f"loss {weighted[0]}")
@@ -3711,7 +3756,7 @@ def moe_drop_shares(module):
 
 def train_k3_carrier(torch, gen, device, name, image):
     """Registry-default ``name`` in bf16 on float32 parameters trained for
-    CARRIER_TRAIN_STEPS steps at CARRIER_LR on one seeded B=8 batch at
+    CORE_TRAIN_STEPS steps at CARRIER_LR on one seeded B=8 batch at
     ``image`` through ``make_train_step``: the loss must fall and K3 must not
     launch (training runs the module path: K3 has no backward). One
     train-mode forward on the batch before the steps leaves the auxiliary
@@ -3736,14 +3781,14 @@ def train_k3_carrier(torch, gen, device, name, image):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, drops, t0 = [], [], None
-    for i in range(CARRIER_TRAIN_STEPS):
+    for i in range(CORE_TRAIN_STEPS):
         if i == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         losses.append(step(state, images, masks)["loss"])
         drops.append(moe_drop_shares(state.module))
     torch.cuda.synchronize()
-    rate = SERVE_BATCH * (CARRIER_TRAIN_STEPS - 1) / (time.perf_counter() - t0)
+    rate = SERVE_BATCH * (CORE_TRAIN_STEPS - 1) / (time.perf_counter() - t0)
     k3_launches = k3.LAUNCHES["depthwise_conv2d"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
@@ -3811,6 +3856,34 @@ def k3_carriers(torch, seeded, device):
         log(f"K3 per {key} forward: {per_config[key]}")
     return dict(max_abs_err=err, served=served, trained=trained, per_config=per_config,
                 shapes=rows)
+
+
+def conv_members(torch, seeded, device):
+    """Phase 24: the convolutional members (CONV_MEMBERS) served in bf16 at
+    B=8/256px against float32 compute (``serve_core``: no kernel launches,
+    phase 22's bars) and trained CORE_TRAIN_STEPS steps at CARRIER_LR
+    (``train_core``); raunet's vendored encoder decoded first, cold, and
+    timed (its int8 members run with 17-20)."""
+    from unet_zoo_tpu_torch.utils import pretrained
+
+    t0 = time.perf_counter()
+    sd, meta = pretrained.vendored_encoder(pretrained.VENDORED_RAUNET_ENCODER)
+    load_s = time.perf_counter() - t0
+    log(f"raunet: the vendored encoder ({len(sd)} tensors, task {meta.get('task')!r}) read and "
+        f"decoded in {load_s:.3f} s")
+    t0 = time.perf_counter()
+    member_model(torch, "raunet", torch.bfloat16)
+    create_s = time.perf_counter() - t0
+    log(f"raunet: create_model with the encoder overlaid in {create_s:.3f} s")
+    served, trained = {}, {}
+    for name in CONV_MEMBERS:
+        served[name] = serve_core(torch, seeded("serve_conv", name), device, name)
+        torch.cuda.empty_cache()
+    for name in CONV_MEMBERS:
+        trained[name] = train_core(torch, seeded("train_conv", name), device, name, CARRIER_LR)
+        torch.cuda.empty_cache()
+    return dict(raunet_encoder_load_s=load_s, raunet_create_s=create_s, serving=served,
+                training=trained)
 
 
 def mma_counts(build, stem="int8_gemm"):
@@ -4057,7 +4130,12 @@ def main() -> int:
     # 23. the K3 carriers of this slice: missformer (512px and 256px) and
     # unext_moe served and trained, K3 at the launch shapes they add
     carriers = k3_carriers(torch, seeded, device)
-    lap("K3 carriers (missformer, unext_moe)", t_phase)
+    t_phase = lap("K3 carriers (missformer, unext_moe)", t_phase)
+
+    # 24. the convolutional members: raunet, transatt_unet, unet_transformer,
+    # multiresunet and vnet served and trained (their int8 ran with 17-20)
+    conv = conv_members(torch, seeded, device)
+    lap("conv members (P2)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -4311,6 +4389,7 @@ def main() -> int:
         "serving": int8_serving,
         "shapes": p2_rows,
         "core_members": {"serving": core, "training": core_train},
+        "conv_members": conv,
     }, {
         "name": "matmul",
         "route": "cuda",

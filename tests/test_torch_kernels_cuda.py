@@ -1484,6 +1484,34 @@ def test_int8_conv_kernel_matches_reference(cuda_device, xdtype, b, h, w, ci, co
         assert not torch.equal(got, fault)
 
 
+def _carrier_conv_shapes():
+    """Each distinct int8 conv launch shape of the served transatt_unet and
+    unet_transformer (256px), at B=8 (the served batch)."""
+    from unet_zoo_tpu_torch.probes.int8_conv_plan import launch_shapes
+
+    rows = []
+    for name in ("transatt_unet", "unet_transformer"):
+        rows += [row[:6] for row in launch_shapes(name, 256, 8) if row[:6] not in rows]
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co,stride", _carrier_conv_shapes())
+def test_int8_conv_matches_reference_at_carrier_shapes(cuda_device, b, h, w, ci, co, stride):
+    """P2 at every launch shape of int8 transatt_unet and unet_transformer
+    (bf16 x and out, as served), one launch each, bit for bit with its plain
+    version; a planted fault (the bias dropped) is told apart."""
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, torch.bfloat16)
+    before = p2.LAUNCHES["int8_conv3x3"]
+    got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES["int8_conv3x3"] - before == 1
+    want = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, torch.bfloat16)
+    assert got.shape == (b, h, w, co) and torch.equal(got, want)
+    assert not torch.equal(got, p2.int8_conv3x3_reference(x, s_x, wp, scale, None, stride,
+                                                          torch.bfloat16))
+
+
 @pytest.mark.cuda
 def test_int8_conv_splits_k_and_copies_strided_x(cuda_device):
     """A shape the plan splits: the counters are all 0 again after the
@@ -1596,7 +1624,9 @@ def test_new_sources_build_without_spills(cuda_device):
 @pytest.mark.parametrize("name,dtype,launches", [("unet_tpu", torch.bfloat16, 17),
                                                  ("unet", torch.float32, 18),
                                                  ("attention_unet", torch.bfloat16, 22),
-                                                 ("nested_unet", torch.bfloat16, 30)])
+                                                 ("nested_unet", torch.bfloat16, 30),
+                                                 ("transatt_unet", torch.bfloat16, 18),
+                                                 ("unet_transformer", torch.bfloat16, 14)])
 def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
     """Calibrated int8 serving (B=2, 64px): the int8 conv kernel on every
     gated conv, K1 not at all in the float32 unet; the kernel path's logits

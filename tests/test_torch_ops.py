@@ -136,9 +136,10 @@ def test_registry_surface():
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
     assert list_models() == ["attention_unet", "axialunet", "gated", "logo", "medt",
-                             "medt_logo", "missformer", "mmunet", "nested_unet", "resunet",
-                             "swin_unet_v2", "u2net", "u2net_tpu", "u2netp", "unet", "unet_tpu",
-                             "unext", "unext_moe", "unext_s", "wranet"]
+                             "medt_logo", "missformer", "mmunet", "multiresunet", "nested_unet",
+                             "raunet", "resunet", "swin_unet_v2", "transatt_unet", "u2net",
+                             "u2net_tpu", "u2netp", "unet", "unet_tpu", "unet_transformer",
+                             "unext", "unext_moe", "unext_s", "vnet", "wranet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)
@@ -159,9 +160,14 @@ def test_registry_surface():
         create_model("unet", device="cpu", use_pallas=True, use_kernels=True)
     from unet_zoo_tpu_torch.models import _REGISTRY
 
-    for name in ("attention_unet", "nested_unet", "resunet", "u2net", "u2netp", "u2net_tpu"):
+    for name in ("attention_unet", "nested_unet", "resunet", "u2net", "u2netp", "u2net_tpu",
+                 "raunet", "transatt_unet", "unet_transformer", "multiresunet", "vnet"):
         assert get_model_config(name) == {}
         for key in ("main", "side1", "side4"):
             assert _REGISTRY[name].loss_weight(key) == JAX_REGISTRY[name].loss_weight(key)
+        assert (_REGISTRY[name].requires_image_size, _REGISTRY[name].default_image_size,
+                _REGISTRY[name].pretrained_by_default) == (
+            JAX_REGISTRY[name].requires_image_size, JAX_REGISTRY[name].default_image_size,
+            JAX_REGISTRY[name].pretrained_by_default)
     with pytest.raises(ValueError, match="Unknown model"):
-        create_model("transatt_unet", device="cpu")
+        create_model("uctransnet", device="cpu")

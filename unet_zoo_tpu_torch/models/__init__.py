@@ -8,6 +8,7 @@ the members ported so far.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import torch
@@ -17,16 +18,22 @@ from unet_zoo_tpu_torch.models.attention_unet import AttentionUNet
 from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.missformer import MISSFormer
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
+from unet_zoo_tpu_torch.models.multiresunet import MultiResUnet
 from unet_zoo_tpu_torch.models.nested_unet import NestedUNet
+from unet_zoo_tpu_torch.models.raunet import RAUNet
 from unet_zoo_tpu_torch.models.resunet import ResUnet
 from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinUNetV2
+from unet_zoo_tpu_torch.models.transatt_unet import TransAttUNet
 from unet_zoo_tpu_torch.models.u2net import U2Net
 from unet_zoo_tpu_torch.models.u2net_tpu import U2NetTPU
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.models.unet_tpu import UNetTPU
+from unet_zoo_tpu_torch.models.unet_transformer import UTransformer
 from unet_zoo_tpu_torch.models.unext import UNext
+from unet_zoo_tpu_torch.models.vnet import VNet
 from unet_zoo_tpu_torch.models.wranet import WRANet
 from unet_zoo_tpu_torch.nn import init_weights
+from unet_zoo_tpu_torch.utils import pretrained as pretrained_weights
 
 
 class ConfigDict(dict):
@@ -56,6 +63,13 @@ class ModelSpec:
     loss_weights: Mapping[str, float] = dataclasses.field(default_factory=dict)
     default_aux_weight: float = 0.5
     config_fn: Optional[Callable[..., Any]] = None
+    # pretrained_loader(weights_path) -> overlay(module) or None: file-based
+    # pretrained weights, put over the freshly drawn ones (raunet's encoder)
+    pretrained_loader: Optional[Callable[[Optional[str]], Any]] = None
+    # entries that load their pretrained weights when create_model's
+    # ``pretrained`` is left unspecified (raunet, whose original constructor
+    # always loads its encoder)
+    pretrained_by_default: bool = False
 
     def loss_weight(self, key: str) -> float:
         if key in self.loss_weights:
@@ -121,7 +135,10 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
 
     ``in_channels`` (3), ``num_classes`` (1), ``image_size`` and ``depth``
     (5) as in the JAX registry; the remaining kwargs go to the model, user
-    values winning over defaults. Port-specific: ``dtype`` (compute type,
+    values winning over defaults. ``pretrained`` None takes the entry's
+    default (True for raunet alone); ``weights_path`` names a pretrained file
+    for the entry's loader (raunet: a torchvision resnet34 ``.pth``).
+    Port-specific: ``dtype`` (compute type,
     ``torch.float32`` or ``torch.bfloat16``), ``device`` (default
     ``"cuda"``; raises when CUDA is absent, never falls back to the CPU),
     ``seed`` (weights drawn from a ``torch.Generator`` on the CPU, so one
@@ -134,6 +151,8 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
     if key not in _REGISTRY:
         raise ValueError(f"Unknown model: '{model_name}'. Available models: {list_models()}")
     spec = _REGISTRY[key]
+    if pretrained is None:
+        pretrained = spec.pretrained_by_default
 
     in_channels = kwargs.pop("in_channels", 3)
     num_classes = kwargs.pop("num_classes", 1)
@@ -142,6 +161,7 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
     dtype = kwargs.pop("dtype", torch.float32)
     device = _resolve_device(kwargs.pop("device", "cuda"))
     seed = kwargs.pop("seed", 0)
+    weights_path = kwargs.pop("weights_path", None)
     if "use_pallas" in kwargs:
         if "use_kernels" in kwargs:
             raise ValueError("pass use_kernels or use_pallas, not both")
@@ -153,15 +173,74 @@ def create_model(model_name: str, pretrained: Optional[bool] = None,
         raise ValueError(f"Model '{model_name}' requires 'image_size' parameter in config.")
     if image_size is None:
         image_size = spec.default_image_size
-    if pretrained:
-        print(f"Warning: Pre-trained weights for {model_name} are not yet implemented.")
 
     module = spec.build(in_channels=in_channels, num_classes=num_classes,
                         image_size=image_size, depth=depth, dtype=dtype, **kwargs)
     init_weights(module, torch.Generator().manual_seed(seed))
+    if pretrained:
+        if spec.pretrained_loader is None:
+            print(f"Warning: Pre-trained weights for {model_name} are not yet implemented.")
+        else:
+            overlay = spec.pretrained_loader(weights_path)
+            if overlay is not None:
+                overlay(module)
     module = module.to(device=device, memory_format=torch.channels_last).eval()
     return ZooModel(name=key, module=module, spec=spec, in_channels=in_channels,
                     num_classes=num_classes, image_size=image_size)
+
+
+def _raunet_pretrained_loader(weights_path: Optional[str] = None
+                              ) -> Optional[Callable[[nn.Module], None]]:
+    """The overlay of RAUNet's pretrained encoder, resolved as JAX's
+    ``_raunet_pretrained_loader`` resolves it: ``weights_path`` (a
+    torchvision resnet34 ``.pth``), then ``$UNET_ZOO_RESNET34`` (such a
+    file), then the JAX package's vendored synthetic-pretrained encoder
+    (``utils/pretrained.py`` decodes it); None (random init, with a warning)
+    when none exists."""
+    if weights_path is None:
+        weights_path = os.environ.get("UNET_ZOO_RESNET34") or None
+        if weights_path and not os.path.exists(weights_path):
+            print(f"Warning: $UNET_ZOO_RESNET34={weights_path} does not exist; ignoring.")
+            weights_path = None
+    if weights_path is not None:
+        return lambda module: _overlay_encoder(
+            module, pretrained_weights.torchvision_encoder(weights_path))
+    path = pretrained_weights.VENDORED_RAUNET_ENCODER
+    if not os.path.exists(path):
+        print("Warning: 'raunet' pretrained=True found no weights - pass "
+              "weights_path=<torchvision resnet34 .pth> or set $UNET_ZOO_RESNET34. "
+              "Using random init.")
+        return None
+
+    def overlay(module: nn.Module) -> None:
+        sd, meta = pretrained_weights.vendored_encoder(path)
+        print("raunet: using the vendored synthetic-pretrained encoder "
+              f"({os.path.basename(path)}; task={meta.get('task', '?')}). For the "
+              "original zoo's ImageNet init, pass weights_path=<torchvision resnet34 .pth> "
+              "or set $UNET_ZOO_RESNET34.")
+        _overlay_encoder(module, sd)
+
+    return overlay
+
+
+@torch.no_grad()
+def _overlay_encoder(module: nn.Module, encoder: Mapping[str, torch.Tensor]) -> None:
+    """Copy ``encoder`` (the port's encoder keys) over ``module``'s own
+    parameters and running statistics, in their float32; every key must be
+    the module's, at its shape, and every encoder parameter and statistic
+    must be given."""
+    own = module.state_dict()
+    want = {k for k in own if k.startswith(("firstconv.", "firstbn.", "encoder"))
+            and not k.endswith("num_batches_tracked")}
+    if set(encoder) != want:
+        raise ValueError(f"pretrained encoder keys differ from the model's: missing "
+                         f"{sorted(want - set(encoder))[:5]}, unexpected "
+                         f"{sorted(set(encoder) - want)[:5]}")
+    for k, v in encoder.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"pretrained encoder weight {k} shape {tuple(v.shape)} does not "
+                             f"match model {tuple(own[k].shape)}")
+        own[k].copy_(v)
 
 
 # --- registrations -----------------------------------------------------------
@@ -188,6 +267,25 @@ def _build_nested_unet(in_channels, num_classes, image_size, depth, dtype, **kw)
 def _build_resunet(in_channels, num_classes, image_size, depth, dtype, **kw):
     return ResUnet(in_channels=in_channels, num_classes=num_classes,
                    filters=tuple(kw.pop("filters", (64, 128, 256, 512))), dtype=dtype, **kw)
+
+
+@register_model("transatt_unet")
+def _build_transatt_unet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return TransAttUNet(in_channels=in_channels, num_classes=num_classes,
+                        bilinear=kw.pop("bilinear", True), dtype=dtype, **kw)
+
+
+@register_model("unet_transformer")
+def _build_unet_transformer(in_channels, num_classes, image_size, depth, dtype, **kw):
+    attn_res = tuple(kw.pop("common_attn_res_for_QK_V", (64, 64)))
+    return UTransformer(in_channels=in_channels, num_classes=num_classes,
+                        bilinear=kw.pop("bilinear", True), attn_res=attn_res, dtype=dtype, **kw)
+
+
+@register_model("multiresunet")
+def _build_multiresunet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    return MultiResUnet(in_channels=in_channels, num_classes=num_classes,
+                        filters=kw.pop("filters", 32), dtype=dtype, **kw)
 
 
 # the JAX registry's unit side weights (unet_zoo_tpu/models/__init__.py:260-263, :374-376)
@@ -345,6 +443,20 @@ def _build_unext_moe(in_channels, num_classes, image_size, depth, dtype, **kw):
 def _build_wranet(in_channels, num_classes, image_size, depth, dtype, **kw):
     return WRANet(in_channels=in_channels, num_classes=num_classes,
                   feature_channels=kw.pop("feature_channels", 128), dtype=dtype, **kw)
+
+
+@register_model("raunet", pretrained_loader=_raunet_pretrained_loader,
+                pretrained_by_default=True)
+def _build_raunet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    kw.pop("use_kernels", None)   # no kernel on its path
+    return RAUNet(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
+
+
+@register_model("vnet")
+def _build_vnet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    kw.pop("use_kernels", None)   # no kernel on its path
+    return VNet(in_channels=in_channels, num_classes=num_classes, elu=kw.pop("elu", True),
+                nll=kw.pop("nll", False), dtype=dtype, **kw)
 
 
 @register_model("missformer", default_image_size=512)

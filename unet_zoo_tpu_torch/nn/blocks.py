@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from unet_zoo_tpu_torch.ops import max_pool2d, pad_to_match, quant, upsample2x_nearest
+from unet_zoo_tpu_torch.ops import (max_pool2d, pad_to_match, quant, resize_bilinear,
+                                    upsample2x_nearest)
 from unet_zoo_tpu_torch.ops.kernels import int8_gemm, use_kernel
 from unet_zoo_tpu_torch.ops.kernels.fused_up import (
     fold_conv_bn,
@@ -55,6 +56,14 @@ def conv(x: torch.Tensor, module: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor
     return module._conv_forward(x, module.weight.to(dtype), bias)
 
 
+def conv_transpose(x: torch.Tensor, module: nn.ConvTranspose2d, dtype: torch.dtype
+                   ) -> torch.Tensor:
+    """``module``'s transposed convolution (stride, padding) computed in ``dtype``."""
+    bias = None if module.bias is None else module.bias.to(dtype)
+    return F.conv_transpose2d(x, module.weight.to(dtype), bias, module.stride, module.padding,
+                              module.output_padding, module.groups, module.dilation)
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """``bn`` on a ``dtype`` input: float32 statistics and affine, so it
     normalises in float32 and returns the input's type.
@@ -65,9 +74,12 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     (``unet_zoo_tpu/nn/blocks.py:36-46``) with the *biased* variance (see
     :func:`update_running_stats`). ``F.batch_norm`` hands its batch mean
     and unbiased variance out through momentum-1 buffers; the biased
-    variance is the latter times (n - 1) / n.
+    variance is the latter times (n - 1) / n. An affine-less ``bn``
+    (``affine=False``, JAX's ``use_scale=False, use_bias=False``) has no
+    weight or bias.
     """
-    weight, bias = bn.weight.float(), bn.bias.float()
+    weight = None if bn.weight is None else bn.weight.float()
+    bias = None if bn.bias is None else bn.bias.float()
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, weight, bias, False, 0.0,
                             bn.eps)
@@ -179,48 +191,65 @@ def gated_conv(x: torch.Tensor, conv_m: nn.Conv2d, dtype: torch.dtype,
 
 
 def conv_norm_act(x: torch.Tensor, conv_m: nn.Conv2d, bn: nn.BatchNorm2d,
-                  dtype: torch.dtype, use_kernels: Optional[bool] = None) -> torch.Tensor:
-    """conv -> BatchNorm -> ReLU (the JAX package's ``ConvNormAct``), the conv
-    int8-gated (:func:`gated_conv`).
+                  dtype: torch.dtype, use_kernels: Optional[bool] = None,
+                  act: Optional[str] = "relu") -> torch.Tensor:
+    """conv -> BatchNorm -> activation (the JAX package's ``ConvNormAct``),
+    the conv int8-gated (:func:`gated_conv`); ``act`` names a ``torch``
+    function, None leaves the BN output as it is.
 
     A function over the two modules rather than a module of its own, so
     that ``DoubleConv`` keeps the original zoo's flat ``conv_op`` indices.
     """
-    return torch.relu(batch_norm(gated_conv(x, conv_m, dtype, use_kernels), bn))
+    x = batch_norm(gated_conv(x, conv_m, dtype, use_kernels), bn)
+    return x if act is None else getattr(torch, act)(x)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+def _bn(channels: int, affine: bool = True) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1, affine=affine)
 
 
 class ConvNormAct(nn.Module):
-    """One conv(3x3, stride, dilation, size-keeping padding) -> BN -> ReLU
-    block, int8-gated (JAX ``ConvNormAct``)."""
+    """conv(k, stride, dilation) -> BN -> activation (:func:`conv_norm_act`;
+    JAX ``ConvNormAct``), padded to keep the size. ``bn_affine=False`` is a
+    BN without weight or bias. The int8 kernel takes only the 3x3 ones
+    (:func:`prepare_int8_conv`)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None,
-                 dilation: int = 1):
+                 dilation: int = 1, kernel_size: int = 3, act: Optional[str] = "relu",
+                 bn_affine: bool = True):
         super().__init__()
         self.dtype = dtype
         self.use_kernels = use_kernels
-        self.conv = nn.Conv2d(in_channels, out_channels, 3, stride=stride, padding=dilation,
-                              dilation=dilation)
-        self.bn = _bn(out_channels)
+        self.act = act
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                              padding=dilation * (kernel_size // 2), dilation=dilation)
+        self.bn = _bn(out_channels, bn_affine)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_norm_act(x, self.conv, self.bn, self.dtype, self.use_kernels)
+        return conv_norm_act(x, self.conv, self.bn, self.dtype, self.use_kernels, self.act)
 
 
-def _double_conv(in_channels: int, out_channels: int) -> nn.Sequential:
-    """The original zoo's (conv3x3 -> BN -> ReLU) x 2 Sequential."""
+def _double_conv(in_channels: int, out_channels: int,
+                 mid_channels: Optional[int] = None) -> nn.Sequential:
+    """The original zoo's (conv3x3 -> BN -> ReLU) x 2 Sequential, through
+    ``mid_channels`` (``out_channels`` if None)."""
+    mid_channels = out_channels if mid_channels is None else mid_channels
     return nn.Sequential(
-        nn.Conv2d(in_channels, out_channels, 3, padding=1),
-        _bn(out_channels),
+        nn.Conv2d(in_channels, mid_channels, 3, padding=1),
+        _bn(mid_channels),
         nn.ReLU(inplace=True),
-        nn.Conv2d(out_channels, out_channels, 3, padding=1),
+        nn.Conv2d(mid_channels, out_channels, 3, padding=1),
         _bn(out_channels),
         nn.ReLU(inplace=True),
     )
+
+
+def double_conv_norm_act(x: torch.Tensor, op: nn.Sequential, dtype: torch.dtype,
+                         use_kernels: Optional[bool] = None) -> torch.Tensor:
+    """A :func:`_double_conv` Sequential on ``x``, both convs int8-gated."""
+    x = conv_norm_act(x, op[0], op[1], dtype, use_kernels)
+    return conv_norm_act(x, op[3], op[4], dtype, use_kernels)
 
 
 class DoubleConv(nn.Module):
@@ -234,8 +263,7 @@ class DoubleConv(nn.Module):
         self.conv_op = _double_conv(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv_norm_act(x, self.conv_op[0], self.conv_op[1], self.dtype, self.use_kernels)
-        return conv_norm_act(x, self.conv_op[3], self.conv_op[4], self.dtype, self.use_kernels)
+        return double_conv_norm_act(x, self.conv_op, self.dtype, self.use_kernels)
 
 
 class ConvBlock(nn.Module):
@@ -250,8 +278,7 @@ class ConvBlock(nn.Module):
         self.conv = _double_conv(in_channels, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv_norm_act(x, self.conv[0], self.conv[1], self.dtype, self.use_kernels)
-        return conv_norm_act(x, self.conv[3], self.conv[4], self.dtype, self.use_kernels)
+        return double_conv_norm_act(x, self.conv, self.dtype, self.use_kernels)
 
 
 class DoubleConvMid(nn.Module):
@@ -272,6 +299,54 @@ class DoubleConvMid(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = conv_norm_act(x, self.conv1, self.bn1, self.dtype, self.use_kernels)
         return conv_norm_act(x, self.conv2, self.bn2, self.dtype, self.use_kernels)
+
+
+class ZooDoubleConv(nn.Module):
+    """``DoubleConvMid`` as the original zoo's ``common_layers.DoubleConv``
+    names it (``double_conv.{0,1,3,4}``): conv3x3 -> BN -> ReLU to
+    ``mid_channels``, then to ``out_channels``, both convs int8-gated."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.use_kernels = use_kernels
+        self.double_conv = _double_conv(in_channels, out_channels, mid_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return double_conv_norm_act(x, self.double_conv, self.dtype, self.use_kernels)
+
+
+class Down(nn.Module):
+    """2x2 max pool -> :class:`ZooDoubleConv` (JAX ``Down``; the original
+    zoo's ``maxpool_conv.1``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.maxpool_conv = nn.Sequential(
+            nn.MaxPool2d(2),
+            ZooDoubleConv(in_channels, out_channels, out_channels, dtype, use_kernels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.maxpool_conv[1](max_pool2d(x, 2))
+
+
+class UpBilinear(nn.Module):
+    """Bilinear 2x resize (``align_corners=True``) -> pad to the skip ->
+    concat[skip, x] -> :class:`ZooDoubleConv` to ``mid_channels`` (the
+    original zoo's ``in // 2``), then ``out_channels`` (JAX ``UpBilinear``,
+    ``conv``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, mid_channels: int,
+                 dtype: torch.dtype = torch.float32, use_kernels: Optional[bool] = None):
+        super().__init__()
+        self.conv = ZooDoubleConv(in_channels, mid_channels, out_channels, dtype, use_kernels)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = resize_bilinear(x, (2 * x.shape[-2], 2 * x.shape[-1]), align_corners=True)
+        x = pad_to_match(x, (skip.shape[-2], skip.shape[-1]))
+        return self.conv(torch.cat([skip, x], dim=1))
 
 
 class UpConvBlock(nn.Module):
@@ -471,7 +546,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         if hasattr(m, "draw_parameters"):
             m.draw_parameters(generator)
         if isinstance(m, nn.ConvTranspose2d):
-            fan_in, gain = m.in_channels, 2.0  # k == s: each output sees Cin inputs
+            # each output sees Cin (k / s)^2 inputs on average (Cin where k == s)
+            kh, kw = m.kernel_size
+            sh, sw = m.stride
+            fan_in, gain = m.in_channels * (kh / sh) * (kw / sw), 2.0
         elif isinstance(m, nn.Conv2d):
             fan_in = m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
             gain = 2.0

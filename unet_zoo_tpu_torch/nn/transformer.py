@@ -70,13 +70,18 @@ class DropPath(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            mask_shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """Element dropout as Flax's ``nn.Dropout``: keep where u < 1 - rate and
-    scale by ``1 / (1 - rate)``; the identity in eval or at rate 0."""
+    scale by ``1 / (1 - rate)``; the identity in eval or at rate 0. The
+    uniforms u are drawn at ``mask_shape`` (default ``x``'s) and broadcast
+    over ``x``: ``(B, C, 1, 1)`` drops whole channels, as Flax's
+    ``broadcast_dims=(1, 2)`` on NHWC."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    return torch.where(_uniform(x.shape, x, generator) < keep, x / keep, torch.zeros_like(x))
+    u = _uniform(x.shape if mask_shape is None else mask_shape, x, generator)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 def linear(x: torch.Tensor, m: nn.Linear, dtype: torch.dtype) -> torch.Tensor:

@@ -33,9 +33,10 @@ UNET_TPU_WIDTHS = (128, 256, 512, 512)
 def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
     """The int8 conv's launch shapes in one forward of ``name`` (unet 64 ->
     1024 channels; attention_unet at depth 5, 64 -> 1024, each decoder level
-    a conv after the nearest 2x upsampling and a ConvBlock; unet_tpu at
-    ``widths``, the stem to image / 4): rows of (B, H, W, Ci, Co, stride,
-    launches), H and W the conv's input, in the order of first launch."""
+    a conv after the nearest 2x upsampling and a ConvBlock; transatt_unet and
+    unet_transformer at registry widths; unet_tpu at ``widths``, the stem to
+    image / 4): rows of (B, H, W, Ci, Co, stride, launches), H and W the
+    conv's input, in the order of first launch."""
     convs = []
     if name == "attention_unet":
         chans, cin, size = (64, 128, 256, 512, 1024), 3, image
@@ -47,6 +48,26 @@ def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
             size *= 2
             c = chans[i - 1]
             convs += [(size, chans[i], c, 1), (size, 2 * c, c, 1), (size, c, c, 1)]
+    elif name in ("transatt_unet", "unet_transformer"):
+        # the encoder's double convs (transatt_unet: four Downs to 512, the
+        # last keeping 512; unet_transformer: three), then each decoder level
+        # from the concatenation (transatt_unet: to in // 2, then to half
+        # that; unet_transformer: cross attention's 2 Cs to Cs, then Cs)
+        chans = (64, 128, 256, 512, 512) if name == "transatt_unet" else (64, 128, 256, 512)
+        cin, size = 3, image
+        for i, c in enumerate(chans):
+            size = size // 2 if i else size
+            convs += [(size, cin, c, 1), (size, c, c, 1)]
+            cin = c
+        for i in range(len(chans) - 1, 0, -1):
+            size *= 2
+            c = chans[i - 1]
+            if name == "transatt_unet":
+                cat = c + cin
+                convs += [(size, cat, cat // 2, 1), (size, cat // 2, cat // 4 if i > 1 else c, 1)]
+                cin = cat // 4 if i > 1 else c
+            else:
+                convs += [(size, 2 * c, c, 1), (size, c, c, 1)]
     elif name == "unet":
         chans, cin, size = (64, 128, 256, 512), 3, image
         for c in chans:

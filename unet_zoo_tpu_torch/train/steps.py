@@ -15,6 +15,7 @@ returns a new state.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import torch
@@ -114,7 +115,8 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
 
 def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
                     remat: bool = False, augment: bool = False,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1,
+                    generator: Optional[torch.Generator] = None) -> Callable:
     """``step(state, images, masks) -> {'loss', 'dice'}`` (device scalars).
 
     ``images`` [B, C, H, W] (uint8 pixels are normalised on the device) and
@@ -125,6 +127,10 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     mean; BatchNorm statistics update per microbatch, and loss and Dice are
     the microbatch means, as in the JAX step. The loss of each microbatch
     includes the auxiliary losses of its forward (:func:`pop_aux_losses`).
+    ``generator``, where given, feeds the forward's dropout and stochastic
+    depth (a module whose ``forward`` takes ``generator``: vnet,
+    transatt_unet, swin_unet_v2, the unext family); else they draw from
+    PyTorch's default generator.
     """
     if remat:
         raise NotImplementedError("remat=True (recomputing the forward in the backward) is "
@@ -132,6 +138,8 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     module = model.module
     device = next(module.parameters()).device
     aux_modules = aux_loss_modules(module)
+    forward_kw = ({"generator": generator} if generator is not None
+                  and "generator" in inspect.signature(module.forward).parameters else {})
 
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
@@ -147,7 +155,7 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
         opt.zero_grad()
         loss_sum = dice_sum = 0.0
         for xb, mb in zip(images.chunk(accum_steps), masks.chunk(accum_steps)):
-            outputs = state.module(xb)
+            outputs = state.module(xb, **forward_kw)
             loss = multi_output_loss(outputs, mb, model.loss_weight, criterion)
             for aux in pop_aux_losses(aux_modules):
                 loss = loss + aux

@@ -54,6 +54,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from unet_zoo_tpu_torch.utils import pretrained
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))  # a contiguous, writable copy
@@ -504,19 +506,194 @@ def _wranet(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _bn_stats(sd, key, s):
+    """An affine-less BatchNorm: its running statistics alone."""
+    sd[f"{key}.running_mean"] = _t(s["mean"])
+    sd[f"{key}.running_var"] = _t(s["var"])
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
+def _raunet_encoder(variables) -> Dict[str, torch.Tensor]:
+    """JAX's ``ResNet34Encoder`` variables (RAUNet's ``encoder``) -> the
+    port's encoder keys (``firstconv``, ``firstbn``, ``encoder{1-4}``)."""
+    enc = pretrained.from_jax_encoder(variables["params"], variables["batch_stats"])
+    sd = {k: _t(v) for k, v in enc.items()}
+    for k in enc:
+        if k.endswith("running_mean"):
+            sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(
+                0, dtype=torch.long)
+    return sd
+
+
+def _raunet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd = _raunet_encoder({"params": p["encoder"], "batch_stats": s["encoder"]})
+    for d in range(1, 5):
+        t, dp, ds = f"decoder{d}", p[f"decoder{d}"], s[f"decoder{d}"]
+        _conv(sd, f"{t}.conv1", dp["conv1"])
+        _conv_transpose(sd, f"{t}.deconv2", dp["deconv2"])
+        _conv(sd, f"{t}.conv3", dp["conv3"])
+        for n in ("norm1", "norm2", "norm3"):
+            _bn(sd, f"{t}.{n}", dp[n], ds[n])
+    for g in (1, 2, 3):
+        t, gp = f"gau{g}", p[f"gau{g}"]
+        for i in (1, 2):
+            _conv(sd, f"{t}.conv{i}.0", gp[f"conv{i}_conv"])
+            ln = gp[f"conv{i}_ln"]
+            sd[f"{t}.conv{i}.1.weight"] = _t(ln["scale"]).reshape(-1, 1, 1)
+            sd[f"{t}.conv{i}.1.bias"] = _t(ln["bias"]).reshape(-1, 1, 1)
+        _conv(sd, f"{t}.conv3.0", gp["conv3"])
+        _conv(sd, f"{t}.conv4.0", gp["conv4"])
+    _conv_transpose(sd, "finaldeconv1", p["finaldeconv1"])
+    _conv(sd, "finalconv2", p["finalconv2"])
+    _conv(sd, "finalconv3", p["finalconv3"])
+    return sd
+
+
+def _mid_double_conv(sd, prefix, p, s):
+    """A JAX ``DoubleConvMid`` -> ``{prefix}.double_conv.{0,1,3,4}``."""
+    _double_conv(sd, f"{prefix}.double_conv", p, s)
+
+
+def _transatt_unet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _mid_double_conv(sd, "inc", p["inc"], s["inc"])
+    for d in range(1, 5):
+        _mid_double_conv(sd, f"down{d}.maxpool_conv.1", p[f"down{d}"]["DoubleConvMid_0"],
+                         s[f"down{d}"]["DoubleConvMid_0"])
+    sd["pos.row_embed.weight"] = _t(p["pos"]["row_embed"])
+    sd["pos.col_embed.weight"] = _t(p["pos"]["col_embed"])
+    for n in ("query_conv", "key_conv", "value_conv"):
+        _conv(sd, f"pam.{n}", p["pam"][n])
+    sd["pam.gamma"] = _t(p["pam"]["gamma"])
+    for u in range(1, 5):
+        _mid_double_conv(sd, f"up{u}.conv", p[f"up{u}"]["DoubleConvMid_0"],
+                         s[f"up{u}"]["DoubleConvMid_0"])
+    _conv(sd, "outc.conv", p["outc"]["Conv_0"])
+    return sd
+
+
+def _unet_transformer(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _double_conv(sd, "inc.conv_op", p["inc"], s["inc"])
+    for d in range(1, 4):
+        _mid_double_conv(sd, f"down{d}.maxpool_conv.1", p[f"down{d}"]["DoubleConvMid_0"],
+                         s[f"down{d}"]["DoubleConvMid_0"])
+    for n in ("query", "key", "value"):     # x @ kernel, as the original zoo's x @ weight
+        sd[f"MHSA.{n}.weight"] = _t(p["MHSA"][n]["kernel"])
+    for u in range(1, 4):
+        up, us, t = p[f"up{u}"], s[f"up{u}"], f"up{u}.MHCA"
+        _conv(sd, f"{t}.Sconv_process.1", up["Sconv"])
+        _bn(sd, f"{t}.Sconv_process.2", up["Sbn"], us["Sbn"])
+        _conv(sd, f"{t}.Yconv_process.0", up["Yconv"])
+        _bn(sd, f"{t}.Yconv_process.1", up["Ybn"], us["Ybn"])
+        for n in ("query", "key", "value"):
+            sd[f"{t}.{n}.weight"] = _t(up[n]["kernel"])
+        _conv(sd, f"{t}.conv_after_attention.0", up["conv_after_attention"])
+        _bn(sd, f"{t}.conv_after_attention.1", up["attn_bn"], us["attn_bn"])
+        _conv(sd, f"{t}.Yconv2_process.1", up["Yconv2_3x3"])
+        _conv(sd, f"{t}.Yconv2_process.2", up["Yconv2_1x1"])
+        _bn(sd, f"{t}.Yconv2_process.3", up["Ybn2"], us["Ybn2"])
+        _double_conv(sd, f"up{u}.conv", up["conv"], us["conv"])
+    _conv(sd, "outc.conv", p["outc"]["Conv_0"])
+    return sd
+
+
+def _mrb_unit(sd, key, p, s):
+    """A JAX ``ConvNormAct(bn_affine=False)`` -> ``{key}.conv1``, ``{key}.batchnorm``."""
+    _conv(sd, f"{key}.conv1", p["Conv_0"])
+    _bn_stats(sd, f"{key}.batchnorm", s["BatchNorm_0"])
+
+
+MRB_UNITS = ("conv2d_bn_1x1", "conv2d_bn_3x3", "conv2d_bn_5x5", "conv2d_bn_7x7")
+
+
+def _multiresunet(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 10):
+        t, mp, ms = f"multiresblock{i}", p[f"mrb{i}"], s[f"mrb{i}"]
+        for j, unit in enumerate(MRB_UNITS):
+            _mrb_unit(sd, f"{t}.{unit}", mp[f"ConvNormAct_{j}"], ms[f"ConvNormAct_{j}"])
+        _bn_stats(sd, f"{t}.batch_norm1", ms["shared_bn"])
+    for i in range(1, 5):
+        t, rp, rs = f"respath{i}", p[f"respath{i}"], s[f"respath{i}"]
+        _mrb_unit(sd, f"{t}.conv2d_bn_1x1_initial", rp["ConvNormAct_0"], rs["ConvNormAct_0"])
+        _mrb_unit(sd, f"{t}.conv2d_bn_3x3_initial", rp["ConvNormAct_1"], rs["ConvNormAct_1"])
+        _bn_stats(sd, f"{t}.batch_norm_initial", rs["BatchNorm_0"])
+        for k in range((len(rp) - 2) // 2):
+            _mrb_unit(sd, f"{t}.blocks.{k}.0", rp[f"ConvNormAct_{2 + 2 * k}"],
+                      rs[f"ConvNormAct_{2 + 2 * k}"])
+            _mrb_unit(sd, f"{t}.blocks.{k}.1", rp[f"ConvNormAct_{3 + 2 * k}"],
+                      rs[f"ConvNormAct_{3 + 2 * k}"])
+            _bn_stats(sd, f"{t}.blocks.{k}.2", rs[f"BatchNorm_{1 + k}"])
+    for i in range(6, 10):
+        _conv_transpose(sd, f"upsample{i}", p[f"up{i}"]["ConvTranspose_0"])
+    _mrb_unit(sd, "conv_final", p["conv_final"], s["conv_final"])
+    return sd
+
+
+# VNet's activations in the order JAX numbers its top-level ``_Act_{k}``
+VNET_ACTS = ("in_tr.relu1",
+             *(f"down_tr{n}.relu{r}" for n in (32, 64, 128, 256) for r in (1, 2)),
+             *(f"up_tr{n}.relu{r}" for n in (256, 128, 64, 32) for r in (1, 2)),
+             "out_tr.relu1")
+VNET_STAGES = (("down32", "down_tr32"), ("down64", "down_tr64"), ("down128", "down_tr128"),
+               ("down256", "down_tr256"), ("up256", "up_tr256"), ("up128", "up_tr128"),
+               ("up64", "up_tr64"), ("up32", "up_tr32"))
+
+
+def _vnet(variables) -> Dict[str, torch.Tensor]:
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def cont_bn(key, q):
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = _t(q["scale"]), _t(q["bias"])
+
+    _conv(sd, "in_tr.conv1", p["in_conv"])
+    cont_bn("in_tr.bn1", p["in_bn"])
+    if "in_adapt" in p:
+        _conv(sd, "in_tr.in_adapt", p["in_adapt"])
+    for jax_name, t in VNET_STAGES:
+        if jax_name.startswith("down"):
+            _conv(sd, f"{t}.down_conv", p[f"{jax_name}_conv"])
+        else:
+            _conv_transpose(sd, f"{t}.up_conv", p[f"{jax_name}_up"]["ConvTranspose_0"])
+        cont_bn(f"{t}.bn1", p[f"{jax_name}_bn"])
+        i = 0
+        while f"{jax_name}_lu{i}" in p:
+            lu = p[f"{jax_name}_lu{i}"]
+            _conv(sd, f"{t}.ops.{i}.conv1", lu["Conv_0"])
+            cont_bn(f"{t}.ops.{i}.bn1", lu["ContBatchNorm_0"])
+            if "_Act_0" in lu:                       # elu=False: a PReLU
+                sd[f"{t}.ops.{i}.relu1.weight"] = _t(lu["_Act_0"]["PReLU_0"]["alpha"])
+            i += 1
+    _conv(sd, "out_tr.conv1", p["out_conv"])
+    cont_bn("out_tr.bn1", p["out_bn"])
+    for k, key in enumerate(VNET_ACTS):
+        if f"_Act_{k}" in p:
+            sd[f"{key}.weight"] = _t(p[f"_Act_{k}"]["PReLU_0"]["alpha"])
+    return sd
+
+
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "attention_unet": _attention_unet, "axialunet": _medt_family, "gated": _medt_family,
     "logo": _medt_family, "medt": _medt_family, "medt_logo": _medt_logo,
-    "missformer": _missformer, "mmunet": _mmunet,
-    "nested_unet": _nested_unet, "resunet": _resunet, "swin_unet_v2": _swin_unet_v2,
+    "missformer": _missformer, "mmunet": _mmunet, "multiresunet": _multiresunet,
+    "nested_unet": _nested_unet, "raunet": _raunet, "raunet_encoder": _raunet_encoder,
+    "resunet": _resunet, "swin_unet_v2": _swin_unet_v2, "transatt_unet": _transatt_unet,
     "u2net": _u2net, "u2net_tpu": _u2net_tpu, "u2netp": _u2net, "unet": _unet,
-    "unet_tpu": _unet_tpu, "unext": _unext, "unext_moe": _unext, "unext_s": _unext,
-    "wranet": _wranet}
+    "unet_tpu": _unet_tpu, "unet_transformer": _unet_transformer, "unext": _unext,
+    "unext_moe": _unext, "unext_s": _unext, "vnet": _vnet, "wranet": _wranet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
     """JAX variables ``{'params', 'batch_stats'}`` (``{'params'}`` alone for
-    a model without BatchNorm) -> the port's ``state_dict``."""
+    a model without BatchNorm) -> the port's ``state_dict``. The name
+    ``raunet_encoder`` takes RAUNet's ``encoder`` subtrees alone (JAX's
+    pretrained overlay) and returns the port's encoder keys."""
     name = model_name.lower()
     if name not in CONVERTERS:
         raise ValueError(f"No converter for '{model_name}'. Available: {sorted(CONVERTERS)}")
@@ -572,9 +749,31 @@ def _nested_unet_quant(q) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _transatt_unet_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _double_conv_quant(out, "inc.double_conv", q.get("inc", {}))
+    for d in range(1, 5):
+        _double_conv_quant(out, f"down{d}.maxpool_conv.1.double_conv",
+                           q.get(f"down{d}", {}).get("DoubleConvMid_0", {}))
+        _double_conv_quant(out, f"up{d}.conv.double_conv",
+                           q.get(f"up{d}", {}).get("DoubleConvMid_0", {}))
+    return out
+
+
+def _unet_transformer_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _double_conv_quant(out, "inc.conv_op", q.get("inc", {}))
+    for d in range(1, 4):
+        _double_conv_quant(out, f"down{d}.maxpool_conv.1.double_conv",
+                           q.get(f"down{d}", {}).get("DoubleConvMid_0", {}))
+        _double_conv_quant(out, f"up{d}.conv", q.get(f"up{d}", {}).get("conv", {}))
+    return out
+
+
 QUANT_CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "attention_unet": _attention_unet_quant, "nested_unet": _nested_unet_quant,
-    "unet": _unet_quant, "unet_tpu": _unet_tpu_quant}
+    "transatt_unet": _transatt_unet_quant, "unet": _unet_quant, "unet_tpu": _unet_tpu_quant,
+    "unet_transformer": _unet_transformer_quant}
 
 
 def quant_from_jax(model_name: str, quant) -> Dict[str, torch.Tensor]:
