@@ -214,11 +214,25 @@
    profiler, every launch bit for bit against its plain version, int8
    against float within JAX's bars, and the conv at every launch shape
    against its bound and cuDNN's bf16 conv.
-25. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+25. The hybrids: serves ``uctransnet`` and ``egeunet`` (built for 256px),
+   ``da_transformer`` (its six attention gammas drawn off zero) at registry
+   widths in bf16 at B=8, 256px as step 22 serves its members (no kernel
+   launches; every output key of egeunet; per-name bars for
+   ``da_transformer`` and ``egeunet``, where JAX's own bf16 strays beyond
+   step 22's on the same weights), and
+   ``da_transformer`` and ``egeunet`` again at 512px. Trains each for 5
+   steps at the default training config's learning rate (the loss falls;
+   egeunet's six keys at 1.0 and 0.5; uctransnet's dropout drawn alike at
+   every step). Calibrates and serves ``da_transformer`` int8 in bf16 as
+   step 24 serves its int8 members: P2's conv 10 times a forward by counter
+   and by profiler, on 16 x 16 maps of 1024 channels and on odd 63 x 63 maps,
+   int8 against float within a bar set from JAX's own int8 distance.
+26. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
-Steps 17-20, with step 22's int8 ``attention_unet`` and step 24's int8
-``transatt_unet`` and ``unet_transformer``, run right after step 4.
+Steps 17-20, with step 22's int8 ``attention_unet``, step 24's int8
+``transatt_unet`` and ``unet_transformer`` and step 25's int8
+``da_transformer``, run right after step 4.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the repository; it imports nothing of JAX.
@@ -423,14 +437,16 @@ WRANET_MASK_SCALE = 1.5
 # convs.
 UNET_TPU_WIDTHS = (128, 256, 512, 512)
 INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18, "attention_unet": 22, "transatt_unet": 18,
-                 "unet_transformer": 14}
+                 "unet_transformer": 14, "da_transformer": 10}
 # the int8 models served in bf16 with bf16-rounded weights (unet: float32);
 # attention_unet (registry depth 5) is phase 22's, run with 17-20; its 22
 # gated convs: 10 in the encoder, 4 after the nearest 2x upsamplings, 8 in
 # the decoder. transatt_unet and unet_transformer are phase 24's, run with
 # 17-20 too: the double convs of the encoder (5 and 4) and of the decoder
-# (4 and 3)
-INT8_BF16 = ("unet_tpu", "attention_unet", "transatt_unet", "unet_transformer")
+# (4 and 3). da_transformer is phase 25's, run with 17-20 too: the
+# bottleneck's and the four UpSampleDA stages' double convs, on 16 x 16,
+# 32 x 32 and (the ResNet root's unpadded pool) 63 x 63 maps
+INT8_BF16 = ("unet_tpu", "attention_unet", "transatt_unet", "unet_transformer", "da_transformer")
 # int8 kernel path against the int8 plain path (the same integer sums and
 # epilogue: expected bit for bit), and int8 against the float predictor of
 # the same type: JAX's own bars (tests/test_quant.py:57-60)
@@ -442,7 +458,15 @@ INT8_FLOAT_REL_L2, INT8_FLOAT_AGREE = 0.10, 0.95
 # port's within 1.25 times that. Its bar is at least 1.5 times JAX's 64px
 # distance, its mask bar JAX's (tests/test_torch_core_members.py::
 # test_int8_attention_unet_strays_from_float_as_far_as_jax holds both)
-INT8_FLOAT_BARS = {"attention_unet": (0.19, INT8_FLOAT_AGREE)}
+# random-weight da_transformer (phase 25) strays further on both sides: its
+# ResNetV2 (weight-standardised convs, GroupNorm, 16 residual units) parts a
+# perturbation of the last bits 30-fold by its last unit, and the He-scaled
+# decoder carries that to the logits. On the port's seed-0 weights (gammas
+# 0.5) JAX's own int8 logits lie 0.443 from its float ones at 256px (masks
+# 0.941) and 0.539 at 64px (0.905); its bar is at least 1.25 times the
+# former and above the latter, its mask bar below both
+# (tests/test_torch_hybrid_bars.py holds both against JAX's 64px reading)
+INT8_FLOAT_BARS = {"attention_unet": (0.19, INT8_FLOAT_AGREE), "da_transformer": (0.60, 0.90)}
 # P2's GEMM at the probe's default shape and tile, P1's gather at its probe's shape
 GEMM_SIZE = 4096
 GEMM_TILE = (128, 256)
@@ -466,11 +490,21 @@ LOOP_VAL_REL, LOOP_DICE_ABS = 1e-2, 1e-2
 CORE_MEMBERS = {"attention_unet": {}, "nested_unet": {"deep_supervision": True}, "u2net": {},
                 "u2netp": {}, "resunet": {}, "u2net_tpu": {}}
 CORE_REL_L2, CORE_AGREE = 3e-2, 0.99
+# per-name bars where the reference's own bf16 strays beyond them on the same
+# weights (the port's seed-0 weights; tests/test_torch_hybrid_bars.py): each
+# rel L2 bar at least 1.25 times JAX's 256px distance and above its 64px one,
+# each mask bar below both agreements. da_transformer's JAX bf16 logits lie
+# 0.558 from its float32 ones at 256px (masks 0.929) and 0.640 at 64px
+# (0.886), gammas 0.5, for the reason INT8_FLOAT_BARS gives; egeunet's 0.0554
+# (0.984) and 0.0789 (0.977): its channels are 8-64 wide, and each LayerNorm
+# and GELU rounds to bf16 after a few products
+CORE_BARS = {"da_transformer": (0.70, 0.88), "egeunet": (0.10, 0.97)}
 CORE_TRAIN, CORE_TRAIN_STEPS = ("u2net", "nested_unet"), 5
 # the keys their loss must weigh, at the JAX registry's weights: U2NET's unit
 # side weights, nested_unet's sides at the default 0.5
 CORE_LOSS_WEIGHTS = {"u2net": {"main": 1.0, **{f"side{i}": 1.0 for i in range(1, 7)}},
-                     "nested_unet": {"main": 1.0, "side1": 0.5, "side2": 0.5, "side3": 0.5}}
+                     "nested_unet": {"main": 1.0, "side1": 0.5, "side2": 0.5, "side3": 0.5},
+                     "egeunet": {"main": 1.0, **{f"side{i}": 0.5 for i in range(1, 6)}}}
 # phase 23: the K3 carriers of this slice, in bf16 at B=8. missformer at 512px
 # (the registry default) and 256px: one K3 launch per MixFFN_skip, on 4 x the
 # stage width at each stage's resolution image / 2^(s + 2) in the encoder's
@@ -503,6 +537,18 @@ CARRIER_LR = 1e-4
 CONV_MEMBERS = ("raunet", "transatt_unet", "unet_transformer", "multiresunet", "vnet")
 PAM_GAMMA = 0.5
 DROPOUT_SEED = 7
+# phase 25: the hybrids at registry widths, served in bf16 (B=8, 256px;
+# uctransnet and egeunet built for it) against float32 compute at phase 22's
+# bars (CORE_BARS for da_transformer and egeunet), da_transformer and egeunet
+# also at 512px (the original zoo's and egeunet's registry size), and trained
+# CORE_TRAIN_STEPS steps at CARRIER_LR.
+# da_transformer's six attention gammas (zero at init: neither attention would
+# reach the logits) are set to PAM_GAMMA on every model built; uctransnet's
+# dropout draws from the re-seeded generator, as phase 24's; egeunet's six
+# outputs enter the loss at 1.0 (main) and 0.5 (sides). Its int8 runs with 17-20.
+HYBRIDS = ("uctransnet", "da_transformer", "egeunet")
+HYBRID_IMAGES = {"uctransnet": (IMAGE,), "da_transformer": (IMAGE, 512), "egeunet": (IMAGE, 512)}
+DA_GAMMAS = ("pam1", "pam2", "pam3", "cam1", "cam2", "cam3")
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -2938,9 +2984,9 @@ def int8_faults(torch, x, s_x, wq, scale, bias, stride, dtype):
 def check_int8_conv(torch, gen, device):
     """P2's int8 conv against its plain version, bit for bit, at every
     distinct launch shape of the served unet_tpu (bf16 x and out), unet
-    (float32), transatt_unet and unet_transformer (bf16) at B=8/256px and at
-    odd shapes (Ci 3 and 20, odd H and W,
-    stride 2 on an odd size, Co not a multiple of the tile), x drawn by
+    (float32), transatt_unet, unet_transformer and da_transformer (bf16) at
+    B=8/256px, da_transformer's at 512px, and at odd shapes (Ci 3 and 20,
+    odd H and W, stride 2 on an odd size, Co not a multiple of the tile), x drawn by
     int8_conv_case; the comparison is shown to reject planted faults
     (int8_faults) on the first image of each shape. Returns the max abs error
     (0 when every launch agrees bit for bit)."""
@@ -2948,9 +2994,15 @@ def check_int8_conv(torch, gen, device):
 
     cases = [(*row[:6], torch.bfloat16) for row in int8_launch_shapes("unet_tpu")]
     cases += [(*row[:6], torch.float32) for row in int8_launch_shapes("unet")]
-    # the shapes phase 24's int8 transatt_unet and unet_transformer add
-    cases += sorted({(*row[:6], torch.bfloat16) for name in ("transatt_unet", "unet_transformer")
-                     for row in int8_launch_shapes(name)} - set(cases), key=str)
+    # the shapes phase 24's int8 transatt_unet and unet_transformer add, and
+    # phase 25's da_transformer: the bottleneck's 1024 -> 1024 on 16 x 16
+    # (K = 9216 on 2048 rows) and the odd 63 x 63 maps, and at 512px (not
+    # served int8 here) 32 x 32 and 127 x 127
+    carriers = [int8_launch_shapes(name) for name in ("transatt_unet", "unet_transformer",
+                                                      "da_transformer")]
+    carriers.append(int8_launch_shapes("da_transformer", 512))
+    cases += sorted({(*row[:6], torch.bfloat16) for rows in carriers for row in rows}
+                    - set(cases), key=str)
     cases += [(2, 37, 45, 3, 24, 1, torch.bfloat16), (1, 33, 29, 20, 40, 2, torch.float32),
               (2, 31, 31, 48, 130, 2, torch.bfloat16)]
     err = 0.0
@@ -3606,36 +3658,43 @@ def kernel_counters():
     return [mod.LAUNCHES for mod in mods if hasattr(mod, "LAUNCHES")]
 
 
-def member_model(torch, name, dtype, **kw):
+def member_model(torch, name, dtype, image=IMAGE, **kw):
     """``create_model(name)`` at its registry defaults, CORE_MEMBERS' options
-    over them, from seed 0, with transatt_unet's PAM gamma at PAM_GAMMA."""
+    over them, from seed 0, with transatt_unet's PAM gamma and
+    da_transformer's six attention gammas at PAM_GAMMA; uctransnet and
+    egeunet built for ``image``."""
     from unet_zoo_tpu_torch import create_model
 
+    if name in ("uctransnet", "egeunet"):
+        kw["image_size"] = image
     model = create_model(name, dtype=dtype, seed=0, **CORE_MEMBERS.get(name, {}), **kw)
-    if name == "transatt_unet":
-        with torch.no_grad():
-            model.module.pam.gamma.fill_(PAM_GAMMA)
+    gammas = {"transatt_unet": ("pam",), "da_transformer": DA_GAMMAS}.get(name, ())
+    with torch.no_grad():
+        for attention in gammas:
+            model.module.get_submodule(attention).gamma.fill_(PAM_GAMMA)
     return model
 
 
-def serve_core(torch, gen, device, name):
+def serve_core(torch, gen, device, name, image=IMAGE):
     """``name`` (``member_model``), served in bf16 through
-    ``make_predictor`` at B=8/256px, against float32 compute on the same
-    bf16-rounded weights: every output key finite and of the input's size,
-    the main logits' rel L2 and mask agreement within CORE_REL_L2 and
-    CORE_AGREE; img/s, device busy and idle share by the profiler, peak
-    memory. No hand-written kernel runs on these float paths: every kernel
+    ``make_predictor`` at B=8 and ``image`` px, against float32 compute on
+    the same bf16-rounded weights: every output key finite and of the
+    input's size, the main logits' rel L2 and mask agreement within
+    CORE_REL_L2 and CORE_AGREE (CORE_BARS for a name the reference itself
+    puts beyond them); img/s, device busy and idle share by the profiler,
+    peak memory. No hand-written kernel runs on these float paths: every kernel
     counter must read 0 after the forward."""
     from unet_zoo_tpu_torch.utils.serving import make_predictor
 
-    x = torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
-    bf16 = member_model(torch, name, torch.bfloat16)
+    rel_bar, agree_bar = CORE_BARS.get(name, (CORE_REL_L2, CORE_AGREE))
+    x = torch.randn(SERVE_BATCH, 3, image, image, generator=gen, device=device)
+    bf16 = member_model(torch, name, torch.bfloat16, image)
     params = sum(p.numel() for p in bf16.module.parameters()) / 1e6
     pred = make_predictor(bf16, None, "logits")
     with torch.inference_mode():
         outs = bf16.module(x)
     for key, t in outs.items():
-        if t.shape != (SERVE_BATCH, 1, IMAGE, IMAGE) or not torch.isfinite(t.float()).all():
+        if t.shape != (SERVE_BATCH, 1, image, image) or not torch.isfinite(t.float()).all():
             raise AssertionError(f"{name}: output {key} {tuple(t.shape)} is not finite logits "
                                  "of the input's size")
     del outs
@@ -3647,24 +3706,24 @@ def serve_core(torch, gen, device, name):
     lb = pred(x).float()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    f32 = member_model(torch, name, torch.float32)
+    f32 = member_model(torch, name, torch.float32, image)
     lf = make_predictor(f32, None, "logits")(x).float()
     del f32
     launches = {k: n for counts in counters for k, n in counts.items() if n}
     readings = dict(rel_l2_to_f32=rel_l2(torch, lb, lf),
                     mask_agreement_to_f32=((lb > 0) == (lf > 0)).float().mean().item())
-    log(f"serve {name} ({params:.2f} M parameters): logits std "
+    log(f"serve {name} {image}px ({params:.2f} M parameters): logits std "
         f"{lf.std().item():.4f}; bf16 against f32 compute rel L2 {readings['rel_l2_to_f32']:.3e} "
-        f"(<= {CORE_REL_L2:.0e}), masks {readings['mask_agreement_to_f32']:.5f} "
-        f"(>= {CORE_AGREE}); peak {peak:.2f} GiB; kernel launches {launches or 0} (0)")
-    if launches or not (readings["rel_l2_to_f32"] <= CORE_REL_L2
-                        and readings["mask_agreement_to_f32"] >= CORE_AGREE):
+        f"(<= {rel_bar:.2g}), masks {readings['mask_agreement_to_f32']:.5f} "
+        f"(>= {agree_bar}); peak {peak:.2f} GiB; kernel launches {launches or 0} (0)")
+    if launches or not (readings["rel_l2_to_f32"] <= rel_bar
+                        and readings["mask_agreement_to_f32"] >= agree_bar):
         raise AssertionError(f"{name}: bf16 serving strays from float32 compute")
     times = serve_times(torch, {"bf16": pred}, x)["bf16"]
     med = statistics.median(times)
-    busy = breakdown(torch, name, lambda: pred(x), med)
+    busy = breakdown(torch, f"{name} {image}px", lambda: pred(x), med)
     rate = SERVE_BATCH / (med / 1e3)
-    log(f"serve {name} bf16 B={SERVE_BATCH} {IMAGE}px: {rate:.1f} img/s (forward median "
+    log(f"serve {name} bf16 B={SERVE_BATCH} {image}px: {rate:.1f} img/s (forward median "
         f"{med:.4f} ms), busy {busy:.4f} ms, idle share {1 - busy / med:.3f}")
     return dict(parameters_m=params, serve_img_per_s=rate, forward_ms=med,
                 device_busy_ms=busy, idle_share=1 - busy / med, peak_gib=peak, **readings)
@@ -3884,6 +3943,25 @@ def conv_members(torch, seeded, device):
         torch.cuda.empty_cache()
     return dict(raunet_encoder_load_s=load_s, raunet_create_s=create_s, serving=served,
                 training=trained)
+
+
+def hybrids(torch, seeded, device):
+    """Phase 25: the hybrids (HYBRIDS) served in bf16 at B=8 at each of
+    their HYBRID_IMAGES against float32 compute (``serve_core``: no kernel
+    launches, phase 22's bars or CORE_BARS; every output key finite and of
+    the input's size) and trained CORE_TRAIN_STEPS steps at CARRIER_LR at 256px
+    (``train_core``; egeunet's six keys at CORE_LOSS_WEIGHTS). Their int8
+    (da_transformer) runs with 17-20."""
+    served, trained = {}, {}
+    for name in HYBRIDS:
+        for image in HYBRID_IMAGES[name]:
+            served[f"{name} {image}px"] = serve_core(torch, seeded("serve_hybrid", name, image),
+                                                     device, name, image)
+            torch.cuda.empty_cache()
+    for name in HYBRIDS:
+        trained[name] = train_core(torch, seeded("train_hybrid", name), device, name, CARRIER_LR)
+        torch.cuda.empty_cache()
+    return dict(serving=served, training=trained)
 
 
 def mma_counts(build, stem="int8_gemm"):
@@ -4135,7 +4213,13 @@ def main() -> int:
     # 24. the convolutional members: raunet, transatt_unet, unet_transformer,
     # multiresunet and vnet served and trained (their int8 ran with 17-20)
     conv = conv_members(torch, seeded, device)
-    lap("conv members (P2)", t_phase)
+    t_phase = lap("conv members (P2)", t_phase)
+
+    # 25. the hybrids: uctransnet, da_transformer and egeunet served (256px;
+    # da_transformer and egeunet at 512px too) and trained (da_transformer's
+    # int8 ran with 17-20)
+    hyb = hybrids(torch, seeded, device)
+    lap("hybrids (P2)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -4390,6 +4474,7 @@ def main() -> int:
         "shapes": p2_rows,
         "core_members": {"serving": core, "training": core_train},
         "conv_members": conv,
+        "hybrids": hyb,
     }, {
         "name": "matmul",
         "route": "cuda",

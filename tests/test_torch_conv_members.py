@@ -15,6 +15,7 @@ unet_transformer conv by conv; multiresunet's int8 serving is refused.
 
 import contextlib
 import functools
+import glob
 
 import jax
 import jax.numpy as jnp
@@ -42,7 +43,8 @@ from unet_zoo_tpu_torch.utils.serving import calibrate_int8, make_predictor
 torch.set_num_threads(1)
 
 NEW_NAMES = ("multiresunet", "raunet", "transatt_unet", "unet_transformer", "vnet")
-UNSERVED = ("da_transformer", "egeunet", "uctransnet")
+# the hybrids, ported after the conv members: the port's registry is now JAX's
+HYBRIDS = ("da_transformer", "egeunet", "uctransnet")
 # PAM's gamma, zero at init, drawn off zero on both sides so that the
 # spatial attention enters the logits
 PAM_GAMMA = 0.5
@@ -64,6 +66,17 @@ def jax_member_variables(name, size, in_channels=3, seed=0, **kw):
     if name == "transatt_unet":
         v["params"]["pam"]["gamma"] = np.full((1,), PAM_GAMMA, np.float32)
     return m, v
+
+
+def jax_module_variables(module, *inputs, seed=0):
+    """A Flax module's variables for ``inputs``, every leaf drawn by ``_draw``
+    over the init's shapes (no init is run)."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs))
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(shapes),
+        [_draw(rng, [getattr(k, "key", k) for k in path], s.shape).astype(np.float32)
+         for path, s in jax.tree_util.tree_leaves_with_path(shapes)])
 
 
 def build(name, size, kw):
@@ -378,19 +391,31 @@ def test_transatt_unet_refuses_a_bottleneck_beyond_its_tables():
 
 
 def test_registry_serves_all_but_the_hybrids():
-    """25 names: JAX's list without uctransnet, da_transformer, egeunet."""
-    assert list_models() == sorted(set(jax_list_models()) - set(UNSERVED))
-    assert len(list_models()) == 25
+    """All 28 names: JAX's list, the hybrids (uctransnet, da_transformer,
+    egeunet) included since they were ported."""
+    assert set(HYBRIDS) <= set(list_models())
+    assert list_models() == jax_list_models()
+    assert len(list_models()) == 28
 
 
-@pytest.mark.parametrize("name", NEW_NAMES)
+@pytest.mark.parametrize("name", NEW_NAMES + HYBRIDS)
 def test_registry_spec_fields_match_jax(name):
     """Each ModelSpec field the port keeps equals JAX's; the pretrained
-    hook is set where JAX's is (raunet)."""
+    hook is set where JAX's is (raunet); a ``config_fn`` (the port keeps
+    its own copies of uctransnet's and da_transformer's) returns JAX's dict,
+    and ``get_model_config`` the same."""
+    from unet_zoo_tpu.models import get_model_config as jax_get_model_config
+
+    from unet_zoo_tpu_torch import get_model_config
+
     spec, jax_spec = _REGISTRY[name], JAX_REGISTRY[name]
     for field in ("requires_image_size", "default_image_size", "loss_weights",
-                  "default_aux_weight", "config_fn", "pretrained_by_default"):
+                  "default_aux_weight", "pretrained_by_default"):
         assert getattr(spec, field) == getattr(jax_spec, field), field
+    assert (spec.config_fn is None) == (jax_spec.config_fn is None)
+    if spec.config_fn is not None:
+        assert spec.config_fn() == jax_spec.config_fn()
+    assert get_model_config(name) == jax_get_model_config(name)
     assert (spec.pretrained_loader is None) == (jax_spec.pretrained_loader is None)
     for key in ("main", "side1"):
         assert spec.loss_weight(key) == jax_spec.loss_weight(key)
@@ -419,6 +444,29 @@ def test_convergence_config4_names_build_and_forward():
             out = model.module(x)["main"]
         assert out.shape == (2, 1, 32, 32) and out.dtype == torch.bfloat16, name
         assert torch.isfinite(out.float()).all(), name
+
+
+def _config_names(path):
+    """The model names a YAML config hands the port's CLIs: ``models.names``
+    (cli/train.py) or each ``models.models_to_evaluate`` entry's ``name``
+    (cli/evaluate.py)."""
+    import yaml
+
+    with open(path) as f:
+        models = yaml.safe_load(f)["models"]
+    if "names" in models:
+        return list(models["names"])
+    return [entry["name"] for entry in models["models_to_evaluate"]]
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob("configs/*.yaml")))
+def test_every_config_names_only_served_models(path):
+    """Each model name of every ``configs/*.yaml`` is in the port's
+    ``list_models()``, as the train and evaluate CLIs read the names (a
+    whole ``Config`` is not built: some set multi-device strategies that the
+    port refuses until ROADMAP Queue 1 item 10)."""
+    names = _config_names(path)
+    assert names and set(names) <= set(list_models()), sorted(set(names) - set(list_models()))
 
 
 # --- int8 ----------------------------------------------------------------------------

@@ -173,13 +173,13 @@ MEMBERS = {
 
 def test_registry_lists_the_eighteen_names():
     # eighteen when the core members came in; missformer and unext_moe made
-    # 20, raunet, transatt_unet, unet_transformer, multiresunet and vnet 25:
-    # JAX's names but the three hybrids
+    # 20, raunet, transatt_unet, unet_transformer, multiresunet and vnet 25,
+    # the hybrids uctransnet, da_transformer and egeunet 28: JAX's names
     from unet_zoo_tpu.models import list_models as jax_list_models
 
     names = list_models()
-    assert len(names) == 25
-    assert names == sorted(set(jax_list_models()) - {"uctransnet", "da_transformer", "egeunet"})
+    assert len(names) == 28
+    assert names == jax_list_models()
     for name in ("attention_unet", "nested_unet", "u2net", "u2netp", "resunet", "u2net_tpu"):
         assert name in names
 

@@ -246,16 +246,19 @@ def _served_conv_shapes():
     import chip_smoke
 
     return [(name, row) for name in ("unet_tpu", "unet", "attention_unet", "transatt_unet",
-                                     "unet_transformer")
-            for row in chip_smoke.int8_launch_shapes(name)]
+                                     "unet_transformer", "da_transformer")
+            for row in chip_smoke.int8_launch_shapes(name)] + [
+        ("da_transformer", row) for row in chip_smoke.int8_launch_shapes("da_transformer", 512)]
 
 
 @pytest.mark.parametrize("name,row", _served_conv_shapes())
 def test_conv_plan_fills_the_card(name, row):
     """Every int8 conv launch shape of unet_tpu, unet, attention_unet,
-    transatt_unet and unet_transformer at B=8/256px gets at least one block
-    per SM (132), or as many as its K has stages; no split is left without K;
-    the tile is one the kernel takes."""
+    transatt_unet, unet_transformer and da_transformer at B=8/256px (and
+    da_transformer's at 512px: its bottleneck's K = 9216 on 2048 and 8192
+    rows, its odd 63 x 63 and 127 x 127 maps) gets at least one block per SM
+    (132), or as many as its K has stages; no split is left without K; the
+    tile is one the kernel takes."""
     b, h, w, ci, co, stride, _ = row
     m = b * p2.conv_out_size(h, stride) * p2.conv_out_size(w, stride)
     kpad = -(-9 * ci // p2.K_ALIGN) * p2.K_ALIGN

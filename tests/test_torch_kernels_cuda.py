@@ -1485,22 +1485,25 @@ def test_int8_conv_kernel_matches_reference(cuda_device, xdtype, b, h, w, ci, co
 
 
 def _carrier_conv_shapes():
-    """Each distinct int8 conv launch shape of the served transatt_unet and
-    unet_transformer (256px), at B=8 (the served batch)."""
+    """Each distinct int8 conv launch shape of the served transatt_unet,
+    unet_transformer and da_transformer (256px; da_transformer at 512px
+    too: the bottleneck's 1024 channels, odd 63 x 63 and 127 x 127 maps),
+    at B=8 (the served batch)."""
     from unet_zoo_tpu_torch.probes.int8_conv_plan import launch_shapes
 
     rows = []
-    for name in ("transatt_unet", "unet_transformer"):
-        rows += [row[:6] for row in launch_shapes(name, 256, 8) if row[:6] not in rows]
+    for name, image in (("transatt_unet", 256), ("unet_transformer", 256),
+                        ("da_transformer", 256), ("da_transformer", 512)):
+        rows += [row[:6] for row in launch_shapes(name, image, 8) if row[:6] not in rows]
     return rows
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,w,ci,co,stride", _carrier_conv_shapes())
 def test_int8_conv_matches_reference_at_carrier_shapes(cuda_device, b, h, w, ci, co, stride):
-    """P2 at every launch shape of int8 transatt_unet and unet_transformer
-    (bf16 x and out, as served), one launch each, bit for bit with its plain
-    version; a planted fault (the bias dropped) is told apart."""
+    """P2 at every launch shape of int8 transatt_unet, unet_transformer and
+    da_transformer (bf16 x and out, as served), one launch each, bit for bit
+    with its plain version; a planted fault (the bias dropped) is told apart."""
     x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, torch.bfloat16)
     before = p2.LAUNCHES["int8_conv3x3"]
     got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, torch.bfloat16)
@@ -1626,7 +1629,8 @@ def test_new_sources_build_without_spills(cuda_device):
                                                  ("attention_unet", torch.bfloat16, 22),
                                                  ("nested_unet", torch.bfloat16, 30),
                                                  ("transatt_unet", torch.bfloat16, 18),
-                                                 ("unet_transformer", torch.bfloat16, 14)])
+                                                 ("unet_transformer", torch.bfloat16, 14),
+                                                 ("da_transformer", torch.bfloat16, 10)])
 def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
     """Calibrated int8 serving (B=2, 64px): the int8 conv kernel on every
     gated conv, K1 not at all in the float32 unet; the kernel path's logits
@@ -1645,6 +1649,35 @@ def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
     assert p2.LAUNCHES["int8_conv3x3"] - before[0] == launches
     assert k1.LAUNCHES["fused_up_concat_conv"] == before[1]
     assert torch.isfinite(got).all() and torch.equal(got, preds[1](x))
+
+
+@pytest.mark.cuda
+def test_da_transformer_int8_launches_read_x_in_place(cuda_device, monkeypatch):
+    """int8 da_transformer (bf16, B=2, 64px, its attention gammas at 0.5):
+    each of the 10 P2 launches of a forward, on the bottleneck's 4 x 4 maps
+    of 1024 channels, on the crops of the upsampled maps and on the odd
+    15 x 15 ones, reads its x in place and equals the plain version on its
+    own operands bit for bit."""
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(11)).to(cuda_device)
+    model = create_model("da_transformer", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name in ("pam1", "pam2", "pam3", "cam1", "cam2", "cam3"):
+            model.module.get_submodule(name).gamma.fill_(0.5)
+    pred = make_predictor(model, None, "logits", quant=calibrate_int8(model, [x]))
+    kernel, seen = p2.int8_conv3x3, []
+
+    def launch(x_, *args):
+        got = kernel(x_, *args)
+        seen.append((tuple(x_.shape[1:3]), x_.is_contiguous(),
+                     torch.equal(got, p2.int8_conv3x3_reference(x_, *args))))
+        return got
+
+    monkeypatch.setattr(p2, "int8_conv3x3", launch)
+    copies = p2.X_COPIES["int8_conv3x3"]
+    assert torch.isfinite(pred(x)).all()
+    assert [s[1:] for s in seen] == [(True, True)] * 10
+    assert [s[0] for s in seen] == [(4, 4)] * 4 + [(8, 8)] * 2 + [(15, 15)] * 4
+    assert p2.X_COPIES["int8_conv3x3"] == copies
 
 
 @pytest.mark.cuda

@@ -135,11 +135,12 @@ def test_registry_surface():
     from unet_zoo_tpu.models import _REGISTRY as JAX_REGISTRY
     from unet_zoo_tpu_torch import create_model, get_model_config, list_models
 
-    assert list_models() == ["attention_unet", "axialunet", "gated", "logo", "medt",
-                             "medt_logo", "missformer", "mmunet", "multiresunet", "nested_unet",
-                             "raunet", "resunet", "swin_unet_v2", "transatt_unet", "u2net",
-                             "u2net_tpu", "u2netp", "unet", "unet_tpu", "unet_transformer",
-                             "unext", "unext_moe", "unext_s", "vnet", "wranet"]
+    assert list_models() == ["attention_unet", "axialunet", "da_transformer", "egeunet",
+                             "gated", "logo", "medt", "medt_logo", "missformer", "mmunet",
+                             "multiresunet", "nested_unet", "raunet", "resunet", "swin_unet_v2",
+                             "transatt_unet", "u2net", "u2net_tpu", "u2netp", "uctransnet",
+                             "unet", "unet_tpu", "unet_transformer", "unext", "unext_moe",
+                             "unext_s", "vnet", "wranet"]
     assert get_model_config("unet") == {} and get_model_config("mmunet") == {}
     m = create_model("unet", device="cpu", use_pallas=False, in_channels=1, num_classes=2)
     assert (m.in_channels, m.num_classes, m.image_size) == (1, 2, None)
@@ -170,4 +171,4 @@ def test_registry_surface():
             JAX_REGISTRY[name].requires_image_size, JAX_REGISTRY[name].default_image_size,
             JAX_REGISTRY[name].pretrained_by_default)
     with pytest.raises(ValueError, match="Unknown model"):
-        create_model("uctransnet", device="cpu")
+        create_model("transunet", device="cpu")

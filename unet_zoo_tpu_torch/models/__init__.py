@@ -1,8 +1,7 @@
 """Model registry: ``create_model`` / ``list_models`` / ``get_model_config``.
 
-Counterpart of ``unet_zoo_tpu/models/__init__.py``: the same names,
-``ModelSpec`` metadata and keyword precedence. ``list_models`` names only
-the members ported so far.
+Counterpart of ``unet_zoo_tpu/models/__init__.py``: the same 28 names,
+``ModelSpec`` metadata and keyword precedence.
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ import torch
 from torch import nn
 
 from unet_zoo_tpu_torch.models.attention_unet import AttentionUNet
+from unet_zoo_tpu_torch.models.da_transformer import DATransformer, get_da_transformer_config
+from unet_zoo_tpu_torch.models.egeunet import EGEUNet
 from unet_zoo_tpu_torch.models.medt_net import MedTLoGo, ResAxialAttentionUNet
 from unet_zoo_tpu_torch.models.missformer import MISSFormer
 from unet_zoo_tpu_torch.models.mmunet import MMUNet
@@ -26,6 +27,7 @@ from unet_zoo_tpu_torch.models.swin_unet_v2 import SwinUNetV2
 from unet_zoo_tpu_torch.models.transatt_unet import TransAttUNet
 from unet_zoo_tpu_torch.models.u2net import U2Net
 from unet_zoo_tpu_torch.models.u2net_tpu import U2NetTPU
+from unet_zoo_tpu_torch.models.uctransnet import UCTransNet, get_uctransnet_config
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.models.unet_tpu import UNetTPU
 from unet_zoo_tpu_torch.models.unet_transformer import UTransformer
@@ -466,6 +468,37 @@ def _build_missformer(in_channels, num_classes, image_size, depth, dtype, **kw):
     kw.pop("token_mlp_mode", None)
     kw.pop("encoder_pretrained", None)
     return MISSFormer(in_channels=in_channels, num_classes=num_classes, dtype=dtype, **kw)
+
+
+@register_model("egeunet", default_image_size=512)
+def _build_egeunet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    kw.pop("use_kernels", None)   # no kernel on its path
+    return EGEUNet(in_channels=in_channels, num_classes=num_classes,
+                   c_list=kw.pop("c_list", None), bridge=kw.pop("bridge", True),
+                   gt_ds=kw.pop("gt_ds", True),
+                   image_size=image_size if image_size is not None else 512, dtype=dtype, **kw)
+
+
+@register_model("da_transformer", config_fn=get_da_transformer_config)
+def _build_da_transformer(in_channels, num_classes, image_size, depth, dtype, **kw):
+    # only the ResNet's depth and width reach the model, as in JAX
+    config = kw.pop("config", None) or get_da_transformer_config()
+    return DATransformer(in_channels=in_channels, num_classes=num_classes,
+                         block_units=tuple(config["resnet"]["num_layers"]),
+                         width_factor=config["resnet"]["width_factor"], dtype=dtype, **kw)
+
+
+@register_model("uctransnet", requires_image_size=True, config_fn=get_uctransnet_config)
+def _build_uctransnet(in_channels, num_classes, image_size, depth, dtype, **kw):
+    kw.pop("use_kernels", None)   # no kernel on its path
+    config = kw.pop("config", None) or get_uctransnet_config()
+    vis = kw.pop("vis", config.get("vis", False))
+    return UCTransNet(in_channels=in_channels, num_classes=num_classes, image_size=image_size,
+                      vis=vis, base_channel=config["base_channel"],
+                      patch_sizes=tuple(config["patch_sizes"]),
+                      num_layers=config["transformer"]["num_layers"],
+                      num_heads=config["transformer"]["num_heads"],
+                      expand_ratio=config["expand_ratio"], dtype=dtype, **kw)
 
 
 __all__ = [

@@ -91,6 +91,12 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y
 
 
+def group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:
+    """``gn`` in ``x``'s dtype (float32 statistics inside), as Flax's
+    ``GroupNorm`` with ``dtype=...``."""
+    return F.group_norm(x, gn.num_groups, gn.weight.to(x.dtype), gn.bias.to(x.dtype), gn.eps)
+
+
 def update_running_stats(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
     """Flax's running-statistics update from a batch's mean and biased
     variance: ``r = (1 - m) r + m s`` with ``m = bn.momentum`` (0.1, Flax's

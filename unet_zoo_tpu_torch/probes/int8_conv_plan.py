@@ -33,9 +33,9 @@ UNET_TPU_WIDTHS = (128, 256, 512, 512)
 def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
     """The int8 conv's launch shapes in one forward of ``name`` (unet 64 ->
     1024 channels; attention_unet at depth 5, 64 -> 1024, each decoder level
-    a conv after the nearest 2x upsampling and a ConvBlock; transatt_unet and
-    unet_transformer at registry widths; unet_tpu at ``widths``, the stem to
-    image / 4): rows of (B, H, W, Ci, Co, stride, launches), H and W the
+    a conv after the nearest 2x upsampling and a ConvBlock; transatt_unet,
+    unet_transformer and da_transformer at registry widths; unet_tpu at
+    ``widths``, the stem to image / 4): rows of (B, H, W, Ci, Co, stride, launches), H and W the
     conv's input, in the order of first launch."""
     convs = []
     if name == "attention_unet":
@@ -68,6 +68,17 @@ def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
                 cin = cat // 4 if i > 1 else c
             else:
                 convs += [(size, 2 * c, c, 1), (size, c, c, 1)]
+    elif name == "da_transformer":
+        # ResNetV2's root (7x7 stride-2 conv, 3x3 stride-2 max pool with no
+        # padding: 63 x 63 from 256px) and its stride-2 stages give the skip
+        # sizes; the bottleneck's double conv at 1024 channels, then each
+        # UpSampleDA's double conv at the skip's size from the concatenation
+        stem = ((image - 1) // 2 + 1 - 3) // 2 + 1
+        e2 = (stem - 1) // 2 + 1
+        e3 = (e2 - 1) // 2 + 1
+        convs += [(e3, 1024, 1024, 1)] * 2
+        for size, c in ((e3, 512), (e2, 256), (stem, 128), (stem, 64)):
+            convs += [(size, 2 * c, c, 1), (size, c, c, 1)]
     elif name == "unet":
         chans, cin, size = (64, 128, 256, 512), 3, image
         for c in chans:

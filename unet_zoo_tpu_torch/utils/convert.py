@@ -27,6 +27,14 @@ loads with ``strict=True``. It is the inverse of the JAX package's
 * LayerNorm: scale/bias -> weight/bias; SwinV2's ``tau`` and
   ``absolute_pos_embed`` as they are; its ``cpb_fc1``/``cpb_fc2`` ->
   ``cpb.fc1``/``cpb.fc2`` and ``mlp_fc1``/``mlp_fc2`` -> ``mlp.fc1``/``mlp.fc2``;
+* da_transformer, uctransnet and egeunet: the inverses of the JAX
+  package's ``convert_da_transformer``, ``convert_uctransnet`` and
+  ``convert_egeunet``, so the original zoo's names: a StdConv kernel -> an
+  OIHW weight, GroupNorm scale/bias -> weight/bias, ``UpSampleDA.up`` by the
+  ConvTranspose rule; uctransnet's stacked [heads, C_in, C_out] projections
+  -> one ``Linear`` a head (``kernel[h].T``); egeunet's grids [1, a, b, c]
+  -> [1, c, a, b] and its (1, k) convs over [1, 1, L, C] -> ``nn.Conv1d``
+  [O, I, k];
 * unet_tpu and u2net_tpu: the JAX names kept (``stem``, ``stem_bn``,
   ``enc{i}``, ``down{i}``, ``bottleneck``, ``dec{i}``, the heads); a
   ``ConvNormAct``'s ``Conv_0``/``BatchNorm_0`` -> ``conv``/``bn``;
@@ -678,15 +686,158 @@ def _vnet(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _gn(sd, key, p):
+    """A Flax GroupNorm or LayerNorm -> ``{key}.weight``, ``{key}.bias``."""
+    _ln(sd, key, p)
+
+
+def _std_conv(sd, key, p):
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+
+
+def _da_transformer(variables) -> Dict[str, torch.Tensor]:
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    rn = p["resnet"]
+    _std_conv(sd, "resnet.root.conv", rn["root_conv"])
+    _gn(sd, "resnet.root.gn", rn["root_gn"])
+    for name, f in rn.items():
+        if not name.startswith("block"):
+            continue
+        block, unit = name.split("_")
+        t = f"resnet.body.{block}.{unit}"
+        for c in (1, 2, 3):
+            _std_conv(sd, f"{t}.conv{c}", f[f"conv{c}"])
+            _gn(sd, f"{t}.gn{c}", f[f"gn{c}"])
+        if "downsample" in f:
+            _std_conv(sd, f"{t}.downsample", f["downsample"])
+            _gn(sd, f"{t}.gn_proj", f["gn_proj"])
+    _double_conv(sd, "bottleneck.conv_op", p["bottleneck"], s["bottleneck"])
+    for u in range(1, 5):
+        up = p[f"up_block{u}"]
+        _conv_transpose(sd, f"up_block{u}.up", up["up"])
+        _conv(sd, f"up_block{u}.skip_conv", up["skip_conv"])
+        _double_conv(sd, f"up_block{u}.conv.conv_op", up["conv"], s[f"up_block{u}"]["conv"])
+    for i in (1, 2, 3):
+        for n in ("query_conv", "key_conv", "value_conv"):
+            _conv(sd, f"pam{i}.{n}", p[f"pam{i}"][n])
+        sd[f"pam{i}.gamma"] = _t(p[f"pam{i}"]["gamma"])
+        sd[f"cam{i}.gamma"] = _t(p[f"cam{i}"]["gamma"])
+    _conv(sd, "up_block5.1", p["up_block5_conv"])
+    _conv(sd, "up_block6.1", p["up_block6_conv"])
+    _conv(sd, "outc", p["outc"])
+    return sd
+
+
+def _uctransnet(variables) -> Dict[str, torch.Tensor]:
+    """The inverse of JAX's ``convert_uctransnet``: a per-head stacked
+    projection [heads, C_in, C_out] -> one ``Linear`` a head (``kernel.T``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def cbn(key, name):
+        _conv(sd, f"{key}.conv", p[name]["Conv_0"])
+        _bn(sd, f"{key}.norm", p[name]["BatchNorm_0"], s[name]["BatchNorm_0"])
+
+    cbn("inc", "inc")
+    for d in range(1, 5):
+        for c in range(2):
+            cbn(f"down{d}.nConvs.{c}", f"down{d}_conv{c}")
+    mp, ms = p["mtc"], s["mtc"]
+    for e in range(1, 5):
+        emb = mp[f"embeddings_{e}"]
+        _conv(sd, f"mtc.embeddings_{e}.patch_embeddings", emb["patch_embeddings"])
+        sd[f"mtc.embeddings_{e}.position_embeddings"] = _t(emb["position_embeddings"])
+    layers = sorted((k for k in mp if k.startswith("layer_")), key=lambda k: int(k[6:]))
+    for li, name in enumerate(layers):
+        lp, t = mp[name], f"mtc.encoder.layer.{li}"
+        for i in range(1, 5):
+            _ln(sd, f"{t}.attn_norm{i}", lp[f"attn_norm{i}"])
+            _ln(sd, f"{t}.ffn_norm{i}", lp[f"ffn_norm{i}"])
+            _dense(sd, f"{t}.ffn{i}.fc1", lp[f"ffn{i}_fc1"])
+            _dense(sd, f"{t}.ffn{i}.fc2", lp[f"ffn{i}_fc2"])
+        _ln(sd, f"{t}.attn_norm", lp["attn_norm"])
+        ca = lp["channel_attn"]
+        for name_ in [f"query{i}" for i in range(1, 5)] + ["key", "value"]:
+            for h, w in enumerate(np.asarray(ca[name_])):
+                sd[f"{t}.channel_attn.{name_}.{h}.weight"] = _t(w.T)
+        for i in range(1, 5):
+            _dense(sd, f"{t}.channel_attn.out{i}", ca[f"out{i}"])
+    for e in range(1, 5):
+        _ln(sd, f"mtc.encoder.encoder_norm{e}", mp[f"encoder_norm{e}"])
+        _conv(sd, f"mtc.reconstruct_{e}.conv", mp[f"reconstruct_{e}_conv"])
+        _bn(sd, f"mtc.reconstruct_{e}.norm", mp[f"reconstruct_{e}_bn"], ms[f"reconstruct_{e}_bn"])
+    for u in range(1, 5):
+        _dense(sd, f"up{u}.coatt.mlp_x.1", p[f"up{u}_coatt"]["mlp_x"])
+        _dense(sd, f"up{u}.coatt.mlp_g.1", p[f"up{u}_coatt"]["mlp_g"])
+        for c in range(2):
+            cbn(f"up{u}.nConvs.{c}", f"up{u}_conv{c}")
+    _conv(sd, "outc", p["outc"])
+    return sd
+
+
+def _conv1d(sd, key, p):
+    """A Flax (1, k) conv over [1, 1, L, C] -> ``nn.Conv1d`` [O, I, k]."""
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"])[0].transpose(2, 1, 0))
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _ghpa(sd, t, g):
+    _ln(sd, f"{t}.norm1", g["norm1"])
+    _ln(sd, f"{t}.norm2", g["norm2"])
+    for n in ("params_xy", "params_zx", "params_zy"):   # [1, a, b, c] -> [1, c, a, b]
+        sd[f"{t}.{n}"] = _t(np.asarray(g[n]).transpose(0, 3, 1, 2))
+    _conv(sd, f"{t}.conv_xy.0", g["conv_xy_dw"])
+    _conv(sd, f"{t}.conv_xy.2", g["conv_xy_pw"])
+    for n in ("zx", "zy"):
+        _conv1d(sd, f"{t}.conv_{n}.0", g[f"conv_{n}_dw"])
+        _conv1d(sd, f"{t}.conv_{n}.2", g[f"conv_{n}_pw"])
+    _conv(sd, f"{t}.dw.0", g["dw_pw"])
+    _conv(sd, f"{t}.dw.2", g["dw_dw"])
+    _conv(sd, f"{t}.ldw.0", g["ldw_dw"])
+    _conv(sd, f"{t}.ldw.2", g["ldw_pw"])
+
+
+def _egeunet(variables) -> Dict[str, torch.Tensor]:
+    """The inverse of JAX's ``convert_egeunet``; the bridges and the
+    deep-supervision heads only where the variables hold them."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in (1, 2, 3):
+        _conv(sd, f"encoder{i}.0", p[f"encoder{i}"])
+    for i in (4, 5, 6):
+        _ghpa(sd, f"encoder{i}.0", p[f"encoder{i}"])
+    for i in range(1, 6):
+        _ln(sd, f"ebn{i}", p[f"ebn{i}"])
+        _ln(sd, f"dbn{i}", p[f"dbn{i}"])
+        if f"gt_conv{i}" in p:
+            _conv(sd, f"gt_conv{i}.0", p[f"gt_conv{i}"])
+        if f"GAB{i}" in p:
+            g, t = p[f"GAB{i}"], f"GAB{i}"
+            _conv(sd, f"{t}.pre_project", g["pre_project"])
+            for k in range(4):
+                _ln(sd, f"{t}.g{k}.0", g[f"g{k}_norm"])
+                _conv(sd, f"{t}.g{k}.1", g[f"g{k}_conv"])
+            _ln(sd, f"{t}.tail_conv.0", g["tail_norm"])
+            _conv(sd, f"{t}.tail_conv.1", g["tail_conv"])
+    for i in (1, 2, 3):
+        _ghpa(sd, f"decoder{i}.0", p[f"decoder{i}"])
+    for i in (4, 5):
+        _conv(sd, f"decoder{i}.0", p[f"decoder{i}"])
+    _conv(sd, "final", p["final"])
+    return sd
+
+
 CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
-    "attention_unet": _attention_unet, "axialunet": _medt_family, "gated": _medt_family,
+    "attention_unet": _attention_unet, "axialunet": _medt_family,
+    "da_transformer": _da_transformer, "egeunet": _egeunet, "gated": _medt_family,
     "logo": _medt_family, "medt": _medt_family, "medt_logo": _medt_logo,
     "missformer": _missformer, "mmunet": _mmunet, "multiresunet": _multiresunet,
     "nested_unet": _nested_unet, "raunet": _raunet, "raunet_encoder": _raunet_encoder,
     "resunet": _resunet, "swin_unet_v2": _swin_unet_v2, "transatt_unet": _transatt_unet,
     "u2net": _u2net, "u2net_tpu": _u2net_tpu, "u2netp": _u2net, "unet": _unet,
-    "unet_tpu": _unet_tpu, "unet_transformer": _unet_transformer, "unext": _unext,
-    "unext_moe": _unext, "unext_s": _unext, "vnet": _vnet, "wranet": _wranet}
+    "uctransnet": _uctransnet, "unet_tpu": _unet_tpu, "unet_transformer": _unet_transformer,
+    "unext": _unext, "unext_moe": _unext, "unext_s": _unext, "vnet": _vnet, "wranet": _wranet}
 
 
 def from_jax_variables(model_name: str, variables) -> Dict[str, torch.Tensor]:
@@ -770,8 +921,18 @@ def _unet_transformer_quant(q) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _da_transformer_quant(q) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    _double_conv_quant(out, "bottleneck.conv_op", q.get("bottleneck", {}))
+    for u in range(1, 5):
+        _double_conv_quant(out, f"up_block{u}.conv.conv_op",
+                           q.get(f"up_block{u}", {}).get("conv", {}))
+    return out
+
+
 QUANT_CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
-    "attention_unet": _attention_unet_quant, "nested_unet": _nested_unet_quant,
+    "attention_unet": _attention_unet_quant, "da_transformer": _da_transformer_quant,
+    "nested_unet": _nested_unet_quant,
     "transatt_unet": _transatt_unet_quant, "unet": _unet_quant, "unet_tpu": _unet_tpu_quant,
     "unet_transformer": _unet_transformer_quant}
 
