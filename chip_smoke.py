@@ -227,12 +227,27 @@
    step 24 serves its int8 members: P2's conv 10 times a forward by counter
    and by profiler, on 16 x 16 maps of 1024 channels and on odd 63 x 63 maps,
    int8 against float within a bar set from JAX's own int8 distance.
-26. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+26. The rest of serving. Runs full-width ``unet`` (bf16) through the tiled
+   predictor on a seeded 1024 x 1024 image (256 tiles at overlap 0.25, 8 a
+   forward): K1 four times a forward of tiles; the probabilities against the
+   full-image predictor's at JAX's bars (median |dp| < 0.05, mean < 0.1), and
+   within 1e-3 rel L2 where one tile covers the image; megapixels/s. Exports
+   ``unet`` (bf16, B=8, 256px, probabilities) and int8 ``unet_tpu`` through
+   ``export_predictor`` and loads each in a fresh process that imports only
+   torch and ``unet_zoo_tpu_torch.ops.kernels``: K1 4 and P2 17 launches a
+   call, there and through ``load_predictor`` here; the outputs against the
+   live predictors' (bit for bit, or within 1e-3 rel L2); live and loaded
+   img/s in turns. Exporting ``mmunet`` must raise, naming K4.
+27. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
-Steps 17-20, with step 22's int8 ``attention_unet``, step 24's int8
-``transatt_unet`` and ``unet_transformer`` and step 25's int8
-``da_transformer``, run right after step 4.
+Steps 17-20, with step 22's int8 ``attention_unet``, ``u2net``, ``u2netp``,
+``u2net_tpu`` and ``resunet``, step 24's int8 ``transatt_unet``,
+``unet_transformer`` and ``multiresunet`` and step 25's int8
+``da_transformer``, run right after step 4. The int8 ``u2net*``, ``resunet``
+and ``multiresunet`` take P2 at its dilated (2, 4, 8) and 1x1 geometries:
+112, 112, 43, 18 and 57 launches a forward, each bit for bit against its
+plain version, int8 against float at JAX's bars.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs CUDA and the repository; it imports nothing of JAX.
@@ -242,6 +257,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -437,7 +453,8 @@ WRANET_MASK_SCALE = 1.5
 # convs.
 UNET_TPU_WIDTHS = (128, 256, 512, 512)
 INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18, "attention_unet": 22, "transatt_unet": 18,
-                 "unet_transformer": 14, "da_transformer": 10}
+                 "unet_transformer": 14, "da_transformer": 10, "u2net": 112, "u2netp": 112,
+                 "u2net_tpu": 43, "resunet": 18, "multiresunet": 57}
 # the int8 models served in bf16 with bf16-rounded weights (unet: float32);
 # attention_unet (registry depth 5) is phase 22's, run with 17-20; its 22
 # gated convs: 10 in the encoder, 4 after the nearest 2x upsamplings, 8 in
@@ -446,7 +463,15 @@ INT8_LAUNCHES = {"unet_tpu": 17, "unet": 18, "attention_unet": 22, "transatt_une
 # (4 and 3). da_transformer is phase 25's, run with 17-20 too: the
 # bottleneck's and the four UpSampleDA stages' double convs, on 16 x 16,
 # 32 x 32 and (the ResNet root's unpadded pool) 63 x 63 maps
-INT8_BF16 = ("unet_tpu", "attention_unet", "transatt_unet", "unet_transformer", "da_transformer")
+# u2net and u2netp (RSU-L: 2L gated convs, RSU-4F: 8; dilations 2, 4 and 8),
+# u2net_tpu (its bottleneck's dilations 2, 4, 8), resunet (each residual
+# block's 1x1 skip, stride 2 in the encoder) and multiresunet (9 x 4 conv-BN
+# units with a 1x1 shortcut each, the ResPaths' 3x3 and 1x1 pairs, the 1x1
+# Co = 1 head): the geometries P2 took last, their launches read off the
+# model (INT8_TRACED, int8_conv_plan.traced_launch_shapes)
+INT8_BF16 = ("unet_tpu", "attention_unet", "transatt_unet", "unet_transformer", "da_transformer",
+             "u2net", "u2netp", "u2net_tpu", "resunet", "multiresunet")
+INT8_TRACED = ("u2net", "u2netp", "u2net_tpu", "resunet", "multiresunet")
 # int8 kernel path against the int8 plain path (the same integer sums and
 # epilogue: expected bit for bit), and int8 against the float predictor of
 # the same type: JAX's own bars (tests/test_quant.py:57-60)
@@ -467,6 +492,23 @@ INT8_FLOAT_REL_L2, INT8_FLOAT_AGREE = 0.10, 0.95
 # former and above the latter, its mask bar below both
 # (tests/test_torch_hybrid_bars.py holds both against JAX's 64px reading)
 INT8_FLOAT_BARS = {"attention_unet": (0.19, INT8_FLOAT_AGREE), "da_transformer": (0.60, 0.90)}
+# P2 at the geometries of INT8_TRACED beside their served launches: (B, H, W,
+# Ci, Co, stride, x dtype, ksize, padding, dilation); dilation 8 on 16 x 16
+# and 8 x 8 maps (most taps outside), Ci 16/32 (the halo), 48 (per-tap
+# gather), odd Ci (the element loader), a 1x1 at stride 2 on an odd size,
+# K split, Co = 1
+INT8_GEOMETRY_CASES = [(8, 16, 16, 512, 256, 1, "bf16", 3, 8, 8),
+                       (8, 8, 8, 512, 256, 1, "bf16", 3, 8, 8),
+                       (8, 8, 8, 256, 256, 1, "bf16", 3, 4, 4),
+                       (8, 64, 64, 32, 32, 1, "bf16", 3, 2, 2),
+                       (8, 8, 8, 16, 16, 1, "bf16", 3, 8, 8),
+                       (2, 13, 11, 48, 40, 1, "f32", 3, 2, 2),
+                       (8, 64, 64, 128, 256, 2, "bf16", 1, 0, 1),
+                       (8, 33, 31, 64, 128, 2, "f32", 1, 0, 1),
+                       (8, 128, 128, 51, 104, 1, "bf16", 1, 0, 1),
+                       (8, 16, 16, 853, 512, 1, "bf16", 1, 0, 1),
+                       (8, 256, 256, 51, 1, 1, "bf16", 1, 0, 1),
+                       (8, 32, 32, 211, 53, 1, "bf16", 3, 1, 1)]
 # P2's GEMM at the probe's default shape and tile, P1's gather at its probe's shape
 GEMM_SIZE = 4096
 GEMM_TILE = (128, 256)
@@ -549,6 +591,19 @@ DROPOUT_SEED = 7
 HYBRIDS = ("uctransnet", "da_transformer", "egeunet")
 HYBRID_IMAGES = {"uctransnet": (IMAGE,), "da_transformer": (IMAGE, 512), "egeunet": (IMAGE, 512)}
 DA_GAMMAS = ("pam1", "pam2", "pam3", "cam1", "cam2", "cam3")
+# phase 26: the rest of serving. The tiled predictor on full-width unet (bf16,
+# B=1) over a seeded TILED_IMAGE^2 image, TILED_TILE tiles at TILED_OVERLAP,
+# TILED_BATCH tiles a forward (25 tiles: 4 forwards, the last filled with
+# copies), held to JAX's bars against the full-image predictor
+# (tests/test_serving.py: median |dprob| < 0.05, mean < 0.1) and, where one
+# tile covers the image, to it within TILED_COVER_REL_L2; the exported unet
+# (bf16, B=8, 256px, probabilities) and int8 unet_tpu (logits) loaded in a
+# fresh process that imports only torch and unet_zoo_tpu_torch.ops.kernels,
+# their outputs against the live predictors' (EXPORT_REL_L2 unless bit for
+# bit), their launches a call; mmunet must refuse to export, naming K4.
+TILED_IMAGE, TILED_TILE, TILED_OVERLAP, TILED_BATCH = 1024, 256, 0.25, 8
+TILED_MEDIAN, TILED_MEAN, TILED_COVER_REL_L2 = 0.05, 0.1, 1e-3
+EXPORT_REL_L2 = 1e-3
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -2915,24 +2970,40 @@ def int8_launch_shapes(name, image=IMAGE, batch=SERVE_BATCH):
     """The int8 conv's launch shapes in one forward of ``name`` as served here
     (unet 64 -> 1024 channels; unet_tpu at UNET_TPU_WIDTHS, the stem to
     image / 4): rows of (B, H, W, Ci, Co, stride, launches), H and W the
-    conv's input, in the order of first launch."""
+    conv's input, in the order of first launch; every conv 3x3, padding 1."""
     from unet_zoo_tpu_torch.probes import int8_conv_plan
 
     return int8_conv_plan.launch_shapes(name, image, batch, UNET_TPU_WIDTHS)
 
 
-def int8_conv_work(b, h, w, ci, co, stride, out_bytes, x_bytes=1):
-    """P2's conv: (int8 operations, least bytes): 2 * 9 Ci multiply-adds per
-    output element; x read once (``x_bytes`` an element: the float x the
+def int8_launch_rows(name, image=IMAGE, batch=SERVE_BATCH):
+    """int8_launch_shapes' rows with each conv's (ksize, padding, dilation)
+    appended; for INT8_TRACED read off the model as served here
+    (member_model's options) on the meta device."""
+    from unet_zoo_tpu_torch.probes import int8_conv_plan
+
+    if name in INT8_TRACED:
+        return int8_conv_plan.traced_launch_shapes(name, image, batch,
+                                                   **CORE_MEMBERS.get(name, {}))
+    return [(*row, 3, 1, 1) for row in int8_launch_shapes(name, image, batch)]
+
+
+def int8_conv_work(b, h, w, ci, co, stride, out_bytes, x_bytes=1, ksize=3, padding=1,
+                   dilation=1):
+    """P2's conv: (int8 operations, least bytes): 2 * k^2 Ci multiply-adds per
+    output element (taps outside the image counted: the kernel multiplies
+    their zeros); x read once (``x_bytes`` an element: the float x the
     kernel quantises), the int8 weights, scale and bias once, the output
     written once. The quantisation's divisions are not counted."""
-    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    m = b * ho * wo
-    return (2 * m * co * 9 * ci,
-            x_bytes * b * h * w * ci + 9 * ci * co + 8 * co + out_bytes * m * co)
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+
+    ho, wo = (p2.conv_out_size(n, stride, ksize, padding, dilation) for n in (h, w))
+    m, kk = b * ho * wo, ksize * ksize * ci
+    return (2 * m * co * kk,
+            x_bytes * b * h * w * ci + kk * co + 8 * co + out_bytes * m * co)
 
 
-def int8_conv_case(torch, gen, b, h, w, ci, co, xdtype, device):
+def int8_conv_case(torch, gen, b, h, w, ci, co, xdtype, device, ksize=3):
     """A float x of type ``xdtype`` (NHWC) with s_x = 2^-3, so that x / s_x
     is exact: a tenth of x on half-way points (n + 1/2) s_x, which round half
     to even, a twentieth at +-200 s_x, which clamp, the rest normal at 40 s_x;
@@ -2944,40 +3015,54 @@ def int8_conv_case(torch, gen, b, h, w, ci, co, xdtype, device):
     half = (torch.randint(-127, 127, (b, h, w, ci), generator=gen, device=device) + 0.5) * s_x
     x = torch.where(spots < 0.1, half, x)
     x = torch.where(spots > 0.95, torch.sign(x) * 200 * s_x, x).to(xdtype)
-    wq = torch.randint(-127, 128, (co, ci, 3, 3), generator=gen, device=device, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (co, ci, ksize, ksize), generator=gen, device=device,
+                       dtype=torch.int8)
     scale = 1e-4 * (0.5 + torch.rand(co, generator=gen, device=device))
     return x, s_x, wq, scale, 0.1 * torch.randn(co, generator=gen, device=device)
 
 
-def int8_timing_case(torch, gen, b, h, w, ci, co, xdtype, device):
+def int8_timing_case(torch, gen, b, h, w, ci, co, xdtype, device, ksize=3):
     """int8_conv_case with the x a served conv sees: a ReLU output (half of
     it 0) of type ``xdtype``, s_x calibrated from its absmax; no value is
     planted on a half-way point."""
     from unet_zoo_tpu_torch.ops import quant
 
-    _, _, wq, scale, bias = int8_conv_case(torch, gen, 1, 1, 1, ci, co, xdtype, device)
+    _, _, wq, scale, bias = int8_conv_case(torch, gen, 1, 1, 1, ci, co, xdtype, device, ksize)
     x = torch.relu(torch.randn(b, h, w, ci, generator=gen, device=device)).to(xdtype)
     return x, quant.activation_scale(x.float().abs().amax()), wq, scale, bias
 
 
-def int8_faults(torch, x, s_x, wq, scale, bias, stride, dtype):
+def int8_faults(torch, x, s_x, wq, scale, bias, stride, dtype, geometry=(3, 1, 1)):
     """P2's plain version with a fault planted each, on one image: the taps
-    transposed, the stride ignored (each output read the input as at stride
-    1), a per-tensor weight scale instead of the per-channel one, the bias
-    dropped, x quantised with ties rounded away from zero."""
+    transposed (3x3, where a tap off the centre reads inside the image), the
+    stride ignored (each output read the input as at stride 1), a per-tensor
+    weight scale instead of the per-channel one (Co > 1), the bias dropped,
+    x quantised with ties rounded away from zero; and the
+    kernel itself launched with a fault planted into what it reads
+    (``int8_gemm.planted_fault``): taps at offset 1 where the conv's
+    dilation is larger, padding 1 on a 1x1 conv."""
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
 
+    ksize, padding, dilation = geometry
     ref = lambda w_, sc, bi, st, x_=x, s_=s_x: p2.int8_conv3x3_reference(
-        x_, s_, p2.pack_conv_weight(w_), sc, bi, st, dtype)
+        x_, s_, p2.pack_conv_weight(w_), sc, bi, st, dtype, *geometry)
     t = x.float() / s_x
     ties_away = torch.clamp(torch.trunc(t + 0.5 * torch.sign(t)), -127, 127)
-    faults = {"taps transposed": ref(wq.transpose(2, 3).contiguous(), scale, bias, stride),
-              "per-tensor s_w": ref(wq, torch.full_like(scale, scale.max().item()), bias, stride),
-              "bias dropped": ref(wq, scale, None, stride),
+    faults = {"bias dropped": ref(wq, scale, None, stride),
               "ties away from 0": ref(wq, scale, bias, stride, ties_away, torch.ones_like(s_x))}
+    if scale.numel() > 1:   # a single channel's scale is per tensor
+        faults["per-tensor s_w"] = ref(wq, torch.full_like(scale, scale.max().item()), bias,
+                                       stride)
+    if ksize == 3 and dilation < min(x.shape[1:3]):   # else only the centre tap is inside
+        faults["taps transposed"] = ref(wq.transpose(2, 3).contiguous(), scale, bias, stride)
     if stride == 2:
-        ho, wo = (x.shape[1] - 1) // 2 + 1, (x.shape[2] - 1) // 2 + 1
+        ho, wo = (p2.conv_out_size(n, 2, *geometry) for n in x.shape[1:3])
         faults["stride ignored"] = ref(wq, scale, bias, 1)[:, :ho, :wo]
+    kernel_fault = ("taps at offset 1" if dilation > 1 else
+                    "padding 1 on a 1x1" if ksize == 1 else None)
+    if kernel_fault:
+        faults[kernel_fault] = p2.planted_fault(x, s_x, p2.pack_conv_weight(wq), scale, bias,
+                                                stride, dtype, *geometry, kernel_fault)
     return faults
 
 
@@ -2985,8 +3070,10 @@ def check_int8_conv(torch, gen, device):
     """P2's int8 conv against its plain version, bit for bit, at every
     distinct launch shape of the served unet_tpu (bf16 x and out), unet
     (float32), transatt_unet, unet_transformer and da_transformer (bf16) at
-    B=8/256px, da_transformer's at 512px, and at odd shapes (Ci 3 and 20,
-    odd H and W, stride 2 on an odd size, Co not a multiple of the tile), x drawn by
+    B=8/256px, da_transformer's at 512px, at odd shapes (Ci 3 and 20,
+    odd H and W, stride 2 on an odd size, Co not a multiple of the tile),
+    and at INT8_GEOMETRY_CASES (the dilated and 1x1 convs of INT8_TRACED;
+    serve_int8 holds every one of their served launches too), x drawn by
     int8_conv_case; the comparison is shown to reject planted faults
     (int8_faults) on the first image of each shape. Returns the max abs error
     (0 when every launch agrees bit for bit)."""
@@ -3005,21 +3092,27 @@ def check_int8_conv(torch, gen, device):
                     - set(cases), key=str)
     cases += [(2, 37, 45, 3, 24, 1, torch.bfloat16), (1, 33, 29, 20, 40, 2, torch.float32),
               (2, 31, 31, 48, 130, 2, torch.bfloat16)]
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cases = [(*c, 3, 1, 1) for c in cases] + [(*c[:6], dtypes[c[6]], *c[7:])
+                                               for c in INT8_GEOMETRY_CASES]
     err = 0.0
-    for b, h, w, ci, co, stride, dtype in cases:
-        x, s_x, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, dtype, device)
+    for b, h, w, ci, co, stride, dtype, *geometry in cases:
+        x, s_x, wq, scale, bias = int8_conv_case(torch, gen, b, h, w, ci, co, dtype, device,
+                                                 geometry[0])
         wp = p2.pack_conv_weight(wq)
-        got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
-        ref = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype)
-        faults = int8_faults(torch, x[:1], s_x, wq, scale, bias, stride, dtype)
+        got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, *geometry)
+        ref = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype, *geometry)
+        faults = int8_faults(torch, x[:1], s_x, wq, scale, bias, stride, dtype, geometry)
         torch.cuda.synchronize()
         assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got.float()).all()
         rms = ref.float().pow(2).mean().sqrt().item()
         e = (got.float() - ref.float()).abs().max().item()
         caught = {k: (got[:1].float() - f.float()).abs().max().item() / rms
                   for k, f in faults.items()}
-        plan = p2.conv_plan(b * ((h - 1) // stride + 1) * ((w - 1) // stride + 1), co, wp.shape[1])
-        log(f"P2 conv [{b}, {h}, {w}, {ci}] -> {co} stride {stride} {str(dtype)[6:]} (tile "
+        ho, wo = (p2.conv_out_size(n, stride, *geometry) for n in (h, w))
+        plan = p2.conv_plan(b * ho * wo, co, wp.shape[1])
+        log(f"P2 conv [{b}, {h}, {w}, {ci}] -> {co} stride {stride} (k, pad, dil) "
+            f"{tuple(geometry)} {str(dtype)[6:]} (tile "
             f"{plan[0]} x {plan[1]}, K split {plan[2]}): max_abs_err {e:.3e} (bit for bit: "
             f"{torch.equal(got, ref)}); least planted fault "
             f"{min(caught.values()):.3e} of the output rms ({min(caught, key=caught.get)})")
@@ -3040,12 +3133,12 @@ def checked_int8_launches(torch, fn):
 
     kernel, shapes, bad, copied = p2.int8_conv3x3, [], [], []
 
-    def launch(x, s_x, wp, scale, bias, stride, dtype):
-        got = kernel(x, s_x, wp, scale, bias, stride, dtype)
-        shapes.append((*x.shape, wp.shape[0], stride))
+    def launch(x, s_x, wp, scale, bias, stride, dtype, *geometry):
+        got = kernel(x, s_x, wp, scale, bias, stride, dtype, *geometry)
+        shapes.append((*x.shape, wp.shape[0], stride, *geometry))
         if not x.is_contiguous():
             copied.append(shapes[-1])
-        ref = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype)
+        ref = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype, *geometry)
         if not torch.equal(got, ref):
             bad.append(shapes[-1])
         return got
@@ -3122,7 +3215,7 @@ def serve_int8(torch, gen, device, name):
         raise AssertionError(f"{name}: int8 serving strays from float beyond JAX's bars")
 
     _, shapes, bad, copied = checked_int8_launches(torch, lambda: preds["int8 kernel"](x))
-    expected = sorted(r[:6] for r in int8_launch_shapes(name) for _ in range(r[6]))
+    expected = sorted((*r[:6], *r[7:]) for r in int8_launch_rows(name) for _ in range(r[6]))
     log(f"{name}: its {len(shapes)} int8 conv launches against the plain version on their own "
         f"operands: {len(shapes) - len(bad)} bit for bit; x copied to channels-last for "
         f"{len(copied)}: {copied}")
@@ -3182,50 +3275,58 @@ def time_int8_conv(torch, gen, device, name):
     int8_timing_case, as a served conv sees it): kernel and cuDNN by CUDA
     graph replay (``graph_ms``: a launch's host cost, 20-70 us through the
     wrapper, exceeds the small shapes' device time), plain
-    version (float64 on the card), bound (int8 operations), and cuDNN's bf16
-    conv of the same shape (a yardstick of what int8 saves; no PyTorch call
-    computes the int8 conv, so library_ms is null); the plan (tile, splits)
-    and the host's cost of one launch through the wrapper (the mean of 200
-    back-to-back calls, queued behind a spin of the device so that none
-    waits on it)."""
+    version (float64 on the card; not timed for INT8_TRACED, whose dozens of
+    shapes would each take a float64 conv), bound (int8 operations), and
+    cuDNN's bf16 conv of the same shape and geometry (a yardstick of what
+    int8 saves; no PyTorch call computes the int8 conv, so library_ms is
+    null); the plan (tile, splits) and the host's cost of one launch through
+    the wrapper (the mean of 200 back-to-back calls, queued behind a spin of
+    the device so that none waits on it)."""
     import torch.nn.functional as F
 
     from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
 
     dtype = torch.bfloat16 if name in INT8_BF16 else torch.float32
     rows = []
-    for b, h, w, ci, co, stride, n in int8_launch_shapes(name):
-        x, s_x, wq, scale, bias = int8_timing_case(torch, gen, b, h, w, ci, co, dtype, device)
+    for b, h, w, ci, co, stride, n, *geometry in int8_launch_rows(name):
+        ksize, padding, dilation = geometry
+        x, s_x, wq, scale, bias = int8_timing_case(torch, gen, b, h, w, ci, co, dtype, device,
+                                                   ksize)
         wp = p2.pack_conv_weight(wq)
         xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         bb = bias.to(torch.bfloat16)
-        ms = graph_ms(torch, lambda: p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype), 20)
-        plain_ms = cuda_ms(torch, lambda: p2.int8_conv3x3_reference(x, s_x, wp, scale, bias,
-                                                                     stride, dtype), 2)
-        cudnn_ms = graph_ms(torch, lambda: F.conv2d(xb, wb, bb, stride=stride, padding=1), 20)
+        ms = graph_ms(torch, lambda: p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype,
+                                                     *geometry), 20)
+        plain_ms = None if name in INT8_TRACED else cuda_ms(
+            torch, lambda: p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype), 2)
+        cudnn_ms = graph_ms(torch, lambda: F.conv2d(xb, wb, bb, stride=stride, padding=padding,
+                                                    dilation=dilation), 20)
         ops, nbytes = int8_conv_work(b, h, w, ci, co, stride, 2 if dtype == torch.bfloat16 else 4,
-                                     x.element_size())
+                                     x.element_size(), *geometry)
         bound_ms, bound_by = bound(0, nbytes, int8_ops=ops)
-        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        ho, wo = (p2.conv_out_size(v, stride, *geometry) for v in (h, w))
         plan = p2.conv_plan(b * ho * wo, co, wp.shape[1])
-        rows.append(dict(model=name, b=b, h=h, w=w, ci=ci, co=co, stride=stride, launches=n,
+        rows.append(dict(model=name, b=b, h=h, w=w, ci=ci, co=co, stride=stride, ksize=ksize,
+                         padding=padding, dilation=dilation, launches=n,
                          tile=plan[:2], splits=plan[2], int8_ops=ops, bytes=nbytes, ms=ms,
                          plain_ms=plain_ms, cudnn_bf16_ms=cudnn_ms, bound_ms=bound_ms,
                          bound_by=bound_by))
-        log(f"P2 conv {name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} x{n} (tile {plan[0]} x "
-            f"{plan[1]}, K split {plan[2]}): {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s, "
-            f"{bound_ms / ms:.3f} of its bound {bound_ms:.4f} ms, {bound_by}), plain "
-            f"{plain_ms:.4f} ms, cuDNN bf16 conv {cudnn_ms:.4f} ms")
-    b, h, w, ci, co, stride, _ = int8_launch_shapes(name)[-1]
-    x, s_x, wq, scale, bias = int8_timing_case(torch, gen, b, h, w, ci, co, dtype, device)
+        plain = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+        log(f"P2 conv {name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} k{ksize} p{padding} "
+            f"d{dilation} x{n} (tile {plan[0]} x {plan[1]}, K split {plan[2]}): {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TOP/s, {bound_ms / ms:.3f} of its bound {bound_ms:.4f} ms, "
+            f"{bound_by}), plain {plain}, cuDNN bf16 conv {cudnn_ms:.4f} ms")
+    b, h, w, ci, co, stride, _, *geometry = int8_launch_rows(name)[-1]
+    x, s_x, wq, scale, bias = int8_timing_case(torch, gen, b, h, w, ci, co, dtype, device,
+                                               geometry[0])
     wp = p2.pack_conv_weight(wq)
-    p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
+    p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, *geometry)
     torch.cuda.synchronize()
     torch.cuda._sleep(2_000_000)
     t0 = time.perf_counter()
     for _ in range(200):
-        p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
+        p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, *geometry)
     host_us = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
     log(f"P2 conv {name}: {host_us:.1f} us of host time a launch through the wrapper")
@@ -3978,6 +4079,168 @@ def mma_counts(build, stem="int8_gemm"):
             for op in ("IGMMA", "HGMMA", "HMMA")}
 
 
+LOAD_EXPORTED = r"""
+import json, sys, time
+import torch
+import unet_zoo_tpu_torch.ops.kernels  # registers the kernels' ops
+from unet_zoo_tpu_torch.ops.kernels import fused_up, int8_gemm
+
+out = {}
+for name, path, x_path, y_path in json.loads(sys.argv[1]):
+    program = torch.export.load(path).module()
+    x = torch.load(x_path).cuda()
+    fused_up.LAUNCHES["fused_up_concat_conv"] = int8_gemm.LAUNCHES["int8_conv3x3"] = 0
+    with torch.inference_mode():
+        y = program(x)
+        torch.cuda.synchronize()
+        launches = {"K1": fused_up.LAUNCHES["fused_up_concat_conv"],
+                    "P2": int8_gemm.LAUNCHES["int8_conv3x3"]}
+        torch.save(y.cpu(), y_path)
+    out[name] = launches
+out["model_modules"] = sorted(m for m in sys.modules if m.startswith("unet_zoo_tpu_torch.models"))
+print(json.dumps(out))
+"""
+
+
+def tiled_and_export(torch, seeded, device):
+    """Phase 26 (the constants above): the tiled predictor and the exported
+    predictors, each through the entry points a user calls
+    (``make_tiled_predictor``, ``export_predictor``, ``load_predictor``)."""
+    import tempfile
+
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
+    from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
+    from unet_zoo_tpu_torch.utils.serving import (calibrate_int8, export_predictor,
+                                                  load_predictor, make_predictor,
+                                                  make_tiled_predictor, tile_grid)
+
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    out = {}
+    # the tiled predictor: K1 on every forward of tiles
+    unet = create_model("unet", dtype=torch.bfloat16, seed=0)
+    x = torch.randn(1, 3, TILED_IMAGE, TILED_IMAGE, generator=seeded("tiled"), device=device)
+    tiled = make_tiled_predictor(unet, None, TILED_TILE, TILED_OVERLAP, "probs",
+                                 tile_batch=TILED_BATCH)
+    n_h, n_w, hp, wp, mode = tile_grid(TILED_IMAGE, TILED_IMAGE, TILED_TILE,
+                                       round(TILED_TILE * (1 - TILED_OVERLAP)))
+    forwards = -(-n_h * n_w // TILED_BATCH)
+    k1.LAUNCHES["fused_up_concat_conv"] = 0
+    probs = tiled(x)
+    torch.cuda.synchronize()
+    k1_tiled = k1.LAUNCHES["fused_up_concat_conv"]
+    full = make_predictor(unet, None, "probs")(x)
+    err = (probs - full).abs()
+    margin = TILED_TILE // 8
+    interior = err[..., margin:-margin, margin:-margin]
+    cover_x = torch.randn(2, 3, TILED_TILE, TILED_TILE, generator=seeded("tiled cover"),
+                          device=device)
+    cover = rel(make_tiled_predictor(unet, None, TILED_TILE, TILED_OVERLAP, "logits")(cover_x),
+                make_predictor(unet, None, "logits")(cover_x))
+    ms = statistics.median(serve_times(torch, {"tiled": tiled}, x)["tiled"])
+    out["tiled"] = dict(image=TILED_IMAGE, tile=TILED_TILE, overlap=TILED_OVERLAP,
+                        tile_batch=TILED_BATCH, tiles=n_h * n_w, padded=[hp, wp], pad_mode=mode,
+                        forwards=forwards, k1_launches=k1_tiled,
+                        median_abs_dprob=err.median().item(), mean_abs_dprob=err.mean().item(),
+                        interior_median_abs_dprob=interior.median().item(),
+                        interior_mean_abs_dprob=interior.mean().item(),
+                        cover_rel_l2=cover, ms=ms, megapixels_per_s=TILED_IMAGE ** 2 / ms / 1e3)
+    log(f"tiled unet bf16 {TILED_IMAGE}^2 (tile {TILED_TILE}, overlap {TILED_OVERLAP}, "
+        f"{n_h * n_w} tiles, {forwards} forwards of {TILED_BATCH}): K1 {k1_tiled} launches; "
+        f"against the full image |dprob| median {out['tiled']['median_abs_dprob']:.3e} (< "
+        f"{TILED_MEDIAN}), mean {out['tiled']['mean_abs_dprob']:.3e} (< {TILED_MEAN}); "
+        f"interior median {out['tiled']['interior_median_abs_dprob']:.3e}, mean "
+        f"{out['tiled']['interior_mean_abs_dprob']:.3e}; one tile covering the image: rel L2 "
+        f"{cover:.3e} (<= {TILED_COVER_REL_L2}); {ms:.4f} ms a call, "
+        f"{out['tiled']['megapixels_per_s']:.2f} megapixels/s")
+    if k1_tiled != len(STAGES) * forwards:
+        raise AssertionError(f"tiled: K1 ran {k1_tiled} times, expected {len(STAGES) * forwards}")
+    if not (out["tiled"]["median_abs_dprob"] < TILED_MEDIAN
+            and out["tiled"]["mean_abs_dprob"] < TILED_MEAN and cover <= TILED_COVER_REL_L2):
+        raise AssertionError(f"the tiled predictor strays from the full image: {out['tiled']}")
+    del tiled, full, probs
+    torch.cuda.empty_cache()
+
+    # exported predictors, loaded in a fresh process and in this one
+    tpu = create_model("unet_tpu", dtype=torch.bfloat16, seed=0, widths=UNET_TPU_WIDTHS)
+    gen = seeded("export")
+    batches = [torch.randn(SERVE_BATCH, 3, IMAGE, IMAGE, generator=gen, device=device)
+               for _ in range(3)]
+    stats = calibrate_int8(tpu, batches[:2])
+    xe = batches[2]
+    cases = {"unet": (unet, dict(output="probs"), {"K1": len(STAGES), "P2": 0}),
+             "unet_tpu int8": (tpu, dict(output="logits", quant=stats),
+                               {"K1": 0, "P2": INT8_LAUNCHES["unet_tpu"]})}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs, live, loaded = [], {}, {}
+        for name, (model, kw, _) in cases.items():
+            stem = name.replace(" ", "_")
+            path = os.path.join(tmp, f"{stem}.pt2")
+            t0 = time.perf_counter()
+            blob = export_predictor(model, None, SERVE_BATCH, IMAGE, path=path, **kw)
+            export_s = time.perf_counter() - t0
+            live[name] = make_predictor(model, None, kw["output"], quant=kw.get("quant"))
+            loaded[name] = load_predictor(path)
+            nodes = [str(n.target) for n in loaded[name].module.graph.nodes]
+            ops = {op: nodes.count(f"unet_zoo.{op}.default")
+                   for op in ("fused_up_concat_conv", "int8_conv")}
+            out[name] = dict(bytes=len(blob), export_s=export_s, graph_ops=ops)
+            torch.save(xe.cpu(), os.path.join(tmp, "x.pt"))
+            jobs.append((name, path, os.path.join(tmp, "x.pt"), os.path.join(tmp, f"{stem}.y")))
+        run = subprocess.run([sys.executable, "-c", LOAD_EXPORTED, json.dumps(jobs)],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)),
+                             env={**os.environ, "PYTHONPATH": os.path.dirname(
+                                 os.path.abspath(__file__))})
+        if run.returncode:
+            raise AssertionError(f"loading the exported programs failed: {run.stderr[-3000:]}")
+        fresh = json.loads(run.stdout.strip().splitlines()[-1])
+        for name, (model, kw, want) in cases.items():
+            y_live = live[name](xe)
+            y_fresh = torch.load(jobs[list(cases).index(name)][3]).to(device)
+            before = (k1.LAUNCHES["fused_up_concat_conv"], p2.LAUNCHES["int8_conv3x3"])
+            y_loaded = loaded[name](xe)
+            torch.cuda.synchronize()
+            here = {"K1": k1.LAUNCHES["fused_up_concat_conv"] - before[0],
+                    "P2": p2.LAUNCHES["int8_conv3x3"] - before[1]}
+            times = serve_times(torch, {"live": live[name], "loaded": loaded[name]}, xe)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            out[name].update(
+                launches_fresh=fresh[name], launches_here=here,
+                bit_for_bit=torch.equal(y_fresh, y_live) and torch.equal(y_loaded, y_live),
+                rel_l2=max(rel(y_fresh, y_live), rel(y_loaded, y_live)),
+                img_per_s={k: SERVE_BATCH / (m / 1e3) for k, m in med.items()})
+            log(f"export {name} (B={SERVE_BATCH}, {IMAGE}px, {kw['output']}): "
+                f"{out[name]['bytes'] / 1e6:.1f} MB in {out[name]['export_s']:.1f} s, graph ops "
+                f"{out[name]['graph_ops']}; loaded in a fresh process: launches {fresh[name]}, "
+                f"here {here} (expected {want}); against the live predictor bit for bit "
+                f"{out[name]['bit_for_bit']}, rel L2 {out[name]['rel_l2']:.3e}; "
+                f"img/s live {out[name]['img_per_s']['live']:.1f}, loaded "
+                f"{out[name]['img_per_s']['loaded']:.1f} (in turns)")
+            if fresh[name] != want or here != want:
+                raise AssertionError(f"export {name}: launches {fresh[name]} and {here}, "
+                                     f"expected {want}")
+            if not (out[name]["bit_for_bit"] or out[name]["rel_l2"] <= EXPORT_REL_L2):
+                raise AssertionError(f"export {name}: the loaded program strays from the live "
+                                     f"predictor: {out[name]['rel_l2']}")
+        if fresh["model_modules"]:
+            raise AssertionError(f"loading imported model code: {fresh['model_modules']}")
+    out["fresh_process_model_modules"] = fresh["model_modules"]
+
+    # a kernel that is not an op yet refuses to export
+    mm = create_model("mmunet", dtype=torch.bfloat16, seed=0)
+    try:
+        export_predictor(mm, None, 1, IMAGE)
+    except NotImplementedError as e:
+        out["mmunet_refused"] = str(e)
+    else:
+        raise AssertionError("mmunet exported with its kernels in the plain version's place")
+    log(f"export mmunet: refused: {out['mmunet_refused']}")
+    if "K4" not in out["mmunet_refused"]:
+        raise AssertionError(f"mmunet's refusal names no K4: {out['mmunet_refused']}")
+    return out
+
+
 def phase_gen(torch, device, *name):
     """A generator for one phase of the run, seeded from the phase's name, so
     that a draw added to or taken from one phase moves no other phase's
@@ -4219,13 +4482,20 @@ def main() -> int:
     # da_transformer and egeunet at 512px too) and trained (da_transformer's
     # int8 ran with 17-20)
     hyb = hybrids(torch, seeded, device)
-    lap("hybrids (P2)", t_phase)
+    t_phase = lap("hybrids (P2)", t_phase)
+
+    # 26. the rest of serving: the tiled predictor (K1) and the exported unet
+    # (K1) and int8 unet_tpu (P2), loaded without the model code
+    served = tiled_and_export(torch, seeded, device)
+    lap("tiled and exported predictors (K1, P2)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
         b = bound(0, per_forward(rows, "bytes"), int8_ops=per_forward(rows, "int8_ops"))
         p2_per_model[name] = dict(launches=int8_serving[name]["launches"],
-                                  ms=per_forward(rows, "ms"), plain_ms=per_forward(rows, "plain_ms"),
+                                  ms=per_forward(rows, "ms"),
+                                  plain_ms=(None if name in INT8_TRACED
+                                            else per_forward(rows, "plain_ms")),
                                   cudnn_bf16_ms=per_forward(rows, "cudnn_bf16_ms"),
                                   int8_ops=per_forward(rows, "int8_ops"), bound_ms=b[0],
                                   bound_by=b[1], host_us_per_launch=p2_timed[name][1])
@@ -4323,6 +4593,9 @@ def main() -> int:
         "library_ms": None,
         "cudnn_chain_ms": total("cudnn_chain_ms"),
         "loop_launches": loop["unet"]["k1_launches"],
+        "tiled_launches": served["tiled"]["k1_launches"],
+        "tiled": served["tiled"],
+        "export": served["unet"],
         "training_loop": loop,
         "serve_img_per_s": rates,
         "stages": stages,
@@ -4472,6 +4745,8 @@ def main() -> int:
         "per_model": p2_per_model,
         "serving": int8_serving,
         "shapes": p2_rows,
+        "export": served["unet_tpu int8"],
+        "mmunet_export_refused": served["mmunet_refused"],
         "core_members": {"serving": core, "training": core_train},
         "conv_members": conv,
         "hybrids": hyb,

@@ -99,6 +99,7 @@ MEMBERS = {
     "unet_transformer_small": ("unet_transformer", 64, {"common_attn_res_for_QK_V": (8, 8)}),
     "unet_transformer": ("unet_transformer", 64, {}),
     "multiresunet": ("multiresunet", 64, {}),
+    "multiresunet_narrow": ("multiresunet", 32, {"filters": 8}),
     "vnet": ("vnet", 64, {}),
     "vnet_1ch": ("vnet", 32, {"in_channels": 1}),
     "vnet_prelu": ("vnet", 32, {"elu": False}),
@@ -473,8 +474,13 @@ def test_every_config_names_only_served_models(path):
 
 
 INT8_SIZE = 32
-INT8_GATED = {"transatt_unet": 18, "unet_transformer": 14}
-INT8_MEMBER = {"transatt_unet": "transatt_unet", "unet_transformer": "unet_transformer_small"}
+# multiresunet: 9 MultiRes blocks of 4 conv-BN units (a 1x1 shortcut and
+# three 3x3), the ResPaths' 4 + 3 + 2 + 1 blocks of a 3x3 and a 1x1, and
+# the 1x1 head conv_final (Co = 1); at filters 8 its Ci are 3, 13, 26, 53,
+# 106 and 213 and its Co 1 to 106, none a multiple of 16
+INT8_GATED = {"transatt_unet": 18, "unet_transformer": 14, "multiresunet": 57}
+INT8_MEMBER = {"transatt_unet": "transatt_unet", "unet_transformer": "unet_transformer_small",
+               "multiresunet": "multiresunet_narrow"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -507,11 +513,13 @@ def test_int8_calibration_matches_jax(name):
 def test_int8_every_gated_conv_matches_jax(name, monkeypatch):
     """The int8 model on JAX's statistics: every gated conv's output equals
     JAX's ``_QuantConv`` (op by op) on the same input, weights and absmax,
-    bit for bit; the launch shapes are the ones ``chip_smoke.py`` expects
-    (``int8_conv_plan.launch_shapes`` at INT8_SIZE, B=1). The whole int8
-    forward, with the same plain int8 convs on JAX's side, stays within the
-    float distance a flipped quantisation step moves it (rel L2 0.1)."""
-    from unet_zoo_tpu_torch.probes.int8_conv_plan import launch_shapes
+    bit for bit, JAX given each conv's kernel size and padding (multiresunet's
+    1x1 shortcuts and head); the launch shapes are the ones ``chip_smoke.py``
+    expects (``int8_conv_plan.launch_shapes`` at INT8_SIZE, B=1, or for
+    multiresunet ``traced_launch_shapes``). The whole int8 forward, with the
+    same plain int8 convs on JAX's side, stays within the float distance a
+    flipped quantisation step moves it (rel L2 0.1)."""
+    from unet_zoo_tpu_torch.probes.int8_conv_plan import launch_shapes, traced_launch_shapes
 
     c = member(INT8_MEMBER[name])
     xs, quant = calibrated(name)
@@ -536,31 +544,37 @@ def test_int8_every_gated_conv_matches_jax(name, monkeypatch):
     for x, conv_m, y in calls:
         k = conv_m.weight.detach().numpy().transpose(2, 3, 1, 0)
         params = {"kernel": jnp.asarray(k), "bias": jnp.asarray(conv_m.bias.detach().numpy())}
-        want = _QuantConv(conv_m.out_channels).apply(
+        want = _QuantConv(conv_m.out_channels, kernel_size=conv_m.kernel_size[0],
+                          padding=conv_m.padding[0]).apply(
             {"params": params}, jnp.asarray(_nhwc(x)), jnp.float32(stats[served[conv_m]]))
         np.testing.assert_array_equal(_nhwc(y), np.asarray(want), err_msg=served[conv_m])
-    shapes = sorted((1, *x.shape[2:], x.shape[1], conv_m.out_channels, conv_m.stride[0])
+    shapes = sorted((1, *x.shape[2:], x.shape[1], conv_m.out_channels, conv_m.stride[0],
+                     conv_m.kernel_size[0], conv_m.padding[0])
                     for x, conv_m, _ in calls)
-    assert shapes == sorted(r[:6] for r in launch_shapes(name, INT8_SIZE, 1)
-                            for _ in range(r[6]))
-    with jax.disable_jit():
-        jax_int8 = np.asarray(c["m"].module.apply({**c["v"], "quant": quant},
-                                                  jnp.asarray(xs[0]), train=False)["main"])
+    rows = (traced_launch_shapes(name, INT8_SIZE, 1, **c["kw"]) if name == "multiresunet"
+            else [(*r, 3, 1, 1) for r in launch_shapes(name, INT8_SIZE, 1)])
+    assert shapes == sorted((*r[:6], *r[7:9]) for r in rows for _ in range(r[6]))
+    if name == "multiresunet":   # its eager JAX forward takes 70 s; jitted, 6 s
+        jax_int8 = np.asarray(c["apply"]({**c["v"], "quant": quant}, jnp.asarray(xs[0]))["main"])
+    else:
+        with jax.disable_jit():
+            jax_int8 = np.asarray(c["m"].module.apply({**c["v"], "quant": quant},
+                                                      jnp.asarray(xs[0]), train=False)["main"])
     assert _rel(got, jax_int8) <= 0.1, _rel(got, jax_int8)
     assert _rel(got, c["apply"](c["v"], jnp.asarray(xs[0]))["main"]) > 1e-3
 
 
-def test_int8_serving_refuses_multiresunet():
-    """JAX gates every MultiRes conv-BN unit, 1x1 shortcuts included, and
-    serves them int8; the port's int8 conv takes 3x3 convs, so the predictor
-    raises naming the first 1x1 conv, before anything is served."""
-    port = create_model("multiresunet", device="cpu", filters=8)
-    stats = calibrate_int8(port, [torch.randn(1, 3, 32, 32)])
-    first = "multiresblock1.conv2d_bn_1x1.conv1"
-    assert next(iter(stats)) == first and len(stats) == 9 * 4 + (4 + 3 + 2 + 1) * 2 + 1
-    with pytest.raises(ValueError, match=first.replace(".", r"\.") + ": the int8 conv takes"):
-        make_predictor(port, None, "logits", quant=stats)
-    assert not any(hasattr(m, "int8") for m in port.module.modules())
+def test_int8_multiresunet_strays_from_float_as_far_as_jax():
+    """Narrow multiresunet (filters 8, 32px), whose 1x1 shortcuts and Co = 1
+    head P2 now takes: served int8 end to end by ``make_predictor`` on JAX's
+    statistics, it moves from float no further than 1.25 times JAX's own
+    int8 does on the same variables."""
+    xs, quant = calibrated("multiresunet")
+    c = member(INT8_MEMBER["multiresunet"])
+    stats = quant_from_jax("multiresunet", quant)
+    assert stats["conv_final.conv1"].shape == () and len(stats) == INT8_GATED["multiresunet"]
+    core.check_int8_strays_as_far_as_jax(c, stats, quant, xs[1],
+                                         apply=lambda v_, x_: c["apply"](v_, x_)["main"])
 
 
 def test_jax_gates_the_same_convs():

@@ -156,6 +156,115 @@ def test_pack_conv_weight_round_trip(ci):
                            w[:, block * p2.K_STAGE:(block + 1) * p2.K_STAGE, tap // 3, tap % 3])
 
 
+# The geometries the registry gates beyond the 3x3 conv with padding 1:
+# u2net's and u2net_tpu's dilated 3x3 convs (padding = dilation 2, 4, 8, on
+# maps as small as 3 x 3, where most taps fall outside), resunet's stride-2
+# 1x1 skip, multiresunet's 1x1 shortcuts of odd Ci and its Co = 1 head.
+GEOMETRY_CASES = [
+    # (ksize, stride, padding, dilation, ci, h, w, co)
+    (3, 1, 2, 2, 16, 9, 11, 24),
+    (3, 1, 4, 4, 20, 8, 8, 12),
+    (3, 1, 8, 8, 16, 8, 8, 16),
+    (3, 1, 8, 8, 32, 3, 5, 8),       # every off-centre tap outside the image
+    (1, 1, 0, 1, 51, 7, 6, 26),      # odd Ci
+    (1, 2, 0, 1, 16, 9, 8, 32),      # resunet's skip on an odd size
+    (1, 1, 0, 1, 105, 5, 5, 1),      # Co = 1
+    (3, 1, 1, 1, 211, 6, 7, 17),     # odd Ci, odd Co
+]
+
+
+@pytest.mark.parametrize("ksize,stride,padding,dilation,ci,h,w,co", GEOMETRY_CASES)
+def test_plain_int8_conv_geometries_match_jax_exactly(ksize, stride, padding, dilation, ci,
+                                                      h, w, co):
+    """The plain int8 conv at every new geometry equals JAX's s8 x s8 -> s32
+    ``lax.conv_general_dilated`` (``rhs_dilation``) exactly, with the extremes
+    +-127 everywhere in one image; the packed-weight form gives the same
+    sums, and its K = k^2 Ci beyond which the packing is 0."""
+    rng = np.random.default_rng(ksize * 1000 + dilation * 100 + ci + h)
+    x = rng.integers(-127, 128, (2, h, w, ci)).astype(np.int8)
+    x[1] = 127
+    k = rng.integers(-127, 128, (ksize, ksize, ci, co)).astype(np.int8)
+    k[..., 0] = -127
+    want = np.asarray(jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(k), (stride, stride), ((padding, padding),) * 2,
+        rhs_dilation=(dilation, dilation), dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32))
+    wq = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
+    got = quant.int8_conv2d_exact(torch.from_numpy(x).permute(0, 3, 1, 2), wq, stride, padding,
+                                  dilation)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+    assert want.shape[1:3] == tuple(p2.conv_out_size(n, stride, ksize, padding, dilation)
+                                    for n in (h, w))
+    wp = p2.pack_conv_weight(wq)
+    kk = ksize * ksize * ci
+    assert wp.shape == (co, -(-kk // 64) * 64) and not wp[:, kk:].any()
+    assert torch.equal(p2.unpack_conv_weight(wp, ci, ksize), wq)
+    acc = p2.int8_conv3x3_reference(torch.from_numpy(x).float(), torch.tensor(1.0), wp,
+                                    torch.ones(co), None, stride, torch.float32, ksize, padding,
+                                    dilation)
+    np.testing.assert_array_equal(acc.numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("ksize,stride,padding,dilation", [(3, 1, 8, 8), (1, 2, 0, 1),
+                                                           (1, 1, 0, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_conv_reference_geometries_match_jax_quant_conv(ksize, stride, padding, dilation,
+                                                             dtype):
+    """``int8_conv3x3_reference`` at a dilated and at 1x1 geometries against
+    JAX's ``_QuantConv`` given ``kernel_size``, ``padding`` and
+    ``kernel_dilation`` (op by op) on the same float x, kernel, bias and
+    absmax, x on half-way points of x / s_x and beyond +-127 s_x: equal in
+    every bit, through the op ``unet_zoo::int8_conv`` too."""
+    from unet_zoo_tpu.nn.blocks import _QuantConv
+
+    ci, co, h, w, absmax = 48, 20, 11, 9, 15.875
+    rng = np.random.default_rng(ksize * 10 + stride + dilation)
+    s_x = np.float32(absmax) / np.float32(127.0)
+    x = (rng.standard_normal((2, h, w, ci)) * absmax / 2).astype(np.float32)
+    spots = rng.random(x.shape)
+    x = np.where(spots < 0.2, (rng.integers(-127, 127, x.shape) + 0.5) * s_x, x)
+    x = np.where(spots > 0.95, rng.choice([-1.0, 1.0], x.shape) * 200 * s_x, x)
+    x = x.astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    k = (rng.standard_normal((ksize, ksize, ci, co)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal(co) * 0.1).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdt)
+    with jax.disable_jit():
+        want = np.asarray(_QuantConv(co, kernel_size=ksize, strides=stride, padding=padding,
+                                     kernel_dilation=dilation, dtype=jdt).apply(
+            {"params": {"kernel": jnp.asarray(k), "bias": jnp.asarray(bias)}}, xj,
+            jnp.float32(absmax)).astype(jnp.float32))
+    kt = torch.from_numpy(k.transpose(3, 2, 0, 1).copy())
+    s_w = quant.weight_scale(kt)
+    st = quant.activation_scale(torch.tensor(absmax, dtype=torch.float32))
+    wp = p2.pack_conv_weight(quant.quantize_weight(kt, s_w))
+    args = (torch.from_numpy(np.array(xj.astype(jnp.float32))).to(dtype), st, wp, st * s_w,
+            torch.from_numpy(bias), stride, dtype, ksize, padding, dilation)
+    got = p2.int8_conv3x3_reference(*args)
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    torch.testing.assert_close(torch.ops.unet_zoo.int8_conv(*args), got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("geometry", [(3, 2, 2, 2), (3, 1, 3, 3), (1, 1, 1, 1), (5, 1, 2, 1)])
+def test_int8_conv_refuses_other_geometries(geometry):
+    """A gated conv outside the kernel's GEOMETRIES (dilation at stride 2,
+    dilation 3, a padded 1x1, a 5x5) is refused by name before anything is
+    served; the wrapper names use_kernels=False on the card."""
+    ksize, stride, padding, dilation = geometry
+    assert geometry not in p2.GEOMETRIES
+    blk = ConvNormAct(8, 8, stride, dilation=dilation, kernel_size=ksize).eval()
+    blk.conv.padding = (padding, padding)
+    with pytest.raises(ValueError, match=r"blk\.conv: the int8 conv takes"):
+        attach_int8(torch.nn.ModuleDict({"blk": blk}), {"blk.conv": torch.tensor(1.0)})
+    assert not hasattr(blk.conv, "int8")
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        p2._check_conv_args(torch.zeros(1, 8, 8, 8), torch.tensor(1.0),
+                            torch.zeros(8, 64 * ksize * ksize // 8 + 64, dtype=torch.int8),
+                            torch.ones(8), None, stride, torch.float32, ksize, padding,
+                            dilation)
+
+
 # The kernel's plain version takes the float activation and s_x, as the
 # kernel does (it quantises x as it loads it). s_x = 2^-3 (absmax 15.875)
 # puts (n + 1/2) s_x exactly on half-way points of x / s_x, which round half
@@ -249,6 +358,40 @@ def _served_conv_shapes():
                                      "unet_transformer", "da_transformer")
             for row in chip_smoke.int8_launch_shapes(name)] + [
         ("da_transformer", row) for row in chip_smoke.int8_launch_shapes("da_transformer", 512)]
+
+
+@functools.lru_cache(maxsize=None)
+def _traced_rows(name):
+    import chip_smoke
+
+    return tuple(chip_smoke.int8_launch_rows(name))
+
+
+def _traced_conv_shapes():
+    import chip_smoke
+
+    return [(name, row) for name in chip_smoke.INT8_TRACED for row in _traced_rows(name)]
+
+
+@pytest.mark.parametrize("name,row", _traced_conv_shapes())
+def test_conv_plan_fills_the_card_at_the_dilated_and_1x1_shapes(name, row):
+    """Every int8 conv launch of u2net, u2netp, u2net_tpu, resunet and
+    multiresunet at B=8/256px (read off the models, K = k^2 Ci): the plan
+    fills the card as at the 3x3 shapes, and the rows count the model's
+    gated convs."""
+    import chip_smoke
+
+    b, h, w, ci, co, stride, n, ksize, padding, dilation = row
+    m = b * p2.conv_out_size(h, stride, ksize, padding, dilation) * p2.conv_out_size(
+        w, stride, ksize, padding, dilation)
+    kpad = -(-ksize * ksize * ci // p2.K_ALIGN) * p2.K_ALIGN
+    bm, bn, splits = p2.conv_plan(m, co, kpad)
+    stages = -(-kpad // p2.K_STAGE)
+    tiles = -(-m // bm) * -(-co // bn)
+    assert bm == p2.BM and bn in p2.TILE_N and 1 <= splits <= stages
+    assert tiles * splits >= min(p2.SMS, tiles * stages)
+    assert (ksize, stride, padding, dilation) in p2.GEOMETRIES
+    assert sum(r[6] for r in _traced_rows(name)) == chip_smoke.INT8_LAUNCHES[name]
 
 
 @pytest.mark.parametrize("name,row", _served_conv_shapes())

@@ -1424,7 +1424,7 @@ def test_wranet_kernel_path_matches_plain_path(cuda_device):
 # the plain version does, so kernel and plain version agree bit for bit.
 # s_x = 2^-3 puts a tenth of x on exact half-way points of x / s_x, and a
 # twentieth beyond +-127 s_x, where it clamps.
-def _int8_conv_case(device, b, h, w, ci, co, dtype, seed=0, bias=True):
+def _int8_conv_case(device, b, h, w, ci, co, dtype, seed=0, bias=True, ksize=3):
     gen = torch.Generator(device=device).manual_seed(seed + b + h + ci + co)
     s_x = torch.tensor(0.125, device=device)
     x = torch.randn(b, h, w, ci, generator=gen, device=device) * 40 * s_x
@@ -1432,7 +1432,7 @@ def _int8_conv_case(device, b, h, w, ci, co, dtype, seed=0, bias=True):
     half = (torch.randint(-127, 127, (b, h, w, ci), generator=gen, device=device) + 0.5) * s_x
     x = torch.where(spots < 0.1, half, x)
     x = torch.where(spots > 0.95, torch.sign(x) * 200 * s_x, x).to(dtype)
-    wq = torch.randint(-127, 128, (co, ci, 3, 3), generator=gen, device=device,
+    wq = torch.randint(-127, 128, (co, ci, ksize, ksize), generator=gen, device=device,
                        dtype=torch.int8)
     scale = torch.rand(co, generator=gen, device=device) * 1e-4
     bvec = torch.randn(co, generator=gen, device=device) if bias else None
@@ -1564,10 +1564,85 @@ def test_int8_conv_outside_kernel_shapes_raises(cuda_device):
                  (x, s_x, wp, scale, bias, 3, torch.float32),                   # stride 3
                  (x, s_x, wp[:, :100].contiguous(), scale, bias, 1, torch.float32),  # unpacked
                  (x, s_x, wp, scale.double(), bias, 1, torch.float32),
-                 (x, s_x, wp, scale, bias, 1, torch.float16)):
+                 (x, s_x, wp, scale, bias, 1, torch.float16),
+                 (x, s_x, wp, scale, bias, 1, torch.float32, 3, 3, 3),          # dilation 3
+                 (x, s_x, wp, scale, bias, 2, torch.float32, 3, 2, 2),          # dilated, stride 2
+                 (x, s_x, wp[:, :64].contiguous(), scale, bias, 1, torch.float32, 1, 1, 1)):
         with pytest.raises(ValueError, match="use_kernels=False"):
             p2.int8_conv3x3(*args)
     assert p2.LAUNCHES["int8_conv3x3"] == before
+
+
+# P2 at the geometries u2net, u2netp, u2net_tpu, resunet and multiresunet
+# add: (B, H, W, Ci, Co, ksize, stride, padding, dilation, x dtype).
+INT8_GEOMETRY_CASES = [
+    (8, 16, 16, 512, 256, 3, 1, 8, 8, torch.bfloat16),   # u2net stage5's RSU-4F at 256px
+    (8, 8, 8, 512, 256, 3, 1, 8, 8, torch.bfloat16),     # stage6: most taps outside
+    (8, 8, 8, 256, 256, 3, 1, 4, 4, torch.bfloat16),
+    (8, 16, 16, 512, 256, 3, 1, 2, 2, torch.bfloat16),
+    (8, 64, 64, 32, 32, 3, 1, 2, 2, torch.bfloat16),     # RSU-7's top conv, Ci 32 (halo)
+    (8, 8, 8, 16, 16, 3, 1, 8, 8, torch.bfloat16),       # u2netp's RSU-4F, Ci 16
+    (8, 8, 8, 128, 128, 3, 1, 4, 4, torch.float32),      # u2net_tpu's bottleneck
+    (2, 13, 11, 48, 40, 3, 1, 2, 2, torch.float32),      # odd sizes, Ci 48 (per-tap gather)
+    (8, 64, 64, 128, 256, 1, 2, 0, 1, torch.bfloat16),   # resunet's stride-2 skip
+    (8, 33, 31, 64, 128, 1, 2, 0, 1, torch.float32),     # odd size, Ci 64
+    (8, 256, 256, 3, 32, 1, 1, 0, 1, torch.bfloat16),    # multiresunet's first shortcut
+    (8, 128, 128, 51, 104, 1, 1, 0, 1, torch.bfloat16),  # odd Ci (element loader)
+    (8, 16, 16, 853, 512, 1, 1, 0, 1, torch.bfloat16),   # odd Ci, K split
+    (8, 256, 256, 51, 1, 1, 1, 0, 1, torch.bfloat16),    # conv_final: Co = 1
+    (8, 32, 32, 211, 53, 3, 1, 1, 1, torch.bfloat16),    # odd Ci and Co, 3x3
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co,ksize,stride,padding,dilation,xdtype",
+                         INT8_GEOMETRY_CASES)
+def test_int8_conv_geometries_match_reference(cuda_device, b, h, w, ci, co, ksize, stride,
+                                              padding, dilation, xdtype):
+    """P2 at the dilated and 1x1 geometries, one launch each, bit for bit with
+    its plain version (x on half-way points and beyond the clamp), the
+    output's shape from the geometry; faults planted into what the kernel
+    reads (taps at offset 1 where the conv's dilation is larger, padding 1
+    on a 1x1) must disagree."""
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, xdtype,
+                                              ksize=ksize)
+    geometry = (ksize, padding, dilation)
+    dtype = torch.bfloat16
+    before = p2.LAUNCHES["int8_conv3x3"]
+    got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, *geometry)
+    torch.cuda.synchronize()
+    assert p2.LAUNCHES["int8_conv3x3"] - before == 1
+    ho, wo = (p2.conv_out_size(n, stride, *geometry) for n in (h, w))
+    want = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, dtype, *geometry)
+    assert got.shape == (b, ho, wo, co) and torch.equal(got, want)
+    fault = "taps at offset 1" if dilation > 1 else "padding 1 on a 1x1" if ksize == 1 else None
+    if fault:
+        planted = p2.planted_fault(x, s_x, wp, scale, bias, stride, dtype, *geometry, fault)
+        assert planted.shape == got.shape and not torch.equal(planted, want)
+        assert p2.LAUNCHES["int8_conv3x3"] - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,ci,co,ksize,stride,padding,dilation", [
+    (8, 8, 8, 512, 256, 3, 1, 8, 8),
+    (8, 16, 16, 853, 512, 1, 1, 0, 1),
+    (2, 32, 32, 128, 200, 1, 2, 0, 1),
+])
+def test_int8_conv_geometry_every_plan_agrees(cuda_device, b, h, w, ci, co, ksize, stride,
+                                              padding, dilation):
+    """Every block tile width, K unsplit, split two ways and into single
+    stages, gives the plain version's result at a dilated and at 1x1
+    geometries."""
+    x, s_x, wp, scale, bias = _int8_conv_case(cuda_device, b, h, w, ci, co, torch.bfloat16,
+                                              ksize=ksize)
+    geometry = (ksize, padding, dilation)
+    want = p2.int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, torch.bfloat16, *geometry)
+    stages = -(-wp.shape[1] // p2.K_STAGE)
+    for bn in p2.TILE_N:
+        for splits in sorted({1, min(2, stages), stages}):
+            got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, torch.bfloat16, *geometry,
+                                  plan=(p2.BM, bn, splits))
+            assert torch.equal(got, want), (bn, splits)
 
 
 @pytest.mark.cuda
@@ -1630,7 +1705,12 @@ def test_new_sources_build_without_spills(cuda_device):
                                                  ("nested_unet", torch.bfloat16, 30),
                                                  ("transatt_unet", torch.bfloat16, 18),
                                                  ("unet_transformer", torch.bfloat16, 14),
-                                                 ("da_transformer", torch.bfloat16, 10)])
+                                                 ("da_transformer", torch.bfloat16, 10),
+                                                 ("u2net", torch.bfloat16, 112),
+                                                 ("u2netp", torch.bfloat16, 112),
+                                                 ("u2net_tpu", torch.bfloat16, 43),
+                                                 ("resunet", torch.bfloat16, 18),
+                                                 ("multiresunet", torch.bfloat16, 57)])
 def test_int8_serving_runs_the_kernel(cuda_device, name, dtype, launches):
     """Calibrated int8 serving (B=2, 64px): the int8 conv kernel on every
     gated conv, K1 not at all in the float32 unet; the kernel path's logits
@@ -1685,8 +1765,8 @@ def test_attention_unet_int8_launches_read_x_in_place(cuda_device, monkeypatch):
     """int8 attention_unet (bf16, B=2, 64px): each of the 22 P2 launches of a
     forward, the convs on nearest-upsampled and on concatenated activations
     among them, reads its x in place (no copy to channels-last) and equals
-    the plain version on its own operands bit for bit; a 1x1 or dilated
-    gated conv (resunet, u2net) makes the predictor raise instead."""
+    the plain version on its own operands bit for bit; so do the 1x1 and
+    dilated gated convs of int8 resunet (18 launches) and u2net (112)."""
     x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(9)).to(cuda_device)
     model = create_model("attention_unet", dtype=torch.bfloat16)
     pred = make_predictor(model, None, "logits", quant=calibrate_int8(model, [x]))
@@ -1701,7 +1781,9 @@ def test_attention_unet_int8_launches_read_x_in_place(cuda_device, monkeypatch):
     copies = p2.X_COPIES["int8_conv3x3"]
     assert torch.isfinite(pred(x)).all()
     assert seen == [(True, True)] * 22 and p2.X_COPIES["int8_conv3x3"] == copies
-    for name in ("resunet", "u2net"):
+    for name, launches in (("resunet", 18), ("u2net", 112)):
         other = create_model(name, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="the int8 conv takes 3x3 convs"):
-            make_predictor(other, None, "logits", quant=calibrate_int8(other, [x]))
+        served = make_predictor(other, None, "logits", quant=calibrate_int8(other, [x]))
+        seen.clear()
+        assert torch.isfinite(served(x)).all()
+        assert seen == [(True, True)] * launches and p2.X_COPIES["int8_conv3x3"] == copies

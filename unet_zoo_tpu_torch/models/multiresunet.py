@@ -9,8 +9,8 @@ zoo (``multiresblock{1-9}.conv2d_bn_{1x1,3x3,5x5,7x7}.{conv1,batchnorm}``,
 Every BatchNorm is affine-less, and each MultiRes block applies its one
 ``batch_norm1`` twice (in training its running statistics move twice a
 step), as the original zoo does. The conv-BN units are int8-gated, 1x1
-shortcuts and the 1x1 ``conv_final`` included; the int8 kernel takes only
-3x3 convs, so ``make_predictor(quant=...)`` refuses this model.
+shortcuts and the 1x1 ``conv_final`` (Co = 1) included, and
+``make_predictor(quant=...)`` serves all 57 through P2.
 """
 
 from __future__ import annotations

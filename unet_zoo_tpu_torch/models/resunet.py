@@ -6,9 +6,9 @@ blocks with transposed-conv upsampling. Counterpart of
 ``output_layer``).
 
 The stem is conv -> BN -> ReLU -> conv plus a 3x3 conv skip with no BN.
-The ``ResidualConv`` convs are int8-gated (each block's 1x1 skip conv too,
-which the int8 kernel does not take, so ``make_predictor(quant=...)``
-refuses this model).
+The ``ResidualConv`` convs are int8-gated, each block's 1x1 skip conv too
+(stride 2 in the encoder), and ``make_predictor(quant=...)`` serves all 18
+through P2.
 """
 
 from __future__ import annotations

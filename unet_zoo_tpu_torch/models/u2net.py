@@ -11,8 +11,8 @@ of nested RSU blocks, six side heads fused by a 1x1 conv. Counterpart of
 * the six 3x3 side heads are resized to side1's size and fused by ``outconv``.
 
 Outputs ``{'main', 'side1'..'side6'}`` at unit loss weights. Every REBNCONV
-conv is int8-gated, as in JAX; the dilated ones are not convs the int8 kernel
-takes, so ``make_predictor(quant=...)`` refuses these models.
+conv is int8-gated, as in JAX, and ``make_predictor(quant=...)`` serves all
+112 of them through P2, the dilated ones (2, 4, 8) included.
 """
 
 from __future__ import annotations

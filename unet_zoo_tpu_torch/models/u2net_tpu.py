@@ -15,9 +15,8 @@ output) on ``unet_tpu``'s layout. Counterpart of
   four in float32.
 
 Outputs ``{'main', 'side1'..'side4'}``, float32, at unit loss weights. Every
-``ConvNormAct`` conv is int8-gated; the bottleneck's dilated ones are not
-convs the int8 kernel takes, so ``make_predictor(quant=...)`` refuses this
-model.
+``ConvNormAct`` conv is int8-gated, and ``make_predictor(quant=...)`` serves
+all 43 through P2, the bottleneck's dilated ones (2, 4, 8) included.
 """
 
 from __future__ import annotations

@@ -22,11 +22,14 @@ are int8-gated (:func:`gated_conv`), as the JAX package's
 (calibration); in eval, once :func:`attach_int8` has given it quantised
 weights (``conv.int8``, an attribute outside the ``state_dict``, as JAX keeps
 the ``quant`` collection apart from the float parameters), it runs int8.
-Training ignores them. The int8 conv (P2) takes 3x3 convs with padding 1 and
-stride 1 or 2: :func:`attach_int8` refuses any other gated conv by name (a
-dilated or a 1x1 one, which JAX serves int8), so no model is served partly
-int8 and partly float. K1's fused decoder stage reads the float weights and
-ignores them too, as ``UpSampleUNet._fused`` does in JAX.
+Training ignores them. The int8 conv (P2) takes every geometry the registry
+gates (``int8_gemm.GEOMETRIES``: 3x3 with padding = dilation 1, 2, 4 or 8,
+3x3 at stride 2, 1x1 at stride 1 or 2); :func:`attach_int8` refuses any
+other gated conv by name, so no model is served partly int8 and partly
+float. K1's fused decoder stage reads the float weights and ignores them
+too, as ``UpSampleUNet._fused`` does in JAX. Both kernels are reached
+through their ``torch.library`` ops (``ops/kernels/library.py``), so a
+served module can be exported with them.
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ from unet_zoo_tpu_torch.ops import (max_pool2d, pad_to_match, quant, resize_bili
 from unet_zoo_tpu_torch.ops.kernels import int8_gemm, use_kernel
 from unet_zoo_tpu_torch.ops.kernels.fused_up import (
     fold_conv_bn,
-    fused_up_concat_conv,
     pack_conv3x3_kernel,
     pack_convt_kernel,
     pack_kernel_weights,
@@ -116,38 +118,50 @@ class Int8Conv(NamedTuple):
     scale: torch.Tensor           # [Co] float32, s_x * s_w
     bias: Optional[torch.Tensor]  # [Co] float32
     stride: int
+    ksize: int
+    padding: int
+    dilation: int
+
+
+def _square(pair) -> Optional[int]:
+    return pair[0] if isinstance(pair, tuple) and len(pair) == 2 and pair[0] == pair[1] else None
 
 
 def prepare_int8_conv(conv_m: nn.Conv2d, absmax: torch.Tensor, name: str) -> Int8Conv:
     """Quantise ``conv_m``'s weight (as served: already bf16-rounded by a
     bf16 cast) per output channel and take the activation scale from the
     calibrated ``absmax``. Raises, naming the conv ``name``, for a conv that
-    the int8 conv kernel does not take."""
-    if (conv_m.kernel_size != (3, 3) or conv_m.padding != (1, 1) or conv_m.groups != 1
-            or conv_m.dilation != (1, 1) or conv_m.stride not in ((1, 1), (2, 2))):
-        raise ValueError(f"{name}: the int8 conv takes 3x3 convs with padding 1 and stride 1 "
-                         f"or 2, not {conv_m}")
+    the int8 conv kernel does not take (``int8_gemm.GEOMETRIES``)."""
+    geometry = tuple(_square(getattr(conv_m, a))
+                     for a in ("kernel_size", "stride", "padding", "dilation"))
+    if conv_m.groups != 1 or geometry not in int8_gemm.GEOMETRIES:
+        raise ValueError(f"{name}: the int8 conv takes 3x3 convs with padding = dilation 1, "
+                         "2, 4 or 8 at stride 1 or padding 1 at stride 2, and 1x1 convs with "
+                         f"padding 0 at stride 1 or 2, ungrouped; not {conv_m}")
+    ksize, stride, padding, dilation = geometry
     k = conv_m.weight.detach()
     s_w = quant.weight_scale(k)
     s_x = quant.activation_scale(absmax.detach().to(k.device))
     bias = None if conv_m.bias is None else conv_m.bias.detach().float().contiguous()
     return Int8Conv(int8_gemm.pack_conv_weight(quant.quantize_weight(k, s_w)), s_x,
-                    (s_x * s_w).contiguous(), bias, conv_m.stride[0])
+                    (s_x * s_w).contiguous(), bias, stride, ksize, padding, dilation)
 
 
 def int8_conv(x: torch.Tensor, q: Int8Conv, dtype: torch.dtype,
               use_kernels: Optional[bool] = None) -> torch.Tensor:
     """The int8 conv of NCHW ``x`` (``_QuantConv``): ``x`` quantised per
     tensor by ``q.s_x``, the int8 conv, dequantised and rounded to
-    ``dtype``. With ``use_kernels`` None the kernel (P2) takes any CUDA
-    input, float32 or bfloat16, and quantises x as it loads it (a
-    channels-last x is read in place); ``False`` runs the plain version, as
-    ``True`` does on the CPU."""
+    ``dtype``. With ``use_kernels`` None the kernel (P2, through its op
+    ``unet_zoo::int8_conv``) takes any CUDA input, float32 or bfloat16, and
+    quantises x as it loads it (a channels-last x is read in place);
+    ``False`` runs the plain version, as ``True`` does on the CPU (the op's
+    CPU implementation)."""
     xh = x.permute(0, 2, 3, 1)
+    args = (xh, q.s_x, q.wp, q.scale, q.bias, q.stride, dtype, q.ksize, q.padding, q.dilation)
     if use_kernel(use_kernels, False, x, dtypes=(torch.float32, torch.bfloat16)):
-        y = int8_gemm.int8_conv3x3(xh, q.s_x, q.wp, q.scale, q.bias, q.stride, dtype)
+        y = torch.ops.unet_zoo.int8_conv(*args)
     else:
-        y = int8_gemm.int8_conv3x3_reference(xh, q.s_x, q.wp, q.scale, q.bias, q.stride, dtype)
+        y = int8_gemm.int8_conv3x3_reference(*args)
     return y.permute(0, 3, 1, 2)
 
 
@@ -507,7 +521,8 @@ class UpSampleUNet(nn.Module):
 
     def _fused(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         w = self._frozen if self._frozen is not None else self.kernel_weights()
-        out = fused_up_concat_conv(x, skip, w.wt, w.bt, w.wc, w.sc1, w.bi1, w.packed)
+        out = torch.ops.unet_zoo.fused_up_concat_conv(x, skip, w.wt, w.bt, w.wc, w.sc1, w.bi1,
+                                                      *w.packed)
         return torch.relu_(F.conv2d(out, w.w2, w.b2, padding=1))
 
 

@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"fused_axial_attention": 0}
@@ -350,6 +350,7 @@ def fused_axial_attention(qkv, relative, sim_scale, out_scale, out_shift,
     CUDA tensors run the kernel (bf16 qkv, float32 tables; anything else
     raises); CPU tensors run the reference.
     """
+    refuse_export("K6 (fused_axial_attention)", qkv)
     if qkv.device.type == "cpu":
         return fused_axial_attention_reference(qkv, relative, sim_scale, out_scale, out_shift,
                                                kernel_size, width_axis)

@@ -67,7 +67,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 from unet_zoo_tpu_torch.ops.kernels.axial_attention import relative_embeddings
 
 # Times the wrapper launched each grid (read by chip_smoke.py).
@@ -474,6 +474,7 @@ def fused_axial_train(q, k, qg, kg, v, relative, gamma, kernel_size: int, eps: f
     kernels through a ``torch.autograd.Function`` (anything they do not take
     raises); CPU tensors run :func:`fused_axial_train_reference`.
     """
+    refuse_export("K7 (fused_axial_train)", q)
     if q.device.type == "cpu":
         return fused_axial_train_reference(q, k, qg, kg, v, relative, gamma, kernel_size, eps)
     if q.device.type != "cuda":

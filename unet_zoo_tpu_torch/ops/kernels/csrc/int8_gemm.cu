@@ -8,13 +8,17 @@
 //
 //   gemm:         out[M, N] = A[M, K] . B[N, K]^T, both operands K-contiguous
 //                 (A row-major, B stored [N, K]); s8 -> s32, or bf16 -> f32.
-//   int8_conv3x3: a 3x3 conv (stride 1 or 2, padding 1) as an implicit GEMM
-//                 of NHWC float32 or bf16 x with int8 weights packed [Co, Kpad]
-//                 (K = 9 Ci zero-padded, in pack_conv_weight's order):
+//   int8_conv3x3: a k x k conv (k 3 or 1; stride, padding and dilation as the
+//                 wrapper's GEOMETRIES: 3x3 with padding = dilation 1, 2, 4
+//                 or 8, 3x3 stride 2 padding 1, 1x1 padding 0) as an implicit
+//                 GEMM of NHWC float32 or bf16 x with int8 weights packed
+//                 [Co, Kpad] (K = k^2 Ci zero-padded, in pack_conv_weight's
+//                 order): output pixel (oy, ox) reads input pixel (oy stride -
+//                 pad + ky dil, ox stride - pad + kx dil) at tap (ky, kx).
 //                 M = B Ho Wo output pixels, N = Co. x is quantised as it is loaded,
 //                 q = clamp(rn(x / s_x), -127, 127) as a true IEEE division
 //                 and rounding half to even give it; taps outside the image and K
-//                 beyond 9 Ci are 0. The epilogue dequantises the exact int32
+//                 beyond k^2 Ci are 0. The epilogue dequantises the exact int32
 //                 sums as rn(rn(float(acc) * scale[n]) + bias[n]), each product
 //                 and sum rounded once as the plain version's ATen passes do (no
 //                 fused multiply-add), then rounds once to bf16 or f32, NHWC.
@@ -33,10 +37,11 @@
 // weights) and the GEMM's A arrive by TMA. The conv's A is built by the
 // producer threads (TMA's tiled mode cannot gather a 3x3 window with
 // padding): for Ci a multiple of 128, or 16, 32 or 64, they quantise the
-// tile's input window once per block of 128 channels into a shared halo
-// and copy each tap's rows from it; otherwise (the first conv's Ci = 3, a
-// window too large for the halo) they gather and quantise each stage's
-// chunks. They write the swizzle themselves and fence their stores into
+// tile's input window (its rows reach dil (k - 1) beyond the tile's) once
+// per block of 128 channels into a shared halo and copy each tap's rows from
+// it; otherwise (the first conv's Ci = 3, Ci not a multiple of 16, a window
+// too large for the halo, as at dilation 8) they gather and quantise each
+// stage's chunks. They write the swizzle themselves and fence their stores into
 // the async proxy. The producers' gathering and quantising bound the conv.
 // setmaxnreg moves registers from the producers to the consumers, whose 64
 // x 256 s32 accumulator takes 128 a thread.
@@ -124,6 +129,7 @@ struct Params {
   int* ws;
   int* counters;
   int H, W, Ci, Ho, Wo, stride, bf16_out;
+  int ks, pad, dil, taps;  // kernel size, padding, dilation, ks * ks
 };
 
 template <int KIND, int BN, class T>
@@ -235,10 +241,11 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
 }
 
 // Where producer thread t's 16-byte chunk c = t % 8 of a row of the conv's
-// A stage kt lies: its tap and channel, or no K. K is ordered as
-// pack_conv_weight packs it: (ky, kx, ci), or for Ci a multiple of 128
-// (channel block, ky, kx, ci in the block), so that consecutive stages read
-// the same channels of neighbouring taps, mostly from L1.
+// A stage kt lies: its tap's offsets from the row's origin (ky dil, kx dil)
+// and its channel, or no K. K is ordered as pack_conv_weight packs it: (ky,
+// kx, ci), or for Ci a multiple of 128 (channel block, ky, kx, ci in the
+// block), so that consecutive stages read the same channels of neighbouring
+// taps, mostly from L1.
 struct TapAt {
   int ky, kx, ci;
   bool kin;
@@ -246,17 +253,18 @@ struct TapAt {
     int tap;
     if (p.Ci % KSTAGE == 0) {
       kin = kt < k_hi;
-      const int block = kt / 9;
-      tap = kt - 9 * block;
+      const int block = kt / p.taps;
+      tap = kt - p.taps * block;
       ci = block * KSTAGE + 16 * c;
     } else {
       const int k = kt * KSTAGE + 16 * c;
-      kin = kt < k_hi && k < 9 * p.Ci;
+      kin = kt < k_hi && k < p.taps * p.Ci;
       tap = kin ? k / p.Ci : 0;
       ci = k - tap * p.Ci;
     }
-    ky = tap / 3;
-    kx = tap - 3 * ky;
+    const int ty = tap / p.ks;
+    ky = ty * p.dil;
+    kx = (tap - p.ks * ty) * p.dil;
   }
 };
 
@@ -302,7 +310,8 @@ __device__ __forceinline__ void produce_conv_a(const X* x, const int4* rows, con
 // The input window of a conv tile: every pixel that a tap of one of its
 // 128 output pixels reads, as up to two images' runs of input rows
 // [y_lo, y_hi] over the columns [cx0, cx1] (the full width unless the tile
-// is one output row), all inside the image, `cb` bytes (channels) a pixel.
+// is one output row), all inside the image, `cb` bytes (channels) a pixel:
+// output row oy reads input rows oy stride - pad to that plus dil (k - 1).
 // `fits` is false when the tile spans more than two images or the window
 // exceeds HALO_BYTES.
 struct Window {
@@ -316,13 +325,14 @@ struct Window {
     const int oy0 = t0 - img0 * p.Ho, img1 = t1 / p.Ho, oy1 = t1 - img1 * p.Ho;
     base0 = img0 * p.H * p.W;
     const bool one_row = t0 == t1;
-    cx0 = one_row ? max(0, ox0 * p.stride - 1) : 0;
-    hw = (one_row ? min(p.W - 1, ox1 * p.stride + 1) : p.W - 1) - cx0 + 1;
+    const int reach = p.dil * (p.ks - 1) - p.pad;  // the last tap's offset from the pixel
+    cx0 = one_row ? max(0, ox0 * p.stride - p.pad) : 0;
+    hw = (one_row ? min(p.W - 1, ox1 * p.stride + reach) : p.W - 1) - cx0 + 1;
     const int oy_end0 = img1 == img0 ? oy1 : p.Ho - 1;
-    y_lo0 = max(0, oy0 * p.stride - 1);
-    rows0 = min(p.H - 1, oy_end0 * p.stride + 1) - y_lo0 + 1;
+    y_lo0 = max(0, oy0 * p.stride - p.pad);
+    rows0 = min(p.H - 1, oy_end0 * p.stride + reach) - y_lo0 + 1;
     y_lo1 = 0;
-    rows1 = img1 > img0 ? min(p.H - 1, oy1 * p.stride + 1) + 1 : 0;
+    rows1 = img1 > img0 ? min(p.H - 1, oy1 * p.stride + reach) + 1 : 0;
     fits = img1 <= img0 + 1 && (rows0 + rows1) * hw * cb <= HALO_BYTES;
   }
   // the halo offset of in-image input pixel (iy, ix) of the image at base
@@ -355,14 +365,14 @@ __device__ __forceinline__ void produce_conv_a_halo(const X* x, const int4* rows
     unsigned char* a = stage_io(kt);  // waits for the stage to be free
     int kb = 0, tap, choff;
     if (p.Ci % KSTAGE == 0) {
-      kb = kt / 9;
-      tap = kt - 9 * kb;
+      kb = kt / p.taps;
+      tap = kt - p.taps * kb;
       choff = 16 * c;
     } else {
       tap = kt * (KSTAGE / win.cb) + (c >> lg);
       choff = 16 * (c & ((1 << lg) - 1));
     }
-    const int ky = tap / 3, kx = tap - 3 * ky;
+    const int ty = tap / p.ks, ky = ty * p.dil, kx = (tap - p.ks * ty) * p.dil;
     if (kb != block) {  // quantise the window's channels kb * 128 .. + cb - 1
       named_barrier(2, NP);  // every producer thread is done with the old halo
       block = kb;
@@ -395,7 +405,7 @@ __device__ __forceinline__ void produce_conv_a_halo(const X* x, const int4* rows
       const int4 r = rows[row];
       const int iy = r.y + ky, ix = r.z + kx;
       uint4 q = make_uint4(0, 0, 0, 0);
-      if (tap < 9 && r.w && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
+      if (tap < p.taps && r.w && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W)
         q = *reinterpret_cast<const uint4*>(halo + win.at(r.x, iy, ix) + choff);
       *reinterpret_cast<uint4*>(a + row * KSTAGE + ((c ^ (row & 7)) << 4)) = q;
     }
@@ -404,14 +414,15 @@ __device__ __forceinline__ void produce_conv_a_halo(const X* x, const int4* rows
 }
 
 // The conv's A stage element by element (Ci not a multiple of 16: the first
-// conv's Ci = 3): thread t owns chunks 8 / WGS of row t % 128.
+// conv's Ci = 3, multiresunet's 51 or 105): thread t owns chunks 8 / WGS of
+// row t % 128.
 template <int WGS, class X>
 __device__ __forceinline__ void fill_conv_a_elementwise(unsigned char* a, const X* x,
                                                         const int4* rows, const Params& p,
                                                         float s, float rs, int kt, int t) {
   constexpr int CHUNKS = 8 / WGS;
   const int row = t & 127, c0 = (t >> 7) * CHUNKS;
-  const int kreal = 9 * p.Ci, k0 = kt * KSTAGE + 16 * c0;
+  const int kreal = p.taps * p.Ci, k0 = kt * KSTAGE + 16 * c0;
   const int4 r = rows[row];
   int tap = k0 / p.Ci, ci = k0 - tap * p.Ci;
   for (int cc = c0; cc < c0 + CHUNKS; ++cc) {
@@ -421,8 +432,8 @@ __device__ __forceinline__ void fill_conv_a_elementwise(unsigned char* a, const 
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
         if (kc + e < kreal) {
-          const int ky = tap / 3, kx = tap - 3 * ky;
-          const int iy = r.y + ky, ix = r.z + kx;
+          const int ty = tap / p.ks;
+          const int iy = r.y + ty * p.dil, ix = r.z + (tap - p.ks * ty) * p.dil;
           if (iy >= 0 && iy < p.H && ix >= 0 && ix < p.W) {
             const float v = load1(x + (static_cast<size_t>(r.x + iy * p.W + ix) * p.Ci + ci));
             w[e / 4] |= (quantize(v, s, rs) & 0xFFu) << (8 * (e % 4));
@@ -475,7 +486,7 @@ __global__ void __launch_bounds__(Threads<BN>::N, 1)
     int4 r = make_int4(0, 0, 0, 0);
     if (m < p.M) {
       const int ox = m % p.Wo, t = m / p.Wo;
-      r = make_int4(t / p.Ho * p.H * p.W, t % p.Ho * p.stride - 1, ox * p.stride - 1, 1);
+      r = make_int4(t / p.Ho * p.H * p.W, t % p.Ho * p.stride - p.pad, ox * p.stride - p.pad, 1);
     }
     rows[threadIdx.x] = r;
   }
@@ -760,14 +771,15 @@ int launch_bn(int bn, const CUtensorMap& a, const CUtensorMap& b, const Params& 
 extern "C" {
 
 // x [B, H, W, Ci] f32 (x_bf16 = 0) or bf16, s_x a float32 scalar, w [Co,
-// kpad] int8 (kpad >= 9 Ci, a multiple of 64), scale [Co] f32, bias [Co] f32
-// or null; out [B, Ho, Wo, Co] bf16 or f32. Block tile 128 x bn, K split over
+// kpad] int8 (kpad >= ksize^2 Ci, a multiple of 64), scale [Co] f32, bias
+// [Co] f32 or null; out [B, Ho, Wo, Co] bf16 or f32. A ksize x ksize conv
+// (1 or 3) with `stride`, `pad` and `dil`. Block tile 128 x bn, K split over
 // `splits` blocks of a tile: then ws holds tiles x splits x 128 x bn int32
 // and counters tiles int32, all 0.
 int int8_conv3x3(const void* x, const void* s_x, const void* w, const void* scale,
                  const void* bias, void* out, void* ws, void* counters, int B, int H, int W,
-                 int Ci, int Ho, int Wo, int Co, int stride, int kpad, int x_bf16, int bf16_out,
-                 int bn, int splits, void* stream) {
+                 int Ci, int Ho, int Wo, int Co, int stride, int ksize, int pad, int dil,
+                 int kpad, int x_bf16, int bf16_out, int bn, int splits, void* stream) {
   CUtensorMap map_w;
   const int err = tensor_map(&map_w, w, Co, kpad, bn);
   if (err) return err;
@@ -789,6 +801,10 @@ int int8_conv3x3(const void* x, const void* s_x, const void* w, const void* scal
   p.Wo = Wo;
   p.stride = stride;
   p.bf16_out = bf16_out;
+  p.ks = ksize;
+  p.pad = pad;
+  p.dil = dil;
+  p.taps = ksize * ksize;
   const dim3 grid((p.M + BM - 1) / BM, (Co + bn - 1) / bn, splits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_bn<CONV_BF16>(bn, map_w, map_w, p, grid, st)

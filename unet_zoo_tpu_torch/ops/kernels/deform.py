@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from unet_zoo_tpu_torch.ops.deform import gather_corners, out_size, padded_rows, sample_positions
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"deform_conv2d": 0}
@@ -259,6 +259,7 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     contiguous; anything the kernel does not take raises); CPU tensors run
     the reference.
     """
+    refuse_export("K8 (deform_conv2d)", x)
     if x.device.type == "cpu":
         return deform_conv2d_reference(x, offset, mask, weight, bias, stride, padding, dilation)
     if x.device.type != "cuda":

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel, in all and by instance (read by
 # chip_smoke.py).
@@ -307,6 +307,7 @@ def depthwise_conv2d(x: torch.Tensor, kernel: torch.Tensor,
     stream instance as :func:`plan` lays it out. CPU tensors run the
     reference.
     """
+    refuse_export("K3 (depthwise_conv2d)", x)
     if x.device.type == "cpu":
         return depthwise_conv2d_reference(x, kernel, bias)
     if x.device.type != "cuda":

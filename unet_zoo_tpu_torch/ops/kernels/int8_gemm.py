@@ -11,12 +11,15 @@ two entry points over one wgmma tile loop fed by TMA:
 * :func:`int8_conv3x3`: NHWC float32 or bfloat16 ``x`` [B, H, W, Ci],
   quantised inside the kernel by the per-tensor scale ``s_x``
   (``clip(round(x / s_x), -127, 127)``), with the weights packed by
-  :func:`pack_conv_weight` ([Co, Kpad] int8, K = 9 Ci in (ky, kx, ci) order,
-  zero-padded to a multiple of 64), stride 1 or 2, padding 1; the exact int32
-  sums dequantised as ``rn(rn(acc * scale) + bias)`` in float32 and rounded
-  once to ``out_dtype`` (float32 or bfloat16): bit for bit what
+  :func:`pack_conv_weight` ([Co, Kpad] int8, K = k^2 Ci in (ky, kx, ci)
+  order, zero-padded to a multiple of 64), in one of the geometries of
+  :data:`GEOMETRIES` (3x3 with padding = dilation 1, 2, 4 or 8 at stride 1,
+  3x3 with padding 1 at stride 2, 1x1 with padding 0 at stride 1 or 2); the
+  exact int32 sums dequantised as ``rn(rn(acc * scale) + bias)`` in float32
+  and rounded once to ``out_dtype`` (float32 or bfloat16): bit for bit what
   :func:`int8_conv3x3_reference` computes. :func:`conv_plan` picks the block
-  tile and how many blocks split K.
+  tile and how many blocks split K. The name keeps the 3x3 conv it was
+  written for; the 1x1 convs go through it too.
 
 On a CUDA tensor each wrapper launches the kernel (or raises for what it does
 not take, naming ``use_kernels=False``); on a CPU tensor it runs the plain
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from unet_zoo_tpu_torch.ops import quant
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times each wrapper launched its CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"int8_conv3x3": 0, "matmul": 0}
@@ -46,48 +49,54 @@ BM = 128       # rows of a block tile: two consumer warpgroups of 64
 TILE_N = (64, 128, 256)   # the kernel's block tile widths (wgmma N)
 STAGE_COST = {64: 1.0, 128: 1.3, 256: 2.15}   # a conv K stage's time by BN (conv_plan)
 SMS = 132      # streaming multiprocessors of an H100 SXM: one block each
+# The conv geometries the kernel takes, (kernel size, stride, padding,
+# dilation): every gated conv of the registry (JAX's ``_QuantConv``).
+GEOMETRIES = (tuple((3, 1, d, d) for d in (1, 2, 4, 8))
+              + ((3, 2, 1, 1), (1, 1, 0, 1), (1, 2, 0, 1)))
 
 
 def pack_conv_weight(wq: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 3x3 weights -> [Co, Kpad] int8, K zero-padded to a multiple
-    of K_ALIGN. K is (ky, kx, ci) flattened; where Ci is a multiple of
-    K_STAGE it is (ci // K_STAGE, ky, kx, ci % K_STAGE), so that each of the
-    kernel's K stages holds one tap of one block of channels and neighbouring
-    stages read the same channels."""
-    co, ci = wq.shape[:2]
-    k = 9 * ci
-    kpad = -(-k // K_ALIGN) * K_ALIGN
-    w = wq.permute(0, 2, 3, 1)                                  # [Co, 3, 3, Ci]
+    """OIHW int8 k x k weights (k 1 or 3) -> [Co, Kpad] int8, K = k^2 Ci
+    zero-padded to a multiple of K_ALIGN. K is (ky, kx, ci) flattened; where
+    Ci is a multiple of K_STAGE it is (ci // K_STAGE, ky, kx, ci % K_STAGE),
+    so that each of the kernel's K stages holds one tap of one block of
+    channels and neighbouring stages read the same channels."""
+    co, ci, k = wq.shape[:3]
+    kk = k * k * ci
+    kpad = -(-kk // K_ALIGN) * K_ALIGN
+    w = wq.permute(0, 2, 3, 1)                                  # [Co, k, k, Ci]
     if ci % K_STAGE == 0:
-        w = w.reshape(co, 3, 3, ci // K_STAGE, K_STAGE).permute(0, 3, 1, 2, 4)
-    return F.pad(w.reshape(co, k), (0, kpad - k)).contiguous()
+        w = w.reshape(co, k, k, ci // K_STAGE, K_STAGE).permute(0, 3, 1, 2, 4)
+    return F.pad(w.reshape(co, kk), (0, kpad - kk)).contiguous()
 
 
-def unpack_conv_weight(wp: torch.Tensor, ci: int) -> torch.Tensor:
+def unpack_conv_weight(wp: torch.Tensor, ci: int, ksize: int = 3) -> torch.Tensor:
     """The inverse of :func:`pack_conv_weight`: OIHW int8."""
-    co = wp.shape[0]
-    w = wp[:, :9 * ci]
+    co, k = wp.shape[0], ksize
+    w = wp[:, :k * k * ci]
     if ci % K_STAGE == 0:
-        return w.reshape(co, ci // K_STAGE, 3, 3, K_STAGE).permute(0, 1, 4, 2, 3).reshape(
-            co, ci, 3, 3)
-    return w.reshape(co, 3, 3, ci).permute(0, 3, 1, 2)
+        return w.reshape(co, ci // K_STAGE, k, k, K_STAGE).permute(0, 1, 4, 2, 3).reshape(
+            co, ci, k, k)
+    return w.reshape(co, k, k, ci).permute(0, 3, 1, 2)
 
 
-def conv_out_size(n: int, stride: int) -> int:
-    """Output extent of a 3x3 conv with padding 1."""
-    return (n - 1) // stride + 1
+def conv_out_size(n: int, stride: int, ksize: int = 3, padding: int = 1,
+                  dilation: int = 1) -> int:
+    """Output extent of the conv."""
+    return (n + 2 * padding - dilation * (ksize - 1) - 1) // stride + 1
 
 
 def int8_conv3x3_reference(x: torch.Tensor, s_x: torch.Tensor, wp: torch.Tensor,
                            scale: torch.Tensor, bias: Optional[torch.Tensor], stride: int,
-                           out_dtype: torch.dtype) -> torch.Tensor:
+                           out_dtype: torch.dtype, ksize: int = 3, padding: int = 1,
+                           dilation: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`int8_conv3x3` (same arguments): NHWC
     ``x`` quantised by ``quant.quantize_activation``, the exact int32 sums
     (``quant.int8_conv2d_exact``, float64), dequantised by
     ``quant.dequantize``; returns [B, Ho, Wo, Co] in ``out_dtype``."""
     xq = quant.quantize_activation(x, s_x)
-    wq = unpack_conv_weight(wp, x.shape[-1])
-    acc = quant.int8_conv2d_exact(xq.permute(0, 3, 1, 2), wq, stride, 1)
+    wq = unpack_conv_weight(wp, x.shape[-1], ksize)
+    acc = quant.int8_conv2d_exact(xq.permute(0, 3, 1, 2), wq, stride, padding, dilation)
     return quant.dequantize(acc.permute(0, 2, 3, 1), scale, bias, out_dtype, channel_dim=-1)
 
 
@@ -154,11 +163,14 @@ def _fail(msg):
     raise ValueError(f"{msg}; use_kernels=False runs the int8 conv on its plain version")
 
 
-def _check_conv_args(x, s_x, wp, scale, bias, stride, out_dtype):
+def _check_conv_args(x, s_x, wp, scale, bias, stride, out_dtype, ksize, padding, dilation):
+    if (ksize, stride, padding, dilation) not in GEOMETRIES:
+        _fail(f"the int8 conv kernel takes (kernel size, stride, padding, dilation) in "
+              f"{GEOMETRIES}, not {(ksize, stride, padding, dilation)}")
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         _fail(f"x must be float32 or bfloat16 [B, H, W, Ci], got {x.dtype} {tuple(x.shape)}")
     b, h, w, ci = x.shape
-    kpad = -(-9 * ci // K_ALIGN) * K_ALIGN
+    kpad = -(-ksize * ksize * ci // K_ALIGN) * K_ALIGN
     if wp.dtype != torch.int8 or wp.dim() != 2 or wp.shape[1] != kpad or not wp.is_contiguous():
         _fail(f"wp must be contiguous int8 [Co, {kpad}] (pack_conv_weight), got {wp.dtype} "
               f"{tuple(wp.shape)}")
@@ -173,11 +185,9 @@ def _check_conv_args(x, s_x, wp, scale, bias, stride, out_dtype):
     for name, t in (("s_x", s_x), ("wp", wp), ("scale", scale), ("bias", bias)):
         if t is not None and t.device != x.device:
             _fail(f"{name} is on {t.device}, x on {x.device}")
-    if stride not in (1, 2):
-        _fail(f"the int8 conv kernel takes stride 1 or 2, not {stride}")
     if out_dtype not in (torch.float32, torch.bfloat16):
         _fail(f"the int8 conv kernel writes float32 or bfloat16, not {out_dtype}")
-    ho, wo = conv_out_size(h, stride), conv_out_size(w, stride)
+    ho, wo = (conv_out_size(n, stride, ksize, padding, dilation) for n in (h, w))
     if b * ho * wo >= 2 ** 31 or b * h * w * ci >= 2 ** 31:
         _fail("the int8 conv's shape is beyond the kernel's int32 row indices")
     return b, h, w, ci, ho, wo, co, kpad
@@ -187,7 +197,7 @@ def _lib():
     lib = build.library("int8_gemm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_conv3x3.argtypes = [p] * 8 + [i] * 13 + [p]
+        lib.int8_conv3x3.argtypes = [p] * 8 + [i] * 16 + [p]
         lib.int8_conv3x3.restype = i
         lib.gemm.argtypes = [p] * 3 + [i] * 5 + [p]
         lib.gemm.restype = i
@@ -212,19 +222,46 @@ def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
 
 def int8_conv3x3(x: torch.Tensor, s_x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
                  bias: Optional[torch.Tensor], stride: int, out_dtype: torch.dtype,
+                 ksize: int = 3, padding: int = 1, dilation: int = 1,
                  plan: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
-    """3x3 int8 conv (padding 1) of NHWC float ``x``, quantised by the
-    float32 scalar ``s_x``, with packed weights ``wp``, dequantised by
-    ``scale`` (= s_x * s_w) and ``bias`` [Co] (float32); returns [B, Ho, Wo,
-    Co] in ``out_dtype``. An ``x`` whose NHWC view is not contiguous is
-    copied once (counted in X_COPIES). ``plan`` (BM, BN, splits) overrides
+    """k x k int8 conv (``ksize``, ``stride``, ``padding``, ``dilation`` one
+    of :data:`GEOMETRIES`) of NHWC float ``x``, quantised by the float32
+    scalar ``s_x``, with packed weights ``wp``, dequantised by ``scale`` (=
+    s_x * s_w) and ``bias`` [Co] (float32); returns [B, Ho, Wo, Co] in
+    ``out_dtype``. An ``x`` whose NHWC view is not contiguous is copied once
+    (counted in X_COPIES). ``plan`` (BM, BN, splits) overrides
     :func:`conv_plan`'s launch (``probes.int8_conv_plan`` times the
     alternatives)."""
     if x.device.type == "cpu":
-        return int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, out_dtype)
+        return int8_conv3x3_reference(x, s_x, wp, scale, bias, stride, out_dtype, ksize,
+                                      padding, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv3x3 runs on cuda or cpu, not {x.device}")
-    b, h, w, ci, ho, wo, co, kpad = _check_conv_args(x, s_x, wp, scale, bias, stride, out_dtype)
+    geometry = (ksize, padding, dilation)
+    out = _launch(x, s_x, wp, scale, bias, stride, out_dtype, geometry, geometry, plan)
+    LAUNCHES["int8_conv3x3"] += 1
+    return out
+
+
+def planted_fault(x, s_x, wp, scale, bias, stride, out_dtype, ksize, padding, dilation,
+                  fault: str) -> torch.Tensor:
+    """For the card checks: the kernel launched on a geometry's shapes with
+    one of :data:`FAULTS` planted into what it reads (``"taps at offset
+    1"``: dilation 1 where the conv's is larger; ``"padding 1 on a 1x1"``:
+    the rows' origin one pixel up and left). Not counted in LAUNCHES."""
+    faulty = {"taps at offset 1": (ksize, padding, 1),
+              "padding 1 on a 1x1": (ksize, 1, dilation)}[fault]
+    return _launch(x, s_x, wp, scale, bias, stride, out_dtype, (ksize, padding, dilation),
+                   faulty, None)
+
+
+def _launch(x, s_x, wp, scale, bias, stride, out_dtype, geometry, launched, plan):
+    """One conv launch on CUDA tensors, checked and shaped by ``geometry``
+    (ksize, padding, dilation); the kernel is handed ``launched``, which
+    differs only where a fault is planted."""
+    refuse_export("P2's int8 conv outside its op (unet_zoo::int8_conv)", x)
+    b, h, w, ci, ho, wo, co, kpad = _check_conv_args(x, s_x, wp, scale, bias, stride,
+                                                     out_dtype, *geometry)
     if plan is None:
         plan = conv_plan(b * ho * wo, co, kpad)
     bm, bn, splits = plan
@@ -249,12 +286,11 @@ def int8_conv3x3(x: torch.Tensor, s_x: torch.Tensor, wp: torch.Tensor, scale: to
                                None if bias is None else bias.data_ptr(), out.data_ptr(),
                                None if ws is None else ws.data_ptr(),
                                None if counters is None else counters.data_ptr(),
-                               b, h, w, ci, ho, wo, co, stride, kpad,
+                               b, h, w, ci, ho, wo, co, stride, *launched, kpad,
                                int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
                                bn, splits, stream)
         if err:
             raise RuntimeError(f"int8_conv3x3 launch failed: error {err}")
-    LAUNCHES["int8_conv3x3"] += 1
     return out
 
 

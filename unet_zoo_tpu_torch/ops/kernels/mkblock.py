@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"fused_mkblock": 0}
@@ -239,6 +239,7 @@ def fused_mkblock(x, taps, affine, w1, b1, w2, b2, packed: Optional[MKBlockPacke
     CUDA tensors run the kernel (bf16 x and w1/w2, float32 taps, affine and
     biases; anything else raises); CPU tensors run the reference.
     """
+    refuse_export("K4 (fused_mkblock)", x)
     if x.device.type == "cpu":
         return fused_mkblock_reference(x, taps, affine, w1, b1, w2, b2)
     if x.device.type != "cuda":

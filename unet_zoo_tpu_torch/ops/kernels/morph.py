@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"fused_softmax_morph": 0}
@@ -210,6 +210,7 @@ def fused_softmax_morph(x: torch.Tensor, k: int = 7, repeat: int = 1
     CUDA tensors run the kernel (bf16, k = 7, repeat 1 or 2: mmunet's
     gates; anything else raises); CPU tensors run the reference.
     """
+    refuse_export("K5 (fused_softmax_morph)", x)
     if x.device.type == "cpu":
         return fused_softmax_morph_reference(x, k, repeat)
     if x.device.type != "cuda":

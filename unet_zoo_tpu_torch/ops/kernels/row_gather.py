@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel (read by chip_smoke.py).
 LAUNCHES = {"row_gather": 0}
@@ -44,6 +44,7 @@ def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` [N] (int32, within [0, rows)) of ``tab`` [rows, C]
     (float32, C a multiple of 4): [N, C]. The kernel clamps an index outside
     the table to its nearest row; the plain version raises for it."""
+    refuse_export("P1 (row_gather)", tab)
     if tab.device.type == "cpu":
         return row_gather_reference(tab, idx)
     if tab.device.type != "cuda":

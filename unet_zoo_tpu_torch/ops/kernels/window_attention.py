@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from unet_zoo_tpu_torch.ops.kernels import build
+from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 
 # Times the wrapper launched the CUDA kernel, in all and by instance (read by
 # chip_smoke.py).
@@ -317,6 +317,7 @@ def swin_window_attention(q, k, v, tau, bias, mask: Optional[torch.Tensor] = Non
     the mma instance as :func:`plan` lays it out. CPU tensors run the
     reference.
     """
+    refuse_export("K2 (swin_window_attention)", q)
     if q.device.type == "cpu":
         return swin_window_attention_reference(q, k, v, tau, bias, mask)
     if q.device.type != "cuda":

@@ -57,12 +57,14 @@ def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 
 
 def int8_conv2d_exact(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
-                      padding: int = 1) -> torch.Tensor:
-    """The plain int8 conv: NCHW int8 ``xq`` with OIHW int8 ``wq``, the exact
+                      padding: int = 1, dilation: int = 1) -> torch.Tensor:
+    """The plain int8 conv: NCHW int8 ``xq`` with OIHW int8 ``wq`` (any
+    kernel size, ``dilation`` as ``lax.conv``'s ``rhs_dilation``), the exact
     int32 sums. Computed as a float64 convolution, which holds every partial
     sum exactly (|sum| <= 127 * 127 * K, below 2^53); float32 would not
     (127 * 127 * 9216 is above 2^24)."""
-    acc = F.conv2d(xq.double(), wq.double(), stride=stride, padding=padding)
+    acc = F.conv2d(xq.double(), wq.double(), stride=stride, padding=padding,
+                   dilation=dilation)
     return acc.to(torch.int32)
 
 

@@ -1,7 +1,10 @@
 """Probe: does ``int8_gemm.conv_plan`` pick the fastest launch of P2's conv?
 
 At each launch shape of one served forward of ``unet_tpu`` (bf16) and
-``unet`` (float32) at B=8/256px, the conv is timed on the card under every
+``unet`` (float32) at B=8/256px, or of one of the names whose gated convs
+are dilated or 1x1 (``u2net``, ``u2netp``, ``u2net_tpu``, ``resunet``,
+``multiresunet``; bf16, shapes by :func:`traced_launch_shapes`, K = k^2 Ci),
+the conv is timed on the card under every
 block tile width BN the planner considers, each with no K split and with the
 split the planner's model likes best for that BN (``int8_gemm.plan_cost``).
 Each launch is first held against the plan's own choice bit for bit. The
@@ -14,8 +17,8 @@ of that over the rows without a split, relative to BN = 64: the fit of
 ``int8_gemm.STAGE_COST``. It also prints, per shape, how much slower the
 planner's choice is than the fastest launch measured.
 
-Usage: python -m unet_zoo_tpu_torch.probes.int8_conv_plan [--model all|unet_tpu|unet]
-       [--batch 8] [--image 256] [--reps 20]
+Usage: python -m unet_zoo_tpu_torch.probes.int8_conv_plan [--model all|unet_tpu|unet|u2net|
+       u2netp|u2net_tpu|resunet|multiresunet] [--batch 8] [--image 256] [--reps 20]
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from unet_zoo_tpu_torch.ops.kernels import int8_gemm as p2
 
 UNET_TPU_WIDTHS = (128, 256, 512, 512)
+TRACED = ("u2net", "u2netp", "u2net_tpu", "resunet", "multiresunet")
 
 
 def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
@@ -103,6 +107,39 @@ def launch_shapes(name, image=256, batch=8, widths=UNET_TPU_WIDTHS):
     return [(batch, s, s, ci, co, st, n) for (s, ci, co, st), n in counts.items()]
 
 
+def traced_launch_shapes(name, image=256, batch=8, **kw):
+    """The int8 conv's launches in one forward of the registry model
+    ``name`` (``kw`` to ``create_model``), read off the model itself: its
+    float forward runs on the meta device (no data, no arithmetic) with
+    every int8-gated conv recorded. Rows of (B, H, W, Ci, Co, stride,
+    launches, ksize, padding, dilation), H and W the conv's input, in the
+    order of first launch; for the names whose gated convs are not all 3x3
+    convs with padding 1 (u2net's and u2net_tpu's dilated ones, resunet's
+    and multiresunet's 1x1 ones), where a hand count would miss one."""
+    from unet_zoo_tpu_torch.models import _REGISTRY
+    from unet_zoo_tpu_torch.nn import blocks
+
+    spec = _REGISTRY[name]
+    with torch.device("meta"):   # no weights drawn
+        net = spec.build(in_channels=3, num_classes=1, image_size=spec.default_image_size,
+                         depth=5, dtype=torch.float32, use_kernels=False, **kw).eval()
+    gated, counts = blocks.gated_conv, {}
+
+    def recording(x, conv_m, dtype, use_kernels=None):
+        row = (batch, x.shape[2], x.shape[3], x.shape[1], conv_m.out_channels,
+               conv_m.stride[0], conv_m.kernel_size[0], conv_m.padding[0], conv_m.dilation[0])
+        counts[row] = counts.get(row, 0) + 1
+        return gated(x, conv_m, dtype, use_kernels)
+
+    blocks.gated_conv = recording
+    try:
+        with torch.no_grad():
+            net(torch.empty(batch, 3, image, image, device="meta"))
+    finally:
+        blocks.gated_conv = gated
+    return [(*row[:6], n, *row[6:]) for row, n in counts.items()]
+
+
 def graph_ms(fn, reps):
     """Mean device ms of ``fn()`` over ``reps`` calls captured in one CUDA
     graph, replayed three times between CUDA events."""
@@ -151,41 +188,48 @@ def stage_units(m, co, kpad, bn, splits):
 def run(models, batch, image, reps, device):
     rows = []
     for name in models:
-        dtype = torch.bfloat16 if name == "unet_tpu" else torch.float32
+        dtype = torch.float32 if name == "unet" else torch.bfloat16
         gen = torch.Generator(device=device).manual_seed(0)
-        for b, h, w, ci, co, stride, _ in launch_shapes(name, image, batch):
+        shapes = (traced_launch_shapes(name, image, batch) if name in TRACED
+                  else [(*r, 3, 1, 1) for r in launch_shapes(name, image, batch)])
+        for b, h, w, ci, co, stride, _, *geometry in shapes:
             x = torch.relu(torch.randn(b, h, w, ci, generator=gen, device=device)).to(dtype)
             s_x = (x.float().abs().amax() / 127).reshape(())
-            wq = torch.randint(-127, 128, (co, ci, 3, 3), generator=gen, device=device,
+            k = geometry[0]
+            wq = torch.randint(-127, 128, (co, ci, k, k), generator=gen, device=device,
                                dtype=torch.int8)
             wp = p2.pack_conv_weight(wq)
             scale = 1e-4 * (0.5 + torch.rand(co, generator=gen, device=device))
             bias = 0.1 * torch.randn(co, generator=gen, device=device)
-            m = b * p2.conv_out_size(h, stride) * p2.conv_out_size(w, stride)
+            m = b * p2.conv_out_size(h, stride, *geometry) * p2.conv_out_size(w, stride,
+                                                                               *geometry)
             kpad = wp.shape[1]
             chosen = p2.conv_plan(m, co, kpad)
-            want = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype)
+            want = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, *geometry)
             times = {}
             for bn, splits in candidates(m, co, kpad):
                 plan = (p2.BM, bn, splits)
-                got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, plan=plan)
+                got = p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype, *geometry,
+                                      plan=plan)
                 if not torch.equal(got, want):
-                    raise AssertionError(f"{name} {b, h, w, ci, co, stride}: plan {plan} "
-                                         f"disagrees with {chosen}")
+                    raise AssertionError(f"{name} {b, h, w, ci, co, stride, *geometry}: plan "
+                                         f"{plan} disagrees with {chosen}")
                 ms = graph_ms(lambda: p2.int8_conv3x3(x, s_x, wp, scale, bias, stride, dtype,
-                                                      plan=plan), reps)
+                                                      *geometry, plan=plan), reps)
                 units = stage_units(m, co, kpad, bn, splits)
                 times[bn, splits] = ms
-                rows.append(dict(model=name, shape=(b, h, w, ci, co, stride), bn=bn,
+                rows.append(dict(model=name, shape=(b, h, w, ci, co, stride, *geometry), bn=bn,
                                  splits=splits, cost=p2.plan_cost(m, co, kpad, bn, splits),
                                  ms=ms, ms_per_unit=ms / units, chosen=plan == chosen))
-                print(f"{name} [{b}, {h}, {w}, {ci}] -> {co} s{stride}: BN {bn} split {splits}"
-                      f"{' (conv_plan)' if plan == chosen else ''}: {ms:.4f} ms, modelled "
+                print(f"{name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} {tuple(geometry)}: BN {bn} "
+                      f"split {splits}{' (conv_plan)' if plan == chosen else ''}: {ms:.4f} ms, "
+                      f"modelled "
                       f"{rows[-1]['cost']:.2f}, {1e3 * ms / units:.3f} us per stage unit",
                       flush=True)
             fastest = min(times, key=times.get)
-            print(f"{name} [{b}, {h}, {w}, {ci}] -> {co} s{stride}: conv_plan BN {chosen[1]} "
-                  f"split {chosen[2]} is {times[chosen[1:]] / times[fastest]:.3f}x the fastest "
+            print(f"{name} [{b}, {h}, {w}, {ci}] -> {co} s{stride} {tuple(geometry)}: conv_plan "
+                  f"BN {chosen[1]} split {chosen[2]} is "
+                  f"{times[chosen[1:]] / times[fastest]:.3f}x the fastest "
                   f"(BN {fastest[0]} split {fastest[1]}, {times[fastest]:.4f} ms)", flush=True)
     per_bn = {bn: [r["ms_per_unit"] for r in rows if r["bn"] == bn and r["splits"] == 1]
               for bn in p2.TILE_N}
@@ -199,7 +243,7 @@ def run(models, batch, image, reps, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="all", choices=["all", "unet_tpu", "unet"])
+    ap.add_argument("--model", default="all", choices=["all", "unet_tpu", "unet", *TRACED])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--image", type=int, default=256)
     ap.add_argument("--reps", type=int, default=20)

@@ -930,10 +930,70 @@ def _da_transformer_quant(q) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _u2net_quant(q) -> Dict[str, torch.Tensor]:
+    """``stage{n}[d]/rebnconv*`` -> ``...conv_s1``; U2Net's REBNCONVs keep
+    the original zoo's names on both sides."""
+    out: Dict[str, torch.Tensor] = {}
+    for stage, sub in q.items():
+        for blk, leaf in sub.items():
+            _absmax(out, f"{stage}.{blk}.conv_s1", leaf)
+    return out
+
+
+def _u2net_tpu_quant(q) -> Dict[str, torch.Tensor]:
+    """The RSU blocks' ``ConvNormAct``s (``enc0/conv_in``) and the stride-2
+    ``down{i}`` ones -> ``<path>.conv``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, sub in q.items():
+        if "in_absmax" in sub:
+            _absmax(out, f"{name}.conv", sub)
+        else:
+            for cna, leaf in sub.items():
+                _absmax(out, f"{name}.{cna}.conv", leaf)
+    return out
+
+
+def _resunet_quant(q) -> Dict[str, torch.Tensor]:
+    """``ResidualConv_{i}``'s ``in_absmax0``, ``in_absmax1`` and
+    ``in_absmax_skip`` -> its ``conv_block.2``, ``conv_block.5`` and
+    ``conv_skip.0``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(RESUNET_BLOCKS):
+        sub = q.get(f"ResidualConv_{i}", {})
+        for stat, key in (("in_absmax0", "conv_block.2"), ("in_absmax1", "conv_block.5"),
+                          ("in_absmax_skip", "conv_skip.0")):
+            if stat in sub:
+                out[f"{name}.{key}"] = _t(sub[stat]).reshape(())
+    return out
+
+
+def _multiresunet_quant(q) -> Dict[str, torch.Tensor]:
+    """The conv-BN units of the MultiRes blocks (``MRB_UNITS``), the
+    ResPaths (1x1 then 3x3 initial, then each block's 3x3 and 1x1) and
+    ``conv_final`` -> their ``conv1``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(1, 10):
+        sub = q.get(f"mrb{i}", {})
+        for j, unit in enumerate(MRB_UNITS):
+            _absmax(out, f"multiresblock{i}.{unit}.conv1", sub.get(f"ConvNormAct_{j}", {}))
+    for i in range(1, 5):
+        sub, t = q.get(f"respath{i}", {}), f"respath{i}"
+        _absmax(out, f"{t}.conv2d_bn_1x1_initial.conv1", sub.get("ConvNormAct_0", {}))
+        _absmax(out, f"{t}.conv2d_bn_3x3_initial.conv1", sub.get("ConvNormAct_1", {}))
+        for k in range((len(sub) - 2) // 2):
+            for half in (0, 1):
+                _absmax(out, f"{t}.blocks.{k}.{half}.conv1",
+                        sub.get(f"ConvNormAct_{2 + 2 * k + half}", {}))
+    _absmax(out, "conv_final.conv1", q.get("conv_final", {}))
+    return out
+
+
 QUANT_CONVERTERS: Dict[str, Callable[[Any], Dict[str, torch.Tensor]]] = {
     "attention_unet": _attention_unet_quant, "da_transformer": _da_transformer_quant,
-    "nested_unet": _nested_unet_quant,
-    "transatt_unet": _transatt_unet_quant, "unet": _unet_quant, "unet_tpu": _unet_tpu_quant,
+    "multiresunet": _multiresunet_quant, "nested_unet": _nested_unet_quant,
+    "resunet": _resunet_quant, "transatt_unet": _transatt_unet_quant,
+    "u2net": _u2net_quant, "u2net_tpu": _u2net_tpu_quant, "u2netp": _u2net_quant,
+    "unet": _unet_quant, "unet_tpu": _unet_tpu_quant,
     "unet_transformer": _unet_transformer_quant}
 
 
