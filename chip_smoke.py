@@ -238,7 +238,19 @@
    call, there and through ``load_predictor`` here; the outputs against the
    live predictors' (bit for bit, or within 1e-3 rel L2); live and loaded
    img/s in turns. Exporting ``mmunet`` must raise, naming K4.
-27. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+27. Data parallelism (``unet_zoo_tpu_torch/parallel``): two ranks of this
+   script (``--parallel-rank``) share the card over gloo, one runs over
+   NCCL (and two over NCCL, one a card, on a machine with two). Full-width
+   bf16 ``unet`` at global B=8/256px: a DP and an fsdp step each against the
+   one-process step on the same weights and batch (loss, running statistics,
+   updated parameters), then 4 more steps (the loss falls), img/s, peak memory
+   and parameter and moment bytes a rank. ``gated`` under DP: K7's five grids and its two finishing
+   grids launch once a positional axis pass, and every call's all-reduced
+   moments and S match the plain version on the global batch (1e-3); its
+   loss against one process. Phase 21's unet loop under DP for 2 epochs:
+   both ranks read the same epochs, only rank 0 writes, and one process
+   resumes from the last checkpoint.
+28. Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Steps 17-20, with step 22's int8 ``attention_unet``, ``u2net``, ``u2netp``,
@@ -604,6 +616,37 @@ DA_GAMMAS = ("pam1", "pam2", "pam3", "cam1", "cam2", "cam3")
 TILED_IMAGE, TILED_TILE, TILED_OVERLAP, TILED_BATCH = 1024, 256, 0.25, 8
 TILED_MEDIAN, TILED_MEAN, TILED_COVER_REL_L2 = 0.05, 0.1, 1e-3
 EXPORT_REL_L2 = 1e-3
+# phase 27: data parallelism over torch.distributed (unet_zoo_tpu_torch/parallel).
+# Two ranks share the card over gloo (whose collectives take CUDA tensors,
+# FSDP2's among them), one rank runs over NCCL, and two ranks over NCCL one a card where
+# the machine has two. Full-width unet in bf16 on float32 parameters at global
+# B=8/256px: a DP and an fsdp step each against the one-process B=8 step on
+# the same weights and batch (loss, BatchNorm running statistics, updated
+# parameters), then PARALLEL_STEPS - 1 more steps on the batch (the loss must
+# fall); gated (B=8, 256px) under DP, every K7 launch's all-reduced moments
+# and S against the plain version on the global batch (K7_SHARE); a 2-epoch
+# unet loop under DP (phase 21's data and config) whose last checkpoint one
+# process resumes.
+PARALLEL_WORLD, PARALLEL_STEPS, PARALLEL_LR = 2, 5, 1e-3
+# the sharded steps against one process, both bf16 compute (BatchNorm from
+# float64 sums of the ranks against cuDNN's in one process, and a rank's
+# batch of 4 against 8 takes other conv algorithms, so activations and
+# gradients round apart): loss and running statistics (rel L2) within 1e-2.
+# The bf16 clipped gradient of a random-weight unet moves 5% between two such
+# runs (5.15e-2 rel L2, sharded against one process, on an H100; PERF.md), so
+# each is held against the one-process float32 step (TF32 off): the sharded
+# step no further from it than PARALLEL_F32_RATIO times the one-process bf16
+# step. The update (AdamW's first step is lr g / (|g| + eps)) within 2.01 lr
+# everywhere, and where float32's gradient exceeds 1e-2 of its tensor's largest
+# as often within 1e-3 lr of float32's update as the one-process bf16 step's
+# is, less PARALLEL_AGREE_SLACK.
+PARALLEL_LOSS_REL, PARALLEL_STATS_REL, PARALLEL_F32_RATIO = 1e-2, 1e-2, 1.25
+PARALLEL_AGREE_SLACK = 0.01
+# the gated step's loss under DP against one process (bf16; K7's moments
+# summed in another order, every BatchNorm from float64 sums)
+PARALLEL_GATED_LOSS_REL = 1e-2
+# what phase 27 records of each K7 call's backward (its input gradients)
+K7_DP_GRADS = ("dq", "dk", "dqg", "dkg", "dv", "drel", "dgamma")
 # profile_forward: most traces of one call, and the traces it took beyond two
 PROFILE_TRIES = 5
 PROFILE_RETAKES = [0]
@@ -4241,6 +4284,449 @@ def tiled_and_export(torch, seeded, device):
     return out
 
 
+def parallel_batch(seed, n=SERVE_BATCH, size=IMAGE):
+    """A seeded global batch as NCHW uint8 host tensors (blob images and
+    masks), the same in every process."""
+    import torch
+
+    images, masks = blob_data(seed, n, size)
+    return (torch.from_numpy(images).permute(0, 3, 1, 2).contiguous(),
+            torch.from_numpy(masks).permute(0, 3, 1, 2).contiguous())
+
+
+def unet_parallel_steps(torch, mesh, strategy, dtype=None):
+    """Full-width unet (bf16 compute; ``dtype`` another) laid over ``mesh``
+    by ``strategy`` (None: one process), PARALLEL_STEPS steps on one global
+    batch: step 1's loss, running statistics, clipped gradients and updated
+    parameters (whole, rank 0 only), every step's loss, img/s of steps 2-5
+    (global), peak memory and this rank's parameter and moment bytes."""
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.parallel import (fully_replicate_to_host, replicate_state,
+                                             shard_batch, shard_state_fsdp)
+    from unet_zoo_tpu_torch.parallel.fsdp import sharded_bytes
+    from unet_zoo_tpu_torch.parallel.multihost import process_index
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+
+    model = create_model("unet", dtype=dtype or torch.bfloat16, seed=0)
+    state = create_train_state(model, PARALLEL_LR)
+    images, masks = parallel_batch(zlib.crc32(b"parallel unet"))
+    if strategy is not None:
+        (shard_state_fsdp if strategy == "fsdp" else replicate_state)(mesh, state)
+        images, masks = shard_batch(mesh, images, masks)
+    step = make_train_step(model, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(state, images, masks)["loss"].item()]
+    stats = {n: b.detach().cpu() for n, b in model.module.named_buffers() if "running" in n}
+    params = fully_replicate_to_host(dict(model.module.named_parameters()))
+    grads = fully_replicate_to_host({n: p.grad for n, p in model.module.named_parameters()})
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(PARALLEL_STEPS - 1):
+        losses.append(step(state, images, masks)["loss"].item())
+    seconds = time.perf_counter() - t
+    out = dict(losses=losses, stats=stats, img_per_s=SERVE_BATCH * (PARALLEL_STEPS - 1) / seconds,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, bytes=sharded_bytes(state),
+               checksum=sum(p.double().sum().item() for p in params.values()))
+    if process_index() == 0:
+        out["params"], out["grads"] = params, grads
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def plain_bn_steps(torch, mesh):
+    """:func:`unet_parallel_steps` under DP with every global BatchNorm in
+    its plain version (``global_batch_norm_reference``: float64 sums and
+    unfused ATen passes) in place of ATen's CUDA batch-norm kernels."""
+    from unet_zoo_tpu_torch.nn import blocks
+
+    kernels = blocks.global_batch_norm
+    blocks.global_batch_norm = blocks.global_batch_norm_reference
+    try:
+        return unet_parallel_steps(torch, mesh, "DataParallel")
+    finally:
+        blocks.global_batch_norm = kernels
+
+
+def gated_parallel_step(torch, mesh):
+    """Two DP steps of full-width bf16 gated (global B=8, 256px), every K7
+    call recorded: after each fwd launch the operands and what the call
+    formed (mu, var, sv, sve); after each s_finish launch the incoming
+    gradients and S summed over the ranks; after each combine launch the
+    gradients it wrote. K7's grid counts over step 1 (each set to 0 just
+    before it). Step 2 runs with a fault planted in s_finish: e formed
+    over this rank's rows (M = n, where the global batch has n x world)."""
+    import ctypes
+    import dataclasses
+
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.ops.kernels import axial_train as k7
+    from unet_zoo_tpu_torch.parallel import replicate_state, shard_batch
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+
+    steps = [dict(fwd=[], bwd=[]), dict(fwd=[], bwd=[])]
+    rec = steps[0]
+    names = ("q", "k", "qg", "kg", "v", "relative", "gamma")
+    host = lambda call, keys: {x: call.tensors[x].detach().cpu().clone() for x in keys}
+    forward, s_finish, combine = k7._forward, k7._s_finish, k7._combine
+    rows_at = k7._DIMS.index("global_rows")
+
+    def after_forward(call):
+        forward(call)
+        rec["fwd"].append(dict(host(call, names + ("mu", "var", "sv", "sve")),
+                               ks=call.dims["ks"]))
+
+    def after_s(call):
+        s_finish(call)
+        rec["bwd"].append(dict(host(call, ("dsv", "dsve")), s=call.view("s_sums").cpu().clone()))
+
+    def local_rows_s(call):
+        dims = (ctypes.c_int * len(k7._DIMS))(*call.plan.dims[k7._S_FINISH])
+        dims[rows_at] = call.dims["n"]
+        saved = call.plan
+        call.plan = dataclasses.replace(saved, dims={**saved.dims, k7._S_FINISH: dims})
+        try:
+            after_s(call)
+        finally:
+            call.plan = saved
+
+    def after_combine(call):
+        combine(call)
+        rec["bwd"][-1].update(host(call, K7_DP_GRADS))
+
+    model = create_model("gated", dtype=torch.bfloat16, seed=0, image_size=IMAGE)
+    state = replicate_state(mesh, create_train_state(model, PARALLEL_LR))
+    images, masks = shard_batch(mesh, *parallel_batch(zlib.crc32(b"parallel gated")))
+    step = make_train_step(model, mesh=mesh)
+    k7._forward, k7._s_finish, k7._combine = after_forward, after_s, after_combine
+    try:
+        for counts in (k7.LAUNCHES, k7.FINISH_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+        loss = step(state, images, masks)["loss"].item()
+        torch.cuda.synchronize()
+        launches = {**k7.LAUNCHES, **k7.FINISH_LAUNCHES}
+        rec, k7._s_finish = steps[1], local_rows_s
+        step(state, images, masks)["loss"].item()
+    finally:
+        k7._forward, k7._s_finish, k7._combine = forward, s_finish, combine
+    del model, state, step
+    torch.cuda.empty_cache()
+    return dict(loss=loss, launches=launches, calls=steps[0], faulty=steps[1])
+
+
+def parallel_loop(torch, mesh, root, rank):
+    """Phase 21's unet loop under DP: 2 epochs over LOOP_TRAIN blob images
+    with on-device flips, validated on LOOP_VALID through K1 (its launches
+    counted over the run); each rank logs to its own file, which only rank
+    0's may fill."""
+    import os
+
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.data import create_loader
+    from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
+    from unet_zoo_tpu_torch.train.loop import train_model
+    from unet_zoo_tpu_torch.utils.logger import Logger
+
+    images, masks = blob_data(zlib.crc32(b"train_loop"), LOOP_TRAIN + LOOP_VALID, IMAGE)
+    loader = lambda ds, shuffle: create_loader(ds, SERVE_BATCH, shuffle=shuffle, drop_last=shuffle,
+                                               num_workers=0, pin_memory=True)
+    train_loader = loader(ArrayDataset(images[:LOOP_TRAIN], masks[:LOOP_TRAIN]), True)
+    val_loader = loader(ArrayDataset(images[LOOP_TRAIN:], masks[LOOP_TRAIN:]), False)
+    model = create_model("unet", dtype=torch.bfloat16, seed=0)
+    logger = Logger(os.path.join(root, f"loop_rank{rank}.txt"))
+    k1.LAUNCHES["fused_up_concat_conv"] = 0
+    t = time.perf_counter()
+    out = train_model(model, train_loader, val_loader, loop_config(root, 2), "unet",
+                      os.path.join(root, "unet_best"), os.path.join(root, "unet_last"), logger,
+                      mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    logger.close()
+    del model
+    torch.cuda.empty_cache()
+    return dict(train_loss=out[0], val_loss=out[2], val_dice=out[3], seconds=seconds,
+                k1_launches=k1.LAUNCHES["fused_up_concat_conv"])
+
+
+def parallel_rank(argv) -> int:
+    """One rank of phase 27: ``chip_smoke.py --parallel-rank SCENARIO RANK
+    WORLD BACKEND ROOT``. Joins the group (file store in ROOT), runs the
+    scenario on card ``RANK % device_count`` and saves what it read."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from unet_zoo_tpu_torch.parallel import create_mesh, initialize_distributed
+
+    scenario, rank, world, backend, root = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    initialize_distributed(f"file://{os.path.join(root, scenario + '_store')}", world, rank,
+                           rank % torch.cuda.device_count(), backend, "cuda")
+    try:
+        mesh = create_mesh(device_type="cuda")
+        out = {"device": torch.cuda.current_device(), "backend": backend}
+        log(f"rank {rank} of {scenario}: DP")
+        out["dp"] = unet_parallel_steps(torch, mesh, "DataParallel")
+        log(f"rank {rank} of {scenario}: fsdp")
+        out["fsdp"] = unet_parallel_steps(torch, mesh, "fsdp")
+        if scenario == "nccl":
+            log(f"rank {rank} of {scenario}: DP, plain global BatchNorm")
+            out["dp_plain_bn"] = plain_bn_steps(torch, mesh)
+        if scenario == "gloo":
+            log(f"rank {rank} of {scenario}: gated")
+            out["gated"] = gated_parallel_step(torch, mesh)
+            log(f"rank {rank} of {scenario}: loop")
+            out["loop"] = parallel_loop(torch, mesh, root, rank)
+        torch.save(out, os.path.join(root, f"{scenario}_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_ranks(torch, scenario, world, backend, root, timeout=300):
+    """``world`` processes of this script, one rank each; their results."""
+    import os
+
+    env = dict(os.environ, PYTHONFAULTHANDLER="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               scenario, str(r), str(world), backend, root], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 27: rank {r} of {scenario} ({backend}) exited "
+                                 f"{p.returncode}:\n" + out[-3000:])
+    return [torch.load(os.path.join(root, f"{scenario}_{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def update_agreement(torch, got, f32):
+    """The share of the entries whose float32 gradient exceeds 1e-2 of its
+    tensor's largest at which ``got``'s update lies within 1e-3 lr of the
+    float32 step's (both from the same weights)."""
+    same = total = 0
+    for n, g in f32["grads"].items():
+        m = g.abs() > 1e-2 * g.abs().max()
+        same += ((got["params"][n] - f32["params"][n])[m].abs() <= 1e-3 * PARALLEL_LR).sum().item()
+        total += m.sum().item()
+    return same / total
+
+
+def step_against_one_process(torch, name, got, ref, f32):
+    """A sharded unet step's first step against the one-process step (bf16,
+    ``ref``) and the one-process float32 step (``f32``)."""
+    loss_rel = abs(got["losses"][0] - ref["losses"][0]) / ref["losses"][0]
+    stats = max(rel_l2(torch, got["stats"][n], ref["stats"][n]) for n in ref["stats"])
+    flat = lambda tree: torch.cat([tree[n].float().reshape(-1) for n in ref["grads"]])
+    grad = rel_l2(torch, flat(got["grads"]), flat(ref["grads"]))
+    to_f32, ref_to_f32 = (rel_l2(torch, flat(x["grads"]), flat(f32["grads"])) for x in (got, ref))
+    worst = max((got["params"][n] - ref["params"][n]).abs().max().item() for n in ref["params"])
+    agree, ref_agree = update_agreement(torch, got, f32), update_agreement(torch, ref, f32)
+    log(f"phase 27 {name}: step 1 loss {got['losses'][0]:.6f} against one process "
+        f"{ref['losses'][0]:.6f} (rel {loss_rel:.2e} <= {PARALLEL_LOSS_REL:.0e}), running "
+        f"statistics rel L2 <= {stats:.2e} (<= {PARALLEL_STATS_REL:.0e}); clipped gradient "
+        f"{grad:.2e} rel L2 from one process's, {to_f32:.3e} from float32's (one process's bf16 "
+        f"{ref_to_f32:.3e}; ratio {to_f32 / ref_to_f32:.3f} <= {PARALLEL_F32_RATIO}); updated "
+        f"parameters within {worst:.2e} of one process's (<= {2.01 * PARALLEL_LR:.2e}), within "
+        f"1e-3 lr of float32's update at {agree:.5f} of the resolved entries (one process "
+        f"{ref_agree:.5f}, slack {PARALLEL_AGREE_SLACK}); losses "
+        f"{[round(x, 6) for x in got['losses']]}")
+    if not (loss_rel <= PARALLEL_LOSS_REL and stats <= PARALLEL_STATS_REL
+            and to_f32 <= PARALLEL_F32_RATIO * ref_to_f32 and worst <= 2.01 * PARALLEL_LR
+            and agree >= ref_agree - PARALLEL_AGREE_SLACK):
+        raise AssertionError(f"phase 27: the {name} step disagrees with one process")
+    if not got["losses"][-1] < got["losses"][0]:
+        raise AssertionError(f"phase 27: {name}'s loss did not fall over {PARALLEL_STEPS} steps")
+    return dict(loss_rel=loss_rel, stats_rel_l2=stats, grad_rel_l2=grad, grad_to_f32=to_f32,
+                one_process_grad_to_f32=ref_to_f32, update_max=worst, update_agree=agree,
+                one_process_update_agree=ref_agree)
+
+
+def k7_dp_calls(torch, device, steps):
+    """Each K7 call of one DP gated step (``steps``: each rank's record of
+    it) read as check_k7 reads a launch: the outputs both ranks formed
+    (their rows of sv, sve and the input gradients, their shares of
+    d_relative and d_gamma summed) against the plain version's forward and
+    backward on the global batch (both ranks' operands and incoming
+    gradients), and S as all-reduced, each as a share of its rms."""
+    fwd = [st["fwd"] for st in steps]
+    bwd = [st["bwd"] for st in steps]
+    if len({len(f) for f in fwd} | {len(b) for b in bwd}) != 1:
+        raise AssertionError("phase 27: the ranks recorded different numbers of K7 calls")
+    glob = lambda recs, key: torch.cat([r[key] for r in recs]).to(device)
+    total = lambda recs, key: sum(r[key].to(device) for r in recs)
+    readings = []
+    for i, recs in enumerate(zip(*fwd)):
+        back = [b[len(b) - 1 - i] for b in bwd]
+        for key, where in (("mu", recs), ("var", recs), ("s", back)):
+            if not torch.equal(where[0][key], where[1][key]):
+                raise AssertionError(f"phase 27: the ranks formed different K7 {key}")
+        ops = [glob(recs, x) for x in ("q", "k", "qg", "kg", "v")]
+        ops += [recs[0]["relative"].to(device), recs[0]["gamma"].to(device)]
+        ks, gp = recs[0]["ks"], ops[4].shape[-1]
+        ref = k7_reference(torch, ops, [glob(back, "dsv"), glob(back, "dsve")], ks)
+        outs = [glob(recs, "sv"), glob(recs, "sve"), recs[0]["mu"].to(device),
+                recs[0]["var"].to(device)]
+        grads = [glob(back, x) for x in K7_DP_GRADS[:5]] + [total(back, x)
+                                                           for x in K7_DP_GRADS[5:]]
+        reading = k7_readings(k7_outputs(outs, grads, gp), ref)
+        s_ref = ref["d_gamma"].float()
+        reading["s"] = ((back[0]["s"].to(device).view(3, -1).float() - s_ref).abs().max()
+                        / s_ref.pow(2).mean().sqrt()).item()
+        readings.append(dict(rows=ops[0].shape[0], length=ops[0].shape[1], **reading))
+        del ref, ops, outs, grads
+        torch.cuda.empty_cache()
+    return readings
+
+
+def k7_dp_readings(torch, device, ranks):
+    """Every K7 call of the DP gated step against the plain version on the
+    global batch (:func:`k7_dp_calls`), at K7_SHARE; and the step with e
+    formed over a rank's rows (M = n) must fail that comparison."""
+    readings = k7_dp_calls(torch, device, [r["gated"]["calls"] for r in ranks])
+    faulty = k7_dp_calls(torch, device, [r["gated"]["faulty"] for r in ranks])
+    worst = max(max(v for k, v in r.items() if k not in ("rows", "length")) for r in readings)
+    top = lambda r: max(r, key=lambda k: r[k] if k not in ("rows", "length") else -1.0)
+    caught = [max(r[k] for k in ("d_q", "d_k", "d_qg", "d_kg", "d_v")) for r in faulty]
+    log(f"phase 27 K7 under DP: {len(readings)} calls, every output and S against the plain "
+        f"version on the global batch: worst {worst:.2e} (<= {K7_SHARE:.0e}); "
+        + ", ".join(f"[{r['rows']}x{r['length']}] mu {r['mu']:.1e} var {r['var']:.1e} "
+                    f"S {r['s']:.1e} d_q {r['d_q']:.1e} worst {r[top(r)]:.1e} ({top(r)})"
+                    for r in readings))
+    log(f"phase 27 K7 under DP, fault planted (s_finish forms e over M = n, a rank's rows): "
+        f"input gradients read {min(caught):.2e} to {max(caught):.2e} a call (must exceed "
+        f"{K7_SHARE:.0e})")
+    if not worst <= K7_SHARE:
+        raise AssertionError("phase 27: K7 under DP disagrees with the plain version on the "
+                             "global batch")
+    if not max(caught) > K7_SHARE:
+        raise AssertionError("phase 27: the K7 DP comparison passed e formed over a rank's rows")
+    return worst, readings, caught
+
+
+def data_parallel(torch, device, smi):
+    """Phase 27 (see PARALLEL_WORLD): returns its readings."""
+    import os
+    import shutil
+    import tempfile
+
+    from unet_zoo_tpu_torch import create_model
+    from unet_zoo_tpu_torch.data import create_loader
+    from unet_zoo_tpu_torch.ops.kernels import fused_up as k1
+    from unet_zoo_tpu_torch.train import create_train_state, make_train_step
+    from unet_zoo_tpu_torch.train.loop import train_model
+    from unet_zoo_tpu_torch.utils.checkpoint import checkpoint_exists
+    from unet_zoo_tpu_torch.utils.logger import Logger
+
+    t0 = time.perf_counter()
+    ref = unet_parallel_steps(torch, None, None)
+    f32 = unet_parallel_steps(torch, None, None, torch.float32)
+    gated = create_model("gated", dtype=torch.bfloat16, seed=0, image_size=IMAGE)
+    gated_loss = make_train_step(gated)(create_train_state(gated, PARALLEL_LR),
+                                        *parallel_batch(zlib.crc32(b"parallel gated")))
+    gated_loss = gated_loss["loss"].item()
+    del gated
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="_scratch_parallel_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        runs = {"gloo": run_parallel_ranks(torch, "gloo", PARALLEL_WORLD, "gloo", root),
+                "nccl": run_parallel_ranks(torch, "nccl", 1, "nccl", root)}
+        if torch.cuda.device_count() >= 2:
+            runs["nccl2"] = run_parallel_ranks(torch, "nccl2", PARALLEL_WORLD, "nccl", root)
+        else:
+            log("phase 27: one card, so two ranks over NCCL (one a card) are not run")
+        out = {"card": smi, "runs": {}}
+        for name, ranks in runs.items():
+            for kind in ("dp", "fsdp"):
+                if len({r[kind]["checksum"] for r in ranks}) != 1:
+                    raise AssertionError(f"phase 27: the ranks of {name} {kind} hold other weights")
+                key = f"{name} {kind} x{len(ranks)}"
+                got = ranks[0][kind]
+                reading = step_against_one_process(torch, key, got, ref, f32)
+                reading.update(losses=got["losses"], img_per_s=got["img_per_s"],
+                               peak_gib=[r[kind]["peak_gib"] for r in ranks],
+                               bytes=[r[kind]["bytes"] for r in ranks])
+                log(f"phase 27 {key}: {got['img_per_s']:.1f} img/s global, peak memory "
+                    f"{reading['peak_gib']} GiB a rank, parameter and moment bytes a rank "
+                    f"{reading['bytes']} ({smi})")
+                out["runs"][key] = reading
+        plain = runs["nccl"][0]["dp_plain_bn"]
+        fast = out["runs"]["nccl dp x1"]
+        log(f"phase 27 nccl dp x1, global BatchNorm: ATen's CUDA batch-norm kernels "
+            f"{fast['img_per_s']:.1f} img/s, the plain version (float64 sums) "
+            f"{plain['img_per_s']:.1f} img/s (ratio {fast['img_per_s'] / plain['img_per_s']:.3f}); "
+            f"step 1 loss {plain['losses'][0]:.6f} against {fast['losses'][0]:.6f} ({smi})")
+        out["dp_x1_plain_bn"] = dict(img_per_s=plain["img_per_s"], losses=plain["losses"])
+        log(f"phase 27 one process: unet {ref['img_per_s']:.1f} img/s, peak memory "
+            f"{ref['peak_gib']:.2f} GiB, bytes {ref['bytes']} ({smi})")
+        out["one_process"] = dict(losses=ref["losses"], img_per_s=ref["img_per_s"],
+                                  peak_gib=ref["peak_gib"], bytes=ref["bytes"])
+
+        gloo = runs["gloo"]
+        launches = gloo[0]["gated"]["launches"]
+        passes = MEDT_LAUNCHES["gated"]
+        log(f"main path: gated DP step over gloo, rank 0's K7 launches {launches}")
+        if launches != dict.fromkeys(launches, passes):
+            raise AssertionError(f"phase 27: K7 launched {launches} in the DP step, expected "
+                                 f"{passes} a grid")
+        k7_worst, k7_calls, k7_caught = k7_dp_readings(torch, device, gloo)
+        g_loss = gloo[0]["gated"]["loss"]
+        g_rel = abs(g_loss - gated_loss) / gated_loss
+        log(f"phase 27 gated DP x{PARALLEL_WORLD}: loss {g_loss:.6f} against one process "
+            f"{gated_loss:.6f} (rel {g_rel:.2e} <= {PARALLEL_GATED_LOSS_REL:.0e})")
+        if not g_rel <= PARALLEL_GATED_LOSS_REL:
+            raise AssertionError("phase 27: the gated DP step's loss disagrees with one process")
+        out["gated"] = dict(launches=launches, k7_worst=k7_worst, k7_calls=k7_calls,
+                            k7_fault_caught=k7_caught, loss=g_loss, one_process_loss=gated_loss)
+
+        # the loop: every rank read the same epochs; rank 0 alone wrote; one process resumes
+        loops = [r["loop"] for r in gloo]
+        if any(lp["train_loss"] != loops[0]["train_loss"] or lp["val_loss"] != loops[0]["val_loss"]
+               for lp in loops):
+            raise AssertionError("phase 27: the ranks' loops read different epochs")
+        logs = [open(os.path.join(root, f"loop_rank{r}.txt")).read() for r in range(PARALLEL_WORLD)]
+        val_batches = LOOP_VALID // SERVE_BATCH
+        if ("unet - Epoch 2/2" not in logs[0] or "Epoch" in logs[1]
+                or not checkpoint_exists(os.path.join(root, "unet_last"))):
+            raise AssertionError("phase 27: rank 0 did not write the loop's log and checkpoint "
+                                 "alone")
+        if any(lp["k1_launches"] != len(STAGES) * val_batches * 2 for lp in loops):
+            raise AssertionError(f"phase 27: K1 ran {[lp['k1_launches'] for lp in loops]} times "
+                                 f"in the DP loop's validation, expected {len(STAGES)} a batch")
+        images, masks = blob_data(zlib.crc32(b"train_loop"), LOOP_TRAIN + LOOP_VALID, IMAGE)
+        loader = lambda ds, shuffle: create_loader(ds, SERVE_BATCH, shuffle=shuffle,
+                                                   drop_last=shuffle, num_workers=0)
+        kern = create_model("unet", dtype=torch.bfloat16, seed=1)
+        resumed = train_model(kern, loader(ArrayDataset(images[:LOOP_TRAIN], masks[:LOOP_TRAIN]), True),
+                              loader(ArrayDataset(images[LOOP_TRAIN:], masks[LOOP_TRAIN:]), False),
+                              loop_config(root, 3), "unet", os.path.join(root, "unet_best"),
+                              os.path.join(root, "unet_last"), Logger(None), resume=True)
+        if len(resumed[0]) != 1 or not math.isfinite(resumed[0][0]):
+            raise AssertionError(f"phase 27: one process resumed the DP loop for {resumed[0]}")
+        log(f"phase 27 loop DP x{PARALLEL_WORLD} over gloo: train loss {loops[0]['train_loss']}, "
+            f"val loss {loops[0]['val_loss']}, Dice {loops[0]['val_dice']}, "
+            f"{loops[0]['seconds']:.1f} s for 2 epochs, K1 {loops[0]['k1_launches']} launches a "
+            f"rank; resumed in one process: epoch 3 train loss {resumed[0][0]:.6f}, val loss "
+            f"{resumed[2][0]:.6f}")
+        out["loop"] = dict(loops[0], resumed_train_loss=resumed[0][0], resumed_val_loss=resumed[2][0])
+        del kern
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"data-parallel phase: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_gen(torch, device, *name):
     """A generator for one phase of the run, seeded from the phase's name, so
     that a draw added to or taken from one phase moves no other phase's
@@ -4254,6 +4740,8 @@ def per_forward(rows, key):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2:])
     import torch
 
     t_start = time.perf_counter()
@@ -4487,7 +4975,13 @@ def main() -> int:
     # 26. the rest of serving: the tiled predictor (K1) and the exported unet
     # (K1) and int8 unet_tpu (P2), loaded without the model code
     served = tiled_and_export(torch, seeded, device)
-    lap("tiled and exported predictors (K1, P2)", t_phase)
+    t_phase = lap("tiled and exported predictors (K1, P2)", t_phase)
+
+    # 27. data parallelism: unet DP and fsdp steps over gloo (two ranks on the
+    # card) and NCCL against one process, gated under DP (K7's moments and S
+    # over the ranks), the DP loop resumed in one process
+    parallel = data_parallel(torch, device, smi)
+    lap("data parallelism (K7, K1)", t_phase)
 
     p2_per_model = {}
     for name, rows in p2_rows.items():
@@ -4671,6 +5165,9 @@ def main() -> int:
         "module_chain_ms": per_forward(k7_rows, "module_chain_ms"),
         "kernel_chain_ms": per_forward(k7_rows, "kernel_chain_ms"),
         "loop_launches": sum(loop["gated"]["k7_launches"].values()),
+        "dp_launches": parallel["gated"]["launches"],
+        "dp_readings_max": parallel["gated"]["k7_worst"],
+        "data_parallel": parallel,
         "readings_max": k7_worst,
         "gated_train": gated_train,
         "gated_grad_noise": noise,

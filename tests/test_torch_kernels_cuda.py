@@ -724,6 +724,111 @@ def _k7_faults(monkeypatch, ops):
     yield "kr untransposed", ops[:5] + [k_flat, ops[6]]
 
 
+@pytest.fixture
+def one_rank_group(cuda_device):
+    """A NCCL group of this process alone, the data group of a split K7 call."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def _k7_split_run(ops, cts, ks, group):
+    from unet_zoo_tpu_torch.parallel import global_batch_statistics
+
+    with global_batch_statistics(group):
+        return _k7_run(k7.fused_axial_train, ops, cts, ks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,length,gp,ks", [
+    (128, 64, 8, 64),      # gated layer3_0 at B=2
+    (37, 29, 4, 40),       # a ragged warp, L < ks
+])
+def test_fused_axial_train_split_over_one_rank_is_unsplit(cuda_device, monkeypatch,
+                                                          one_rank_group, n, length, gp, ks):
+    """A split call (a data-parallel step: the stats grid's sums and fin's S
+    all-reduced over the group, then the two finishing launches) over a
+    group of one equals the unsplit call bit for bit, but d_relative (float
+    atomics, last bits); each finishing grid launches once. Faults planted
+    in the finishing launches must fail the readings: stats_finish re-forming
+    var without -mu^2, s_finish leaving e at zero."""
+    ops, cts = _k7_operands(cuda_device, n, length, 8, gp, ks)
+    want = _k7_run(k7.fused_axial_train, ops, cts, ks)
+    before, fin_before = dict(k7.LAUNCHES), dict(k7.FINISH_LAUNCHES)
+    got = _k7_split_run(ops, cts, ks, one_rank_group)
+    torch.cuda.synchronize()
+    assert {k: k7.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    assert {k: k7.FINISH_LAUNCHES[k] - fin_before[k] for k in fin_before} == dict.fromkeys(
+        fin_before, 1)
+    for name in K7_OUTPUTS:
+        if not name.endswith("_emb"):
+            assert torch.equal(got[name], want[name]), name
+    ref = _k7_reference(ops, cts, ks)
+    assert max(_k7_readings(got, ref).values()) <= K7_SHARE
+
+    def var_without_mu2(call):
+        mu, var, gamma = (call.tensors[x] for x in ("mu", "var", "gamma"))
+        var.add_(mu * mu)
+        inv = torch.rsqrt(var + call.eps)
+        call.view("consts").copy_(torch.cat([gamma * inv, inv, -mu * inv]).reshape(-1))
+
+    for hook, after in (("_stats_finish", var_without_mu2),
+                        ("_s_finish", lambda call: call.view("e").zero_())):
+        orig = getattr(k7, hook)
+        monkeypatch.setattr(k7, hook, lambda call, orig=orig, after=after: (orig(call),
+                                                                           after(call)))
+        faulty = _k7_split_run(ops, cts, ks, one_rank_group)
+        monkeypatch.undo()
+        assert max(_k7_readings(faulty, ref).values()) > K7_SHARE, hook
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("affine", [True, False])
+def test_global_batch_norm_on_cuda_is_its_plain_version(cuda_device, one_rank_group, dtype,
+                                                        affine):
+    """A data-parallel step's BatchNorm on CUDA tensors (ATen's CUDA
+    batch-norm kernels: per-rank moments gathered over the group, the
+    backward's two sums all-reduced) against its plain version in float64
+    on the same values, over a one-rank group, channels-last [4, 24, 33, 17]
+    with a mean that differs by channel: output and input gradient within
+    half an ulp of their type (2^-8 relative for bf16; none for float32)
+    plus 1e-4 of their rms; mean and biased variance within 1e-5 relative
+    (plus 1e-6); weight and bias gradients within 1e-4 of their rms; the
+    output and input gradient in x's type, the rest float32."""
+    from unet_zoo_tpu_torch.nn.blocks import global_batch_norm_reference
+    from unet_zoo_tpu_torch.parallel.global_batch import cuda_batch_norm
+
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    r = lambda *shape: torch.randn(*shape, generator=gen, device=cuda_device)
+    last = lambda t: t.to(dtype).contiguous(memory_format=torch.channels_last)
+    shift = torch.linspace(-5, 5, 24, device=cuda_device).view(1, -1, 1, 1)
+    x, dy = last(3 * r(4, 24, 33, 17) + shift), last(r(4, 24, 33, 17))
+    w, b = (1 + 0.1 * r(24), 0.1 * r(24)) if affine else (None, None)
+
+    def run(fn, cast=lambda t: t):
+        leaves = [cast(t).detach().requires_grad_() for t in (x, w, b) if t is not None]
+        y, mean, var = fn(*(leaves if affine else leaves + [None, None]), 1e-5, one_rank_group)
+        return (y, mean, var) + torch.autograd.grad(y, leaves, cast(dy))
+
+    got = run(cuda_batch_norm)
+    want = run(global_batch_norm_reference, lambda t: t.double())
+    torch.cuda.synchronize()
+    rounding = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    for name, g, ref in zip(("y", "mean", "var", "d_x", "d_w", "d_b"), got, want):
+        assert g.dtype == (dtype if name in ("y", "d_x") else torch.float32), name
+        g, ref = g.double(), ref.double()
+        rms = ref.pow(2).mean().sqrt()
+        if name in ("mean", "var"):
+            assert ((g - ref).abs() <= 1e-5 * ref.abs() + 1e-6).all(), name
+        else:
+            slack = rounding * ref.abs() if name in ("y", "d_x") else 0.0
+            assert ((g - ref).abs() <= slack + 1e-4 * rms).all(), name
+
+
 @pytest.mark.cuda
 def test_fused_axial_train_on_two_streams(cuda_device):
     """K7 forwards in flight at once on two streams of one device. Each call

@@ -352,15 +352,26 @@ def test_restore_checkpoint_sets_everything(tmp_path):
 
 
 def test_train_model_refuses_a_mesh(tmp_path):
+    """A mesh is laid out by DataParallel or fsdp (tests/test_torch_parallel_loop.py);
+    the strategies still to port refuse it, naming their ROADMAP items, and an
+    unknown one is refused as JAX refuses it. Without a mesh the strategy is
+    not read, as in JAX: fsdp trains on the model's device."""
     _, _, pm = _tiny_pair(1e-3)
-    cfg = Config(_loop_dict(tmp_path, 1), device="cpu")
     loader = DataLoader(SyntheticDataset(4, 16), 4, num_workers=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        train_model(pm, loader, loader, cfg, "unet", "b", "l", Logger(None), mesh=object())
     d = _loop_dict(tmp_path, 1)
+    for strategy, item in (("tensor_parallel", "10c"), ("pipeline", "10b")):
+        d["gpu"] = {"use_multi_gpu": True, "multi_gpu_strategy": strategy}
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+            train_model(pm, loader, loader, Config(d, device="cpu"), "unet", "b", "l",
+                        Logger(None), mesh=object())
+    d["gpu"] = {"use_multi_gpu": True, "multi_gpu_strategy": "hogwild"}
+    with pytest.raises(ValueError, match="Unknown multi_gpu_strategy 'hogwild'"):
+        train_model(pm, loader, loader, Config(d, device="cpu"), "unet", "b", "l",
+                    Logger(None), mesh=object())
     d["gpu"] = {"use_multi_gpu": True, "multi_gpu_strategy": "fsdp"}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        train_model(pm, loader, loader, Config(d, device="cpu"), "unet", "b", "l", Logger(None))
+    losses = train_model(pm, loader, loader, Config(d, device="cpu"), "unet",
+                         str(tmp_path / "b"), str(tmp_path / "l"), Logger(None))[0]
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 # --- the CLIs -------------------------------------------------------------------

@@ -10,6 +10,18 @@ parameters. The device defaults to CUDA and the run raises without it;
 ``--device cpu`` runs on the CPU. ``--resume`` continues each model from
 its last checkpoint (pin ``run_timestamp`` in the YAML). Needs PyYAML, and
 PIL for the on-disk dataset. The comparison plots are not ported yet.
+
+With ``gpu.use_multi_gpu: true`` it trains on every process of a launcher's
+run, one card each::
+
+    torchrun --nproc-per-node N -m unet_zoo_tpu_torch.cli.train --config <yaml>
+
+Each rank joins the process group (``parallel.initialize_distributed``:
+NCCL on CUDA, gloo with ``--device cpu``) and trains its rows of every
+global batch over the mesh ``parallel.create_mesh_for_batch`` builds, by
+``gpu.multi_gpu_strategy`` (DataParallel or fsdp); only rank 0 writes logs,
+events and checkpoints. Without a launcher the run is one process on one
+device and builds no mesh, whatever ``use_multi_gpu`` says.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from unet_zoo_tpu_torch.config import Config
 from unet_zoo_tpu_torch.data.datasets import BoneDataset
 from unet_zoo_tpu_torch.data.loader import create_loader
 from unet_zoo_tpu_torch.models import create_model
+from unet_zoo_tpu_torch.parallel import create_mesh_for_batch, initialize_distributed, is_primary
 from unet_zoo_tpu_torch.train.loop import train_model
 from unet_zoo_tpu_torch.train.metrics import check_dataset_integrity
 from unet_zoo_tpu_torch.utils.logger import Logger
@@ -41,13 +54,13 @@ def parse_arguments(argv=None):
     return parser.parse_args(argv)
 
 
-def setup_paths(working_dir, model_name, timestamp, base_run_dir):
-    """Per-model run directories and checkpoint paths."""
+def setup_paths(working_dir, model_name, timestamp, base_run_dir, create_dirs=True):
+    """Per-model run directories (made where ``create_dirs``) and checkpoint paths."""
     model_run_dir = os.path.join(base_run_dir, model_name)
     checkpoint_dir = os.path.join(model_run_dir, "checkpoints")
     log_dir = os.path.join(model_run_dir, "logs")
     results_dir = os.path.join(model_run_dir, "results")
-    for d in (checkpoint_dir, log_dir, results_dir):
+    for d in (checkpoint_dir, log_dir, results_dir) if create_dirs else ():
         os.makedirs(d, exist_ok=True)
     return {
         "run_dir": model_run_dir,
@@ -87,9 +100,18 @@ def main(argv=None):
     overall_config.setdefault(
         "run_timestamp", datetime.datetime.now().strftime("%Y%m%d-%H%M%S"))
 
-    config = Config(overall_config, device=args.device)
+    launched = initialize_distributed(device=args.device)
+    primary = is_primary()
+    config = Config(overall_config, create_dirs=primary, device=args.device)
     device = config.DEVICE
-    logger = Logger(os.path.join(config.OVERALL_LOG_DIR, "overall_training_log.txt"))
+    # a single process (no launcher) trains on its one device, as before
+    n_devices = config.device_count()
+    mesh = (create_mesh_for_batch(config.BATCH_SIZE, n_devices,
+                                  model_axis=config.MODEL_PARALLEL_SIZE,
+                                  device_type=device.type)
+            if config.USE_MULTI_GPU and launched else None)
+    logger = Logger(os.path.join(config.OVERALL_LOG_DIR, "overall_training_log.txt")
+                    if primary else None)
 
     logger.log_both("=" * 80)
     logger.log_both(f"UNET ZOO (PyTorch) TRAINING RUN — {config.RUN_TIMESTAMP}")
@@ -133,7 +155,7 @@ def main(argv=None):
     for model_name in overall_config["models"]["names"]:
         logger.log_both(f"\nTraining {model_name.upper()}...")
         paths = setup_paths(config.WORKING_DIR, model_name,
-                            config.RUN_TIMESTAMP, config.BASE_RUN_DIR)
+                            config.RUN_TIMESTAMP, config.BASE_RUN_DIR, create_dirs=primary)
         params = merged_model_params(
             overall_config, model_name, config.NUM_CLASSES, config.IMAGE_SIZE,
             config.COMPUTE_DTYPE)
@@ -141,13 +163,13 @@ def main(argv=None):
         n_params = sum(p.numel() for p in model.module.parameters())
         logger.log_both(f"{model_name.upper()} parameters: {n_params:,}")
 
-        model_logger = Logger(paths["training_log_path"])
+        model_logger = Logger(paths["training_log_path"] if primary else None)
         try:
             train_model(
                 model, train_loader, val_loader, config, model_name,
                 paths["model_checkpoint_paths"]["best"],
                 paths["model_checkpoint_paths"]["last"],
-                model_logger, resume=args.resume)
+                model_logger, mesh=mesh, resume=args.resume)
             trained += 1
         finally:
             model_logger.close()
@@ -157,6 +179,8 @@ def main(argv=None):
     train_loader.close()
     val_loader.close()
     logger.close()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -3,9 +3,9 @@
 The same schema (``general/data/training/gpu/tpu/models``) and the same flat
 UPPERCASE attributes. ``tpu.compute_dtype`` ('float32' | 'bfloat16') is the
 models' compute type (``create_model``'s ``dtype``). The device is the
-port's own argument (``device``, default ``"cuda"``): the loop runs on one
-device, and ``gpu.use_multi_gpu`` over more than one raises (ROADMAP Queue 1
-item 10) rather than train on one card.
+port's own argument (``device``, default ``"cuda"``). ``gpu.use_multi_gpu``
+trains on every process of a launcher's run, one card each
+(``torchrun --nproc-per-node N``); one process cannot drive several cards.
 """
 
 from __future__ import annotations
@@ -88,21 +88,27 @@ class Config:
             os.makedirs(self.TENSORBOARD_BASE_DIR, exist_ok=True)
 
     def device_count(self) -> int:
-        """The devices a run uses: 1, or with ``use_multi_gpu`` the CUDA
-        devices that ``num_devices`` or ``gpu_ids`` bound; more than one
-        raises (no parallel strategy is ported)."""
+        """The devices a run uses: 1, or with ``use_multi_gpu`` the world
+        size of the launcher's run (one process a card), bounded by
+        ``num_devices`` or ``gpu_ids`` (``create_mesh_for_batch`` refuses a
+        bound below the world). Without a launcher, more than one device left
+        raises: each card needs its own process."""
         if not self.USE_MULTI_GPU:
             return 1
-        n = torch.cuda.device_count() if self.DEVICE.type == "cuda" else 1
+        from unet_zoo_tpu_torch.parallel.multihost import process_count
+
+        world = process_count()
+        n = world if world > 1 else (
+            torch.cuda.device_count() if self.DEVICE.type == "cuda" else 1)
         if self.NUM_DEVICES:
             n = min(self.NUM_DEVICES, n)
         elif self.GPU_IDS:
             n = min(len(self.GPU_IDS), n)
-        if n > 1:
+        if n > 1 and world == 1:
             raise NotImplementedError(
-                f"use_multi_gpu over {n} devices: no parallel strategy is ported yet "
-                "(ROADMAP Queue 1 item 10); set gpu.use_multi_gpu: false or bound it to "
-                "one device with tpu.num_devices: 1")
+                f"use_multi_gpu over {n} devices from one process: the port runs one process "
+                f"a card (ROADMAP Queue 1 item 10a); launch with torchrun --nproc-per-node {n}, "
+                "or bound it to one device with tpu.num_devices: 1")
         return n
 
     def get_device_info(self) -> str:

@@ -10,7 +10,7 @@ JAX's.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,14 +23,23 @@ def step_generator(step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed((FLIP_STREAM << 32) + int(step))
 
 
-def random_flips(generator: torch.Generator, images: torch.Tensor, masks: torch.Tensor
+def random_flips(generator: torch.Generator, images: torch.Tensor, masks: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None, batch: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample flips of NCHW images and masks, the same for both: a
     horizontal flip (along W) where the first of two uniform draws per
     sample is below 0.5, then a vertical one (along H) where the second is,
-    as the host-side ``BoneDataset`` augmentation flips."""
+    as the host-side ``BoneDataset`` augmentation flips.
+
+    On a rank of a data-parallel step, ``images`` are the global batch's
+    ``rows`` (of ``batch``): the draws are made for the whole global batch
+    and the rank takes its rows' draws, so that every sample flips as it
+    would in one process, as JAX draws over the global batch."""
     b = images.shape[0]
-    draws = torch.rand(2, b, generator=generator, device=generator.device)
+    draws = torch.rand(2, b if batch is None else batch, generator=generator,
+                       device=generator.device)
+    if rows is not None:
+        draws = draws[:, rows.to(draws.device)]
     flip_h = (draws[0] < 0.5).view(b, 1, 1, 1)
     flip_v = (draws[1] < 0.5).view(b, 1, 1, 1)
     images = torch.where(flip_h, images.flip(-1), images)

@@ -20,7 +20,7 @@ to a CUDA device (:func:`prefetch_to_device`).
 from __future__ import annotations
 
 import collections
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +30,13 @@ Batch = Tuple[torch.Tensor, torch.Tensor, tuple]
 
 class EpochBatchSampler(torch.utils.data.Sampler):
     """Batches of dataset indices; shuffled per iteration from
-    ``np.random.default_rng(seed + epoch)``, the epoch counting iterations."""
+    ``np.random.default_rng(seed + epoch)``, the epoch counting iterations.
+
+    ``shard`` = (rank, world, microbatches) makes each batch a global batch
+    of which only rank ``rank``'s rows are yielded
+    (``parallel.multihost.batch_rows``), so that a rank loads no other
+    rank's items; a global batch that does not divide over the ranks raises
+    ValueError, as JAX's ``device_put`` of it onto the batch sharding does."""
 
     def __init__(self, length: int, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, seed: int = 0):
@@ -40,6 +46,7 @@ class EpochBatchSampler(torch.utils.data.Sampler):
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.shard: Optional[Tuple[int, int, int]] = None
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -52,7 +59,13 @@ class EpochBatchSampler(torch.utils.data.Sampler):
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         self.epoch += 1
         for b in range(len(self)):
-            yield [int(i) for i in idx[b * self.batch_size:(b + 1) * self.batch_size]]
+            batch = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.shard is not None:
+                from unet_zoo_tpu_torch.parallel.multihost import batch_rows
+
+                rank, world, microbatches = self.shard
+                batch = batch[batch_rows(len(batch), microbatches, rank, world).numpy()]
+            yield [int(i) for i in batch]
 
 
 def collate_nchw(items) -> Batch:
@@ -98,10 +111,30 @@ class DataLoader:
         self._loader._iterator = None
 
 
-def prefetch_to_device(iterator, size: int = 2, device=None):
+def prefetch_to_device(iterator, size: int = 2, device=None, mesh=None, microbatches: int = 1):
     """Copy batches (images and masks) to ``device`` ``size`` batches ahead
-    of the consumer, asynchronously where the host batch is pinned."""
+    of the consumer, asynchronously where the host batch is pinned.
+
+    With a ``mesh`` the iterator is a :class:`DataLoader` whose batches are
+    global batches: it loads only this rank's rows of each
+    (``EpochBatchSampler.shard``, for a step of ``microbatches``
+    microbatches), in the loader's order, and they go to the mesh's device.
+    A batch that does not divide over the data axis (a last validation batch
+    without ``drop_last``) raises ValueError, as JAX's ``device_put`` of it
+    onto the batch sharding does."""
     queue = collections.deque()
+    if isinstance(iterator, DataLoader):
+        iterator.sampler.shard = None
+    if mesh is not None:
+        from unet_zoo_tpu_torch.parallel.mesh import data_group_of, mesh_device
+
+        if not isinstance(iterator, DataLoader):
+            raise TypeError("prefetch_to_device(mesh=...) takes a DataLoader, whose sampler "
+                            f"loads this rank's rows, not a {type(iterator).__name__}")
+        group = data_group_of(mesh)
+        iterator.sampler.shard = (torch.distributed.get_rank(group),
+                                  torch.distributed.get_world_size(group), microbatches)
+        device = mesh_device(mesh)
 
     def _put(batch):
         imgs, masks, paths = batch

@@ -35,7 +35,7 @@ from unet_zoo_tpu_torch.ops import global_avg_pool, max_pool2d, upsample2x_neare
 # also keeps as its modules' defaults)
 DROPOUT_RATE = 0.1
 PIPELINE_REFUSAL = ("uctransnet's pipelined channel-transformer bridge (bridge_pipeline) is not "
-                    "ported yet (ROADMAP Queue 1 item 10); build it without bridge_pipeline")
+                    "ported yet (ROADMAP Queue 1 item 10b); build it without bridge_pipeline")
 
 
 def get_uctransnet_config() -> Dict[str, Any]:

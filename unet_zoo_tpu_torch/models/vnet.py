@@ -30,14 +30,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from unet_zoo_tpu_torch.nn import TransposedUp, conv
+from unet_zoo_tpu_torch.nn.blocks import global_batch_norm
 from unet_zoo_tpu_torch.nn.transformer import dropout
 from unet_zoo_tpu_torch.ops import pad_to_match
+from unet_zoo_tpu_torch.parallel.global_batch import data_group
 
 DROP_RATE = 0.5
 
 
 class ContBatchNorm(nn.Module):
-    """BatchNorm by the batch's statistics always (float32), affine."""
+    """BatchNorm by the batch's statistics always (float32), affine: in
+    eval too, so a data-parallel step or sharded predictor
+    (``parallel.global_batch.data_group``) takes the global batch's."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -45,6 +49,9 @@ class ContBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = data_group()
+        if group is not None:
+            return global_batch_norm(x, self.weight.float(), self.bias.float(), 1e-5, group)[0]
         return F.batch_norm(x.float(), None, None, self.weight.float(), self.bias.float(),
                             True, 0.0, 1e-5).to(x.dtype)
 

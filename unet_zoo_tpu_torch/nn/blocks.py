@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unet_zoo_tpu_torch.parallel.global_batch import cuda_batch_norm, data_group, global_moments
 from unet_zoo_tpu_torch.ops import (max_pool2d, pad_to_match, quant, resize_bilinear,
                                     upsample2x_nearest)
 from unet_zoo_tpu_torch.ops.kernels import int8_gemm, use_kernel
@@ -79,18 +80,60 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     variance is the latter times (n - 1) / n. An affine-less ``bn``
     (``affine=False``, JAX's ``use_scale=False, use_bias=False``) has no
     weight or bias.
+
+    Inside a data-parallel step (``parallel.global_batch.data_group``) the
+    batch moments are those of the global batch (:func:`global_batch_norm`),
+    gradients flowing through them; every rank's running statistics then
+    move as one process's would.
     """
     weight = None if bn.weight is None else bn.weight.float()
     bias = None if bn.bias is None else bn.bias.float()
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, weight, bias, False, 0.0,
                             bn.eps)
+    group = data_group()
+    if group is not None:
+        y, mean, var = global_batch_norm(x, weight, bias, bn.eps, group)
+        update_running_stats(bn, mean.detach(), var.detach())
+        return y
     mean = torch.zeros_like(bn.running_mean)
     var = torch.ones_like(bn.running_var)
     y = F.batch_norm(x, mean, var, weight, bias, True, 1.0, bn.eps)
     n = x.numel() // x.shape[1]
     update_running_stats(bn, mean, var * ((n - 1) / n))
     return y
+
+
+def global_batch_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
+                      bias: Optional[torch.Tensor], eps: float, group
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm of ``x`` by the moments of the global batch:
+    over every axis but 1 and over the rows of every rank of ``group``;
+    returns ``x``'s type, with the mean and biased variance (float32, or
+    float64 for a float64 ``x``). A CUDA ``x`` runs ATen's CUDA batch-norm
+    kernels as ``SyncBatchNorm`` composes them
+    (``parallel.global_batch.cuda_batch_norm``); a CPU ``x`` the plain
+    version, :func:`global_batch_norm_reference`."""
+    if x.is_cuda:
+        return cuda_batch_norm(x, weight, bias, eps, group)
+    return global_batch_norm_reference(x, weight, bias, eps, group)
+
+
+def global_batch_norm_reference(x: torch.Tensor, weight: Optional[torch.Tensor],
+                                bias: Optional[torch.Tensor], eps: float, group
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`global_batch_norm` in plain PyTorch: the moments from each
+    rank's float64 sums (``parallel.global_batch.global_moments``),
+    normalised in float32 (float64 for a float64 ``x``), differentiable
+    through the sums. ``x`` is cast once, so that a bf16 input's gradient
+    is rounded once, not once for each use."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean, var, _ = global_moments(xf, [d for d in range(x.dim()) if d != 1], group)
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    y = (xf - mean.view(shape)) * torch.rsqrt(var + eps).view(shape)
+    if weight is not None:
+        y = y * weight.view(shape) + bias.view(shape)
+    return y.to(x.dtype), mean, var
 
 
 def group_norm(x: torch.Tensor, gn: nn.GroupNorm) -> torch.Tensor:

@@ -23,6 +23,12 @@ mean_z(sum_e f_e P_e)`` (f_e the share of a group's tokens routed to e, P_e
 its mean router probability) is left in ``aux_loss``, where the train step
 collects it (:func:`pop_aux_losses`); in eval it is ``None``.
 
+In a data-parallel step (``parallel.global_batch.data_group``) the groups
+are those of the global batch, whose tokens follow rank by rank: a rank's
+tokens must be whole groups, so that each rank routes its groups as one
+process would and the loss, a mean over groups, is the mean of the ranks'
+terms; a group that would span two ranks raises.
+
 The capacity factor (1.25), group size (256) and loss weight (0.01) are
 JAX's defaults, the only values its registry uses: class constants here,
 which a test may override on an instance.
@@ -36,6 +42,8 @@ from typing import Iterable, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from unet_zoo_tpu_torch.parallel.global_batch import data_group, group_size
 
 
 class SwitchMoEMLP(nn.Module):
@@ -88,6 +96,15 @@ class SwitchMoEMLP(nn.Module):
         tokens = x.reshape(-1, d)
         t = tokens.shape[0]
         g = min(self.group_size, t)
+        group = data_group()
+        if group is not None:
+            # the global batch's grouping: this rank's tokens must be whole groups of it
+            g = min(self.group_size, t * group_size(group))
+            if t % g:
+                raise ValueError(
+                    f"a Switch-MoE input of shape {tuple(x.shape)} a rank ({t} tokens) over "
+                    f"{group_size(group)} ranks: its {g}-token routing groups would span two "
+                    "ranks' rows; use a per-rank batch whose tokens are whole groups")
         pad = (-t) % g
         if pad:
             tokens = torch.cat([tokens, tokens.new_zeros(pad, d)])

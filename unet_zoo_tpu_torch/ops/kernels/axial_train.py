@@ -56,6 +56,16 @@ mu, var, S, d_gamma and every bf16 output are deterministic; d_relative's
 block partials come from float atomics and may differ between runs in the
 last bits of float32. CPU tensors run :func:`fused_axial_train_reference`,
 the plain version.
+
+**In a data-parallel step** (``parallel.global_batch.data_group``) JAX's
+GSPMD step takes both of K7's cross-sample sums over the global batch (XLA
+forms them between the Pallas grids). A call there is split: the stats
+grid writes its float64 sums, which are all-reduced over the group, and a
+finishing launch (``stats_finish``) forms mu, var and a from them; fin
+writes this rank's S (and d_gamma = that S, the rank's share of the
+gradient the step averages), which is all-reduced before a second
+finishing launch (``s_finish``) forms e = -a S / M over the global M. The
+plain version sums the same moments over the group, differentiably.
 """
 
 from __future__ import annotations
@@ -69,12 +79,15 @@ import torch
 
 from unet_zoo_tpu_torch.ops.kernels import build, refuse_export
 from unet_zoo_tpu_torch.ops.kernels.axial_attention import relative_embeddings
+from unet_zoo_tpu_torch.parallel.global_batch import data_group, global_moments
 
 # Times the wrapper launched each grid (read by chip_smoke.py).
 LAUNCHES = {"axial_train_stats": 0, "axial_train_fwd": 0, "axial_train_bwd": 0,
             "axial_train_fin": 0, "axial_train_combine": 0}
-_STATS, _FWD, _BWD, _FIN, _COMBINE = range(5)
-_GRIDS = list(LAUNCHES)
+# and the two finishing grids of a split call (a data-parallel step)
+FINISH_LAUNCHES = {"axial_train_stats_finish": 0, "axial_train_s_finish": 0}
+_STATS, _FWD, _BWD, _FIN, _COMBINE, _STATS_FINISH, _S_FINISH = range(7)
+_GRIDS = list(LAUNCHES) + list(FINISH_LAUNCHES)
 
 GROUP_PLANES = (2, 4, 8, 16, 32)  # gp values the kernels are built for
 MAX_LENGTH = 128                  # longest axis
@@ -90,17 +103,19 @@ R_BWD = {2: 4, 4: 2, 8: 1, 16: 1, 32: 1}
 # Order of the C interface's pointer and integer arguments (enum Ptr, enum Dim).
 _PTRS = ("q", "k", "qg", "kg", "v", "dsv", "dsve", "relative", "gamma", "ticket", "mu", "var",
          "consts", "stat", "rows", "svf", "sv", "sve", "s_part", "e", "pi", "pj", "drel_part",
-         "dq", "dk", "dqg", "dkg", "dv", "drel", "dgamma")
+         "dq", "dk", "dqg", "dkg", "dv", "drel", "dgamma", "stat_sums", "s_sums")
 _DIMS = ("n", "length", "ks", "groups", "gp", "rows", "blocks", "warps", "stats_blocks",
-         "bwd_blocks")
+         "bwd_blocks", "split", "global_rows")
 _PTR_INDEX = {name: i for i, name in enumerate(_PTRS)}
 
 
 def fused_axial_train_reference(q, k, qg, kg, v, relative, gamma, kernel_size: int,
-                                eps: float = 1e-5):
+                                eps: float = 1e-5, group=None):
     """Plain PyTorch version of K7, same arguments: the train-mode module
     math (BatchNorm with its shift left out) in float32, differentiated by
-    autograd. sv and sve come back in q's type, mu and var detached."""
+    autograd. sv and sve come back in q's type, mu and var detached. With a
+    ``group`` the moments are the global batch's: each rank's float64 sums
+    summed over it (``parallel.global_batch.global_moments``)."""
     n, length, g, c = q.shape
     gp, dt = v.shape[-1], q.dtype
     q, k, qg, kg, v = (t.float() for t in (q, k, qg, kg, v))
@@ -110,7 +125,10 @@ def fused_axial_train_reference(q, k, qg, kg, v, relative, gamma, kernel_size: i
     qr = torch.einsum("nigc,cij->nijg", qg, q_emb)
     kr = torch.einsum("njgc,cji->nijg", kg, k_emb)
     stacked = torch.cat([qk, qr, kr], dim=-1)                   # [N, L, L, 3g]
-    var, mu = torch.var_mean(stacked, dim=(0, 1, 2), unbiased=False)
+    if group is None:
+        var, mu = torch.var_mean(stacked, dim=(0, 1, 2), unbiased=False)
+    else:
+        mu, var, _ = global_moments(stacked, (0, 1, 2), group)
     y = (stacked - mu) * torch.rsqrt(var + eps) * gamma.reshape(-1).float()
     sim = torch.softmax(y.reshape(n, length, length, 3, g).sum(3), dim=2)
     sv = torch.einsum("nijg,njgp->nigp", sim, v)
@@ -238,11 +256,14 @@ def _layout(parts):
 
 
 @functools.lru_cache(maxsize=64)
-def plan(n: int, length: int, groups: int, gp: int, kernel_size: int) -> Plan:
+def plan(n: int, length: int, groups: int, gp: int, kernel_size: int, split: bool = False,
+         world: int = 1) -> Plan:
     """Launch geometry and workspaces for N rows of length L, g groups of gp
     channels: stats/fwd blocks of up to 256 / T rows that fit shared memory,
     stats blocks near two waves of the card, bwd blocks of up to four warps
-    (two blocks an SM where they fit) near four waves."""
+    (two blocks an SM where they fit) near four waves. A ``split`` call (a
+    data-parallel step over ``world`` ranks of N rows each) adds the float64
+    sums that are all-reduced between grids to each workspace."""
     c = gp // 2
     _, t_f = fwd_tiles(length, gp)
     units = max(1, min(THREADS // t_f, n))
@@ -268,19 +289,23 @@ def plan(n: int, length: int, groups: int, gp: int, kernel_size: int) -> Plan:
     fwd_ws, fwd_bytes = _layout([("consts", 9 * groups, f32),
                                  ("stat", groups * stats_blocks * 6, f64),
                                  ("rows", n * groups * length * 2, f32),
-                                 ("svf", n * groups * length * 2 * gp, f32)])
+                                 ("svf", n * groups * length * 2 * gp, f32)]
+                                + [("stat_sums", 6 * groups, f64)] * split)
     bwd_ws, bwd_bytes = _layout([("e", 3 * groups, f32),
                                  ("s_part", groups * bwd_blocks * 3, f64),
                                  ("pi", n * groups * length * 4 * c, f32),
                                  ("pj", n * groups * length * 4 * c, f32),
                                  ("drel_part",
-                                  groups * bwd_blocks * (4 * c + gp) * (2 * length - 1), f32)])
+                                  groups * bwd_blocks * (4 * c + gp) * (2 * length - 1), f32)]
+                                + [("s_sums", 3 * groups, f64)] * split)
     dims = {}
     for kind, (per, blocks) in {_STATS: (units, stats_blocks), _FWD: (units, fwd_blocks),
                                 _BWD: (rows, bwd_blocks), _FIN: (0, 1),
-                                _COMBINE: (elem_blocks, combine_blocks)}.items():
+                                _COMBINE: (elem_blocks, combine_blocks),
+                                _STATS_FINISH: (0, 1), _S_FINISH: (0, 1)}.items():
         dims[kind] = (ctypes.c_int * len(_DIMS))(n, length, kernel_size, groups, gp, per, blocks,
-                                                 warps, stats_blocks, bwd_blocks)
+                                                 warps, stats_blocks, bwd_blocks, int(split),
+                                                 n * world)
     return Plan(units, fwd_blocks, stats_blocks, warps, rows, bwd_blocks, elem_blocks,
                 combine_blocks, (smem_s, smem_f, bwd_smem(gp, length, warps)), fwd_ws, bwd_ws,
                 fwd_bytes, bwd_bytes, dims)
@@ -389,7 +414,7 @@ def _launch(kind: int, call: _Call) -> None:
     err = _lib().axial_train(kind, *call.args, call.plan.dims[kind], call.eps, call.stream)
     if err:
         raise RuntimeError(f"{_GRIDS[kind]} launch failed: cudaError {err}")
-    LAUNCHES[_GRIDS[kind]] += 1
+    (LAUNCHES if kind < _STATS_FINISH else FINISH_LAUNCHES)[_GRIDS[kind]] += 1
 
 
 # One function per grid: chip_smoke.py and the card tests plant faults by
@@ -414,13 +439,23 @@ def _combine(call: _Call) -> None:
     _launch(_COMBINE, call)
 
 
+def _stats_finish(call: _Call) -> None:
+    _launch(_STATS_FINISH, call)
+
+
+def _s_finish(call: _Call) -> None:
+    _launch(_S_FINISH, call)
+
+
 class _FusedAxialTrain(torch.autograd.Function):
     """K7's grids; see the module docstring."""
 
     @staticmethod
-    def forward(ctx, q, k, qg, kg, v, relative, gamma, kernel_size, eps):
+    def forward(ctx, q, k, qg, kg, v, relative, gamma, kernel_size, eps, group):
         n, length, g, gp = _check_kernel_args(q, k, qg, kg, v, relative, gamma, kernel_size)
-        plan_ = plan(n, length, g, gp, kernel_size)
+        split = group is not None
+        world = torch.distributed.get_world_size(group) if split else 1
+        plan_ = plan(n, length, g, gp, kernel_size, split, world)
         dev = q.device
         with torch.cuda.device(dev):
             sv = torch.empty(n, length, g, gp, dtype=q.dtype, device=dev)
@@ -433,9 +468,12 @@ class _FusedAxialTrain(torch.autograd.Function):
                               ticket=_ticket(dev, stream), mu=mu, var=var, sv=sv, sve=sve),
                          plan_, eps, stream, {"fwd": ws})
             _stats(call)
+            if split:
+                torch.distributed.all_reduce(call.view("stat_sums"), group=group)
+                _stats_finish(call)
             _forward(call)
         ctx.save_for_backward(q, k, qg, kg, v, relative, gamma, ws)
-        ctx.meta = (n, length, g, gp, eps, plan_)
+        ctx.meta = (n, length, g, gp, eps, plan_, group, split)
         ctx.mark_non_differentiable(mu, var)
         ctx.set_materialize_grads(False)
         return sv, sve, mu, var
@@ -443,7 +481,7 @@ class _FusedAxialTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_sv, d_sve, _d_mu, _d_var):
         q, k, qg, kg, v, relative, gamma, ws = ctx.saved_tensors
-        n, length, g, gp, eps, plan_ = ctx.meta
+        n, length, g, gp, eps, plan_, group, split = ctx.meta
         c, dev = gp // 2, q.device
         if d_sv is not None and (d_sv.dtype != q.dtype or d_sv.stride(-1) != 1):
             d_sv = d_sv.to(q.dtype).contiguous()     # autograd hands in q's type, channels last
@@ -462,9 +500,12 @@ class _FusedAxialTrain(torch.autograd.Function):
                          {"fwd": ws, "bwd": ws_b})
             _backward_pass(call)
             _finish(call)
+            if split:
+                torch.distributed.all_reduce(call.view("s_sums"), group=group)
+                _s_finish(call)
             _combine(call)
         d_q, d_k, d_qg, d_kg = grads
-        return d_q, d_k, d_qg, d_kg, d_v, d_rel, d_gamma, None, None
+        return d_q, d_k, d_qg, d_kg, d_v, d_rel, d_gamma, None, None, None
 
 
 def fused_axial_train(q, k, qg, kg, v, relative, gamma, kernel_size: int, eps: float = 1e-5):
@@ -472,11 +513,15 @@ def fused_axial_train(q, k, qg, kg, v, relative, gamma, kernel_size: int, eps: f
 
     Arguments as the module docstring's contract. CUDA tensors run the
     kernels through a ``torch.autograd.Function`` (anything they do not take
-    raises); CPU tensors run :func:`fused_axial_train_reference`.
+    raises); CPU tensors run :func:`fused_axial_train_reference`. Inside a
+    data-parallel step (a data group, even of one rank) the moments and S
+    are the global batch's: a split call.
     """
     refuse_export("K7 (fused_axial_train)", q)
+    group = data_group()
     if q.device.type == "cpu":
-        return fused_axial_train_reference(q, k, qg, kg, v, relative, gamma, kernel_size, eps)
+        return fused_axial_train_reference(q, k, qg, kg, v, relative, gamma, kernel_size, eps,
+                                           group)
     if q.device.type != "cuda":
         raise ValueError(f"fused_axial_train runs on cuda or cpu, not {q.device}")
-    return _FusedAxialTrain.apply(q, k, qg, kg, v, relative, gamma, kernel_size, eps)
+    return _FusedAxialTrain.apply(q, k, qg, kg, v, relative, gamma, kernel_size, eps, group)

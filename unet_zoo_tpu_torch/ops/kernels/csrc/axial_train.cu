@@ -39,6 +39,17 @@
 //   combine  output = a·(dpre part) + e·(x̂ part), rounded to bf16 once; the
 //            d_relative partials summed over blocks in a fixed order.
 //
+// Split (a data-parallel step, whose batch statistics are the global batch's:
+// each rank holds its rows, and the caller sums over the ranks between grids):
+// the stats grid's last block writes its float64 Σ and Σ² per (term, group)
+// and stops; after the caller's all-reduce, stats_finish (one block) forms mu,
+// var and the constants from the global sums. fin writes S of this rank's
+// pairs and d_gamma = that S (the rank's share of the gradient, which the
+// step averages over the ranks) and stops; after the all-reduce, s_finish
+// (one block) forms e = -a S / M from the global S. M counts the global rows
+// (D_GROWS). A split call over one rank computes what an unsplit one does,
+// bit for bit: the same float64 sums reach the same arithmetic.
+//
 // Replaces unet_zoo_tpu/ops/pallas/axial_train.py::fused_axial_train
 // (pl.pallas_call: stats :229, forward :263, B1 :302, B2 :324). Python wrapper
 // and autograd Function: unet_zoo_tpu_torch/ops/kernels/axial_train.py.
@@ -81,17 +92,20 @@ constexpr int MAX_L = 128;
 constexpr int THREADS = 256;  // stats, fwd, fin and combine blocks
 constexpr int MAX_WARPS = 4;  // bwd blocks
 
-enum Kind { STATS, FWD, BWD, FIN, COMBINE };
+enum Kind { STATS, FWD, BWD, FIN, COMBINE, STATS_FINISH, S_FINISH };
 // Pointers of the C interface, in this order (axial_train.py::_PTRS).
 enum Ptr {
   P_Q, P_K, P_QG, P_KG, P_V, P_DSV, P_DSVE, P_REL, P_GAMMA, P_TICKET, P_MU, P_VAR,
   P_CONSTS, P_STAT, P_ROWS, P_SVF, P_SV, P_SVE, P_SPART, P_E, P_PI, P_PJ, P_DRELP,
-  P_DQ, P_DK, P_DQG, P_DKG, P_DV, P_DREL, P_DGAMMA, NPTR
+  P_DQ, P_DK, P_DQG, P_DKG, P_DV, P_DREL, P_DGAMMA, P_STAT_SUMS, P_S_SUMS, NPTR
 };
 // Integer arguments: rows N, length L, kernel size, groups G, gp, rows (or
 // units) per block, grid.x of this launch, warps per bwd block, stats and bwd
-// blocks per group.
-enum Dim { D_N, D_L, D_KS, D_G, D_GP, D_ROWS, D_BLOCKS, D_WARPS, D_SBLOCKS, D_BBLOCKS, NDIM };
+// blocks per group, split (0/1) and the rows of the global batch (N unsplit).
+enum Dim {
+  D_N, D_L, D_KS, D_G, D_GP, D_ROWS, D_BLOCKS, D_WARPS, D_SBLOCKS, D_BBLOCKS, D_SPLIT, D_GROWS,
+  NDIM
+};
 
 struct Operand {  // bf16 [N, L, G, width], channels contiguous; null reads as zero
   const bf16* p;
@@ -255,6 +269,22 @@ __device__ __forceinline__ void group_consts(const Args& a, int g, float (&l)[3]
   }
 }
 
+// mu, the biased var and the constants of (term, group) e from the Σ and Σ²
+// of its M = global rows x L² pairs.
+__device__ __forceinline__ void stats_consts(const Args& a, int e, double s1, double s2) {
+  const int G = a.d[D_G], L = a.d[D_L];
+  const double m = static_cast<double>(a.d[D_GROWS]) * L * L;
+  const double mu = s1 / m;
+  const float muf = static_cast<float>(mu), var = static_cast<float>(s2 / m - mu * mu);
+  const float inv = rsqrtf(var + a.eps);
+  float* cst = ptr<float>(a, P_CONSTS);
+  ptr<float>(a, P_MU)[e] = muf;
+  ptr<float>(a, P_VAR)[e] = var;
+  cst[e] = ptr<const float>(a, P_GAMMA)[e] * inv;
+  cst[3 * G + e] = inv;
+  cst[6 * G + e] = -muf * inv;
+}
+
 template <int GP>
 __global__ void __launch_bounds__(THREADS) axial_train_stats_kernel(const Args a) {
   constexpr int C = GP / 2, R = r_fwd(GP);
@@ -328,9 +358,7 @@ __global__ void __launch_bounds__(THREADS) axial_train_stats_kernel(const Args a
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const double m = static_cast<double>(N) * L * L;
-  const float* gamma = ptr<const float>(a, P_GAMMA);
-  float* cst = ptr<float>(a, P_CONSTS);
+  double* sums = ptr<double>(a, P_STAT_SUMS);  // split: [2][3G], Σ then Σ²
   for (int e = threadIdx.x; e < 3 * G; e += blockDim.x) {
     const int tt = e / G, gg = e - tt * G;
     double s1 = 0.0, s2 = 0.0;
@@ -338,16 +366,21 @@ __global__ void __launch_bounds__(THREADS) axial_train_stats_kernel(const Args a
       s1 += __ldcg(part + (static_cast<long long>(gg) * nb + b) * 6 + tt);
       s2 += __ldcg(part + (static_cast<long long>(gg) * nb + b) * 6 + 3 + tt);
     }
-    const double mu = s1 / m;
-    const float muf = static_cast<float>(mu), var = static_cast<float>(s2 / m - mu * mu);
-    const float inv = rsqrtf(var + a.eps);
-    ptr<float>(a, P_MU)[e] = muf;
-    ptr<float>(a, P_VAR)[e] = var;
-    cst[e] = gamma[e] * inv;
-    cst[3 * G + e] = inv;
-    cst[6 * G + e] = -muf * inv;
+    if (a.d[D_SPLIT]) {
+      sums[e] = s1;
+      sums[3 * G + e] = s2;
+    } else {
+      stats_consts(a, e, s1, s2);
+    }
   }
   if (threadIdx.x == 0) *ptr<unsigned int>(a, P_TICKET) = 0u;  // ready for the next call
+}
+
+// Split calls: mu, var and the constants from the sums over every rank.
+__global__ void __launch_bounds__(THREADS) axial_train_stats_finish_kernel(const Args a) {
+  const int G = a.d[D_G];
+  const double* sums = ptr<const double>(a, P_STAT_SUMS);
+  for (int e = threadIdx.x; e < 3 * G; e += blockDim.x) stats_consts(a, e, sums[e], sums[3 * G + e]);
 }
 
 template <int GP>
@@ -783,20 +816,37 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) axial_train_bwd_kernel(const A
   }
 }
 
-// One block: S per (term, group) over the bwd blocks in order; d_gamma = S,
-// e = -a S / M (as the JAX kernel's backward forms it).
-__global__ void __launch_bounds__(THREADS) axial_train_fin_kernel(const Args a) {
-  const int G = a.d[D_G], nb = a.d[D_BBLOCKS], L = a.d[D_L];
-  const double m = static_cast<double>(a.d[D_N]) * L * L;
-  const double* part = ptr<const double>(a, P_SPART);  // [G][nb][3]
+// e = -a S / M for (term, group) e, M = global rows x L² (as the JAX
+// kernel's backward forms it).
+__device__ __forceinline__ void form_e(const Args& a, int e, double s) {
+  const int L = a.d[D_L];
+  const double m = static_cast<double>(a.d[D_GROWS]) * L * L;
   const float* cst = ptr<const float>(a, P_CONSTS);
+  ptr<float>(a, P_E)[e] = static_cast<float>(-(static_cast<double>(cst[e]) * s) / m);
+}
+
+// One block: S per (term, group) over the bwd blocks in order; d_gamma = S,
+// then e (split calls: S to the sums, e by s_finish from every rank's S).
+__global__ void __launch_bounds__(THREADS) axial_train_fin_kernel(const Args a) {
+  const int G = a.d[D_G], nb = a.d[D_BBLOCKS];
+  const double* part = ptr<const double>(a, P_SPART);  // [G][nb][3]
   for (int e = threadIdx.x; e < 3 * G; e += blockDim.x) {
     const int t = e / G, g = e - t * G;
     double s = 0.0;
     for (int b = 0; b < nb; ++b) s += part[(static_cast<long long>(g) * nb + b) * 3 + t];
     ptr<float>(a, P_DGAMMA)[e] = static_cast<float>(s);
-    ptr<float>(a, P_E)[e] = static_cast<float>(-(static_cast<double>(cst[e]) * s) / m);
+    if (a.d[D_SPLIT])
+      ptr<double>(a, P_S_SUMS)[e] = s;
+    else
+      form_e(a, e, s);
   }
+}
+
+// Split calls: e from S summed over every rank.
+__global__ void __launch_bounds__(THREADS) axial_train_s_finish_kernel(const Args a) {
+  const int G = a.d[D_G];
+  const double* sums = ptr<const double>(a, P_S_SUMS);
+  for (int e = threadIdx.x; e < 3 * G; e += blockDim.x) form_e(a, e, sums[e]);
 }
 
 // Blocks [0, elem_blocks): d_q, d_k, d_qg, d_kg = a (dpre part) + e (x̂ part),
@@ -910,7 +960,7 @@ extern "C" long long axial_train_smem(int kind, int gp, int L, int per) {
 }
 
 // C interface, loaded with ctypes. One grid `kind` (0 stats, 1 fwd, 2 bwd,
-// 3 fin, 4 combine) of one axis pass. ptrs: the NPTR pointers of `Ptr`
+// 3 fin, 4 combine; split calls 5 stats_finish, 6 s_finish) of one axis pass. ptrs: the NPTR pointers of `Ptr`
 // (unused ones may be null); strides: (row, position, group) element strides
 // of q, k, qg, kg, v, dsv, dsve; dims: the NDIM integers of `Dim`. Returns the
 // CUDA error code (0 when the launch was accepted).
@@ -924,11 +974,15 @@ extern "C" int axial_train(int kind, void* const* ptrs, const long long* strides
                       strides[3 * w + 2]};
   a.eps = eps;
   const int L = a.d[D_L], gp = a.d[D_GP];
-  if (kind < STATS || kind > COMBINE || L < 1 || L > MAX_L || L > a.d[D_KS] || a.d[D_N] < 1 ||
+  if (kind < STATS || kind > S_FINISH || L < 1 || L > MAX_L || L > a.d[D_KS] || a.d[D_N] < 1 ||
       a.d[D_G] < 1 || a.d[D_BLOCKS] < 1 || a.d[D_WARPS] < 1 || a.d[D_WARPS] > MAX_WARPS)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (kind == FIN) return launch(axial_train_fin_kernel, dim3(1), THREADS, 0, a, stream);
+  if (kind == STATS_FINISH)
+    return launch(axial_train_stats_finish_kernel, dim3(1), THREADS, 0, a, stream);
+  if (kind == S_FINISH)
+    return launch(axial_train_s_finish_kernel, dim3(1), THREADS, 0, a, stream);
   if (kind == COMBINE)
     return launch(axial_train_combine_kernel, dim3(a.d[D_BLOCKS]), THREADS, 0, a, stream);
   switch (gp) {

@@ -3,7 +3,7 @@ stopping, best and last checkpoints, resume, logging.
 
 Counterpart of ``unet_zoo_tpu/train/loop.py``, with the same log lines and
 cadences (the file log every 50 batches, TensorBoard every 100, one block
-an epoch) on one device, the model's:
+an epoch):
 
 * each step updates the module and optimizer in place (``train/steps.py``);
   loss and Dice stay device scalars, and the host reads them only where
@@ -17,8 +17,16 @@ an epoch) on one device, the model's:
 * TensorBoard scalars go through ``utils/tb_writer.py`` (no ``tensorboard``
   install needed) and there is no progress bar.
 
-A ``mesh``, ``use_multi_gpu`` over more than one device or a strategy other
-than DataParallel raises: the parallel strategies are ROADMAP Queue 1 item 10.
+Given a ``mesh`` (``parallel.create_mesh_for_batch``; one process a card),
+``gpu.multi_gpu_strategy`` places the state: ``DataParallel`` replicates it
+from rank 0, ``fsdp`` shards the parameters and AdamW moments
+(``parallel/fsdp.py``). Each rank trains on its rows of every global batch
+with the data-parallel steps, whose losses, Dice and batch statistics are
+the global batch's, so every rank's scheduler and early stopping decide
+alike. Only the primary process writes logs, TensorBoard events and
+checkpoints. ``tensor_parallel`` and ``expert`` (ROADMAP Queue 1 item 10c)
+and ``pipeline`` and ``spatial`` (item 10b) raise. Without a mesh the
+strategy is not read, as in JAX: the model trains on its own device.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from unet_zoo_tpu_torch.config import Config
 from unet_zoo_tpu_torch.data.loader import prefetch_to_device
 from unet_zoo_tpu_torch.models import ZooModel
+from unet_zoo_tpu_torch.parallel.multihost import is_primary
 from unet_zoo_tpu_torch.train.early_stopping import EarlyStopping
 from unet_zoo_tpu_torch.train.losses import bce_with_logits, get_criterion
 from unet_zoo_tpu_torch.train.lr_scheduler import DiceScheduler
@@ -53,6 +62,46 @@ from unet_zoo_tpu_torch.utils.logger import Logger
 from unet_zoo_tpu_torch.utils.tb_writer import EventFileWriter
 
 _DATA_PARALLEL = ("dataparallel", "data_parallel", "dp", "ddp")
+_FSDP = ("fsdp", "zero3")
+# the strategies still to port, by their JAX names, and the ROADMAP item of each
+_NOT_PORTED = {("tensor_parallel", "tp", "megatron"): "10c",
+               ("expert", "expert_parallel", "ep", "moe"): "10c",
+               ("pipeline", "pp", "gpipe"): "10b",
+               ("spatial", "spatial_parallel", "sp"): "10b"}
+
+
+class _Silent:
+    """The logger and event writer of a process other than the primary."""
+
+    def log_both(self, message: str) -> None:
+        pass
+
+    log_file_only = log_both
+
+    def add_scalar(self, *args) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _place_state(state: TrainState, mesh, strategy: str) -> TrainState:
+    """``state`` laid over ``mesh`` by ``gpu.multi_gpu_strategy`` (JAX's
+    names): replicated for DataParallel, sharded for fsdp; the strategies
+    not ported yet raise, naming their ROADMAP item."""
+    from unet_zoo_tpu_torch.parallel import replicate_state, shard_state_fsdp
+
+    strategy = strategy.lower()
+    for names, item in _NOT_PORTED.items():
+        if strategy in names:
+            raise NotImplementedError(f"multi_gpu_strategy {strategy!r} is not ported yet "
+                                      f"(ROADMAP Queue 1 item {item})")
+    if strategy in _FSDP:
+        return shard_state_fsdp(mesh, state)
+    if strategy in _DATA_PARALLEL:
+        return replicate_state(mesh, state)
+    raise ValueError(f"Unknown multi_gpu_strategy {strategy!r}: expected DataParallel, fsdp, "
+                     "tensor_parallel, expert, pipeline, or spatial")
 
 
 def _device_of(model: ZooModel) -> torch.device:
@@ -67,19 +116,22 @@ def _epoch_mean(acc: List[torch.Tensor]) -> float:
 
 def train_one_epoch(train_step, state: TrainState, dataloader, epoch: int,
                     model_name: str, writer, logger: Logger,
-                    device=None) -> Tuple[TrainState, float, float, float]:
+                    device=None, mesh=None, microbatches: int = 1
+                    ) -> Tuple[TrainState, float, float, float]:
     """One pass over ``dataloader``; returns the state, the epoch's mean
-    loss and Dice, and images a second (loader and step)."""
+    loss and Dice, and images a second (loader and step; the global batch's
+    images under a ``mesh``)."""
     losses, dices = [], []
     steps_per_epoch = len(dataloader)
     n_images = 0
+    world = 1 if mesh is None else mesh.size(0)
     t0 = time.perf_counter()
-    for idx, (imgs, masks, _) in enumerate(prefetch_to_device(dataloader, size=2,
-                                                               device=device)):
+    for idx, (imgs, masks, _) in enumerate(prefetch_to_device(
+            dataloader, size=2, device=device, mesh=mesh, microbatches=microbatches)):
         metrics = train_step(state, imgs, masks)
         losses.append(metrics["loss"])
         dices.append(metrics["dice"])
-        n_images += int(imgs.shape[0])
+        n_images += int(imgs.shape[0]) * world
 
         if idx % 50 == 0:  # file-log cadence; the loop's only per-batch host sync
             logger.log_file_only(
@@ -99,11 +151,12 @@ def train_one_epoch(train_step, state: TrainState, dataloader, epoch: int,
 
 
 def validate_one_epoch(eval_step, variables, dataloader, model_name: str,
-                       logger: Logger, device=None) -> Tuple[float, float]:
+                       logger: Logger, device=None, mesh=None) -> Tuple[float, float]:
     """Mean loss and Dice of ``eval_step`` over ``dataloader``; ``variables``
-    None evaluates the module's own weights."""
+    None evaluates the module's own weights. Under a ``mesh`` each rank
+    evaluates its rows of each batch and every rank gets the global means."""
     losses, dices = [], []
-    for imgs, masks, _ in prefetch_to_device(dataloader, size=2, device=device):
+    for imgs, masks, _ in prefetch_to_device(dataloader, size=2, device=device, mesh=mesh):
         metrics = eval_step(variables, imgs, masks)
         losses.append(metrics["loss"])
         dices.append(metrics["dice"])
@@ -148,28 +201,26 @@ def train_model(
     ``state`` None trains the module's current weights with a new optimizer.
     ``resume=True`` restores the weights, optimizer state, step, scheduler
     and early-stopping state from ``last_checkpoint_path`` where it exists
-    and continues after the saved epoch.
+    and continues after the saved epoch. ``mesh``: see the module docstring
+    (``state`` is then an unsharded one, placed here after the restore).
     """
-    if mesh is not None:
-        raise NotImplementedError("training over a device mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
     strategy = str(getattr(config, "MULTI_GPU_STRATEGY", "DataParallel")).lower()
-    if config.USE_MULTI_GPU and strategy not in _DATA_PARALLEL:
-        raise NotImplementedError(f"multi_gpu_strategy {strategy!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
+    primary = is_primary()
+    if not primary:
+        logger = _Silent()
     device = _device_of(model)
     tb_dir = os.path.join(config.TENSORBOARD_BASE_DIR,
                           model_name.replace(" ", "_").lower())
-    writer = EventFileWriter(tb_dir)
+    writer = EventFileWriter(tb_dir) if primary else _Silent()
     logger.log_both(f"TensorBoard logs for {model_name} will be saved to: {tb_dir}")
 
     early_stopping = EarlyStopping(
         patience=config.EARLY_STOPPING_PATIENCE, min_delta=0.0,
-        restore_best_weights=True, verbose=True, mode="max")
+        restore_best_weights=True, verbose=primary, mode="max")
     dice_scheduler = DiceScheduler(
         lr=config.LEARNING_RATE, patience=config.LR_SCHEDULER_PATIENCE,
         factor=config.LR_SCHEDULER_FACTOR, min_lr=config.MIN_LR,
-        min_delta=0.0, verbose=True, mode="max")
+        min_delta=0.0, verbose=primary, mode="max")
 
     start_epoch = 0
     if state is None:
@@ -184,6 +235,11 @@ def train_model(
             f"Resumed {model_name} from {last_checkpoint_path} at epoch "
             f"{start_epoch} (step {int(state.step)}, lr {dice_scheduler.lr:.2e})")
 
+    if mesh is not None:
+        state = _place_state(state, mesh, strategy)
+        logger.log_both(f"  Parallelism: {strategy} over mesh "
+                        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
     # flips run in the train step only when both switches are on (the CLI
     # then turns the host-side flips off)
     criterion = get_criterion(getattr(config, "LOSS", "bce"),
@@ -191,12 +247,13 @@ def train_model(
     if getattr(config, "LOSS", "bce") != "bce":
         logger.log_both(
             f"  Loss: {config.LOSS} {getattr(config, 'LOSS_KWARGS', {}) or ''}")
+    accum = getattr(config, "GRAD_ACCUM_STEPS", 1)
     train_step = make_train_step(
         model, criterion=criterion,
         augment=(getattr(config, "AUGMENT", False)
                  and getattr(config, "AUGMENT_ON_DEVICE", False)),
-        accum_steps=getattr(config, "GRAD_ACCUM_STEPS", 1))
-    eval_step = make_eval_step(model, criterion=criterion)
+        accum_steps=accum, mesh=mesh)
+    eval_step = make_eval_step(model, criterion=criterion, mesh=mesh)
 
     train_losses: List[float] = []
     train_dcs: List[float] = []
@@ -217,12 +274,12 @@ def train_model(
     for epoch in range(start_epoch, config.EPOCHS):
         state, train_loss, train_dc, train_ips = train_one_epoch(
             train_step, state, train_dataloader, epoch, model_name, writer,
-            logger, device)
+            logger, device, mesh, accum)
         train_losses.append(train_loss)
         train_dcs.append(train_dc)
 
         val_loss, val_dc = validate_one_epoch(
-            eval_step, None, val_dataloader, model_name, logger, device)
+            eval_step, None, val_dataloader, model_name, logger, device, mesh)
         val_losses.append(val_loss)
         val_dcs.append(val_dc)
 

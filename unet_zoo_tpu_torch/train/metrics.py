@@ -14,14 +14,27 @@ def _binary(prediction_logits: torch.Tensor, threshold: float) -> torch.Tensor:
     return (torch.sigmoid(prediction_logits.float()) > threshold).float()
 
 
+def dice_parts(prediction_logits: torch.Tensor, target: torch.Tensor,
+               threshold: float = 0.5) -> torch.Tensor:
+    """[intersection, union] of the thresholded prediction and the target,
+    summed over the batch: the sums a data-parallel step adds over the ranks
+    before it forms one Dice ratio of the global batch."""
+    pred, tgt = _binary(prediction_logits, threshold), target.float()
+    return torch.stack([(pred * tgt).sum(), pred.sum() + tgt.sum()])
+
+
+def dice_from_parts(parts: torch.Tensor, epsilon: float = 1e-7) -> torch.Tensor:
+    """Dice from :func:`dice_parts` (``[..., 2]``); 1.0 where the union is 0."""
+    inter, union = parts[..., 0], parts[..., 1]
+    dice = (2.0 * inter + epsilon) / (union + epsilon)
+    return torch.where(union == 0, torch.ones_like(dice), dice)
+
+
 def dice_coefficient(prediction_logits: torch.Tensor, target: torch.Tensor,
                      epsilon: float = 1e-7, threshold: float = 0.5) -> torch.Tensor:
     """Thresholded binary Dice over the whole batch; 1.0 where both the
     prediction and the target are empty (``union == 0``)."""
-    pred, tgt = _binary(prediction_logits, threshold), target.float()
-    union = pred.sum() + tgt.sum()
-    dice = (2.0 * (pred * tgt).sum() + epsilon) / (union + epsilon)
-    return torch.where(union == 0, torch.ones_like(dice), dice)
+    return dice_from_parts(dice_parts(prediction_logits, target, threshold), epsilon)
 
 
 def iou_score(prediction_logits: torch.Tensor, target: torch.Tensor,

@@ -10,6 +10,13 @@ loss, as JAX's step adds its ``aux_loss`` collection.
 Loss and Dice stay device scalars (no ``.item()``). The step updates the
 module, the optimizer and the step count in place, where the JAX step
 returns a new state.
+
+Given a ``mesh`` (``parallel/mesh.py``), each rank passes its rows of the
+global batch and the steps compute what JAX's GSPMD step computes over
+the whole batch: every batch statistic summed over the data group
+(``parallel/global_batch.py``), the gradients averaged over it before the
+clip (FSDP's come back averaged by their reduce-scatter), the loss the
+global mean and Dice one ratio of the global batch.
 """
 
 from __future__ import annotations
@@ -25,8 +32,16 @@ from unet_zoo_tpu_torch.data.augment import random_flips, step_generator
 from unet_zoo_tpu_torch.data.datasets import prepare_images, prepare_masks
 from unet_zoo_tpu_torch.models import ZooModel
 from unet_zoo_tpu_torch.nn.moe import aux_loss_modules, pop_aux_losses
+from unet_zoo_tpu_torch.parallel.global_batch import (
+    all_reduce_sum,
+    global_batch_statistics,
+    group_rank,
+    group_size,
+)
+from unet_zoo_tpu_torch.parallel.mesh import data_group_of
+from unet_zoo_tpu_torch.parallel.multihost import batch_rows
 from unet_zoo_tpu_torch.train.losses import bce_with_logits, multi_output_loss
-from unet_zoo_tpu_torch.train.metrics import dice_coefficient
+from unet_zoo_tpu_torch.train.metrics import dice_coefficient, dice_from_parts, dice_parts
 
 
 class ClipAdamW:
@@ -113,10 +128,26 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
     return state
 
 
+def mean_gradients(opt: ClipAdamW, group) -> None:
+    """Average every gradient over ``group`` in place (one all-reduce of the
+    gradients laid end to end). FSDP's DTensor gradients are left as they
+    are: their reduce-scatter has averaged them."""
+    from torch.distributed.tensor import DTensor
+
+    grads = opt.grads()
+    if group is None or any(isinstance(g, DTensor) for g in grads):
+        return
+    flat = torch._utils._flatten_dense_tensors(grads)
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= group_size(group)
+    for g, f in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+        g.copy_(f)
+
+
 def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
                     remat: bool = False, augment: bool = False,
                     accum_steps: int = 1,
-                    generator: Optional[torch.Generator] = None) -> Callable:
+                    generator: Optional[torch.Generator] = None, mesh=None) -> Callable:
     """``step(state, images, masks) -> {'loss', 'dice'}`` (device scalars).
 
     ``images`` [B, C, H, W] (uint8 pixels are normalised on the device) and
@@ -131,6 +162,12 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     depth (a module whose ``forward`` takes ``generator``: vnet,
     transatt_unet, swin_unet_v2, the unext family); else they draw from
     PyTorch's default generator.
+
+    ``mesh``: a data-parallel step (module docstring). Each rank passes its
+    rows of the global batch, laid out by ``parallel.multihost.batch_rows``
+    for ``accum_steps`` microbatches (``shard_batch``, or
+    ``prefetch_to_device(..., mesh=...)``); the flips are drawn for the
+    global batch.
     """
     if remat:
         raise NotImplementedError("remat=True (recomputing the forward in the backward) is "
@@ -141,12 +178,18 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     forward_kw = ({"generator": generator} if generator is not None
                   and "generator" in inspect.signature(module.forward).parameters else {})
 
+    group = data_group_of(mesh)
+    world, rank = group_size(group), group_rank(group)
+
     def step(state: TrainState, images: torch.Tensor, masks: torch.Tensor
              ) -> Dict[str, torch.Tensor]:
         images = prepare_images(images.to(device, non_blocking=True))
         masks = prepare_masks(masks.to(device, non_blocking=True))
         if augment:
-            images, masks = random_flips(step_generator(state.step, device), images, masks)
+            rows = (None if group is None
+                    else batch_rows(images.shape[0] * world, accum_steps, rank, world))
+            images, masks = random_flips(step_generator(state.step, device), images, masks,
+                                         rows, images.shape[0] * world)
         if images.shape[0] % accum_steps:
             raise ValueError(f"batch {images.shape[0]} not divisible by accum_steps "
                              f"{accum_steps}")
@@ -154,16 +197,26 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
         opt = state.optimizer
         opt.zero_grad()
         loss_sum = dice_sum = 0.0
-        for xb, mb in zip(images.chunk(accum_steps), masks.chunk(accum_steps)):
-            outputs = state.module(xb, **forward_kw)
-            loss = multi_output_loss(outputs, mb, model.loss_weight, criterion)
-            for aux in pop_aux_losses(aux_modules):
-                loss = loss + aux
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-            dice_sum = dice_sum + dice_coefficient(outputs["main"].detach(), mb)
+        parts = []
+        with global_batch_statistics(group):
+            for xb, mb in zip(images.chunk(accum_steps), masks.chunk(accum_steps)):
+                outputs = state.module(xb, **forward_kw)
+                loss = multi_output_loss(outputs, mb, model.loss_weight, criterion)
+                for aux in pop_aux_losses(aux_modules):
+                    loss = loss + aux
+                loss.backward()
+                loss_sum = loss_sum + loss.detach()
+                if group is None:
+                    dice_sum = dice_sum + dice_coefficient(outputs["main"].detach(), mb)
+                else:
+                    parts.append(dice_parts(outputs["main"].detach(), mb))
         if accum_steps > 1:
             torch._foreach_div_(opt.grads(), float(accum_steps))
+        if group is not None:
+            mean_gradients(opt, group)
+            sums = all_reduce_sum(torch.cat([loss_sum.reshape(1), torch.cat(parts)]), group)
+            loss_sum = sums[0] / world
+            dice_sum = dice_from_parts(sums[1:].reshape(-1, 2)).sum()
         opt.step()
         state.step += 1
         return {"loss": loss_sum / accum_steps, "dice": dice_sum / accum_steps}
@@ -171,13 +224,17 @@ def make_train_step(model: ZooModel, criterion: Callable = bce_with_logits,
     return step
 
 
-def make_eval_step(model: ZooModel, criterion: Callable = bce_with_logits) -> Callable:
+def make_eval_step(model: ZooModel, criterion: Callable = bce_with_logits,
+                   mesh=None) -> Callable:
     """``eval_step(variables, images, masks) -> {'loss', 'dice', 'main'}``:
     ``variables`` (a ``state_dict``, e.g. :func:`variables_of`, or None for
     the module's own weights) loaded into ``model.module``, which runs in
-    eval mode, with no gradients."""
+    eval mode, with no gradients. With a ``mesh`` each rank passes its rows;
+    loss and Dice are the global batch's (the module docstring) and 'main'
+    is this rank's rows' logits."""
     module = model.module
     device = next(module.parameters()).device
+    group = data_group_of(mesh)
 
     @torch.no_grad()
     def eval_step(variables: Optional[Mapping[str, torch.Tensor]], images: torch.Tensor,
@@ -189,11 +246,17 @@ def make_eval_step(model: ZooModel, criterion: Callable = bce_with_logits) -> Ca
         training = module.training
         module.eval()
         try:
-            outputs = module(images)
+            with global_batch_statistics(group):
+                outputs = module(images)
         finally:
             module.train(training)
         loss = multi_output_loss(outputs, masks, model.loss_weight, criterion)
-        return {"loss": loss, "dice": dice_coefficient(outputs["main"], masks),
+        if group is None:
+            return {"loss": loss, "dice": dice_coefficient(outputs["main"], masks),
+                    "main": outputs["main"]}
+        sums = all_reduce_sum(torch.cat([loss.reshape(1), dice_parts(outputs["main"], masks)]),
+                              group)
+        return {"loss": sums[0] / group_size(group), "dice": dice_from_parts(sums[1:]),
                 "main": outputs["main"]}
 
     return eval_step

@@ -119,6 +119,7 @@ def make_predictor(
     cast_bf16: bool = True,
     tta: bool = False,
     quant: Optional[Mapping[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``predict(images [B, C, H, W]) -> main output`` closure.
 
@@ -133,6 +134,12 @@ def make_predictor(
     works on a frozen copy of the module (``predict.module``; with its
     output step, ``predict.served``): later changes to ``model`` do not
     reach it.
+
+    With a ``mesh`` (``parallel.create_mesh``) every rank calls ``predict``
+    on the same global batch: the served weights are rank 0's on every
+    rank, each rank runs its rows of the batch (batch statistics, such as
+    vnet's, over the global batch) and every rank returns the whole batch's
+    output, gathered, as JAX returns one global array.
     """
     if output not in _OUTPUTS:
         raise ValueError(f"output must be one of {_OUTPUTS}, got {output!r}")
@@ -164,7 +171,31 @@ def make_predictor(
 
     predict.module = net
     predict.served = served
-    return predict
+    if mesh is None:
+        return predict
+    return _sharded(predict, net, mesh)
+
+
+def _sharded(predict, net: nn.Module, mesh):
+    """``predict`` over ``mesh``: rank 0's weights, this rank's rows of each
+    global batch, the whole output gathered on every rank."""
+    from unet_zoo_tpu_torch.parallel import global_batch_statistics, replicate_state, shard_batch
+    from unet_zoo_tpu_torch.parallel.mesh import data_group_of
+
+    replicate_state(mesh, net)
+    group = data_group_of(mesh)
+
+    @torch.inference_mode()
+    def predict_sharded(images: torch.Tensor) -> torch.Tensor:
+        with global_batch_statistics(group):
+            local = predict(shard_batch(mesh, images)).contiguous()
+        out = local.new_empty((local.shape[0] * torch.distributed.get_world_size(group),
+                               *local.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, local, group=group)
+        return out
+
+    predict_sharded.module, predict_sharded.served = predict.module, predict.served
+    return predict_sharded
 
 
 def hann_window(tile: int) -> torch.Tensor:
